@@ -1,0 +1,206 @@
+"""Causal language model serving path (port of ``repro.models.lm``,
+dense family, ring KV pool): init, prefill, decode.
+
+A Python loop over layers replaces the reference's ``lax.scan``; the
+parameter tree keeps the reference's layout (``blocks`` leaves stacked
+on a leading layer axis, quantized leaves as ``StackedQTensor``).  The
+KV pool is updated in place where the reference donates its buffers.
+
+Entry points take ``device=`` (default ``"cuda"``) and raise when CUDA is
+missing; tests pass ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import quantize_kv
+from repro_torch.device import resolve_device
+from repro_torch.models import blocks as blk
+from repro_torch.models.common import ModelConfig
+from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.sail_linear import mm
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device="cuda") -> Dict[str, Any]:
+    """Random weights with the reference's distributions (truncated
+    normal on +-2 sigma, 1/sqrt(fan_in), embedding scaled by
+    sqrt(d_model)).  ``generator`` must live on ``device``; the numbers
+    differ from the reference's ``jax.random`` ones."""
+    dev = resolve_device(device)
+    return {
+        "embed": dense_init(generator, (cfg.vocab, cfg.d_model),
+                            fan_in=cfg.vocab, device=dev)
+        * cfg.d_model ** 0.5,
+        "blocks": blk.block_init(generator, cfg, cfg.n_layers, device=dev),
+        "final_norm": norm_init(cfg, device=dev),
+        "lm_head": dense_init(generator, (cfg.d_model, cfg.vocab), device=dev),
+    }
+
+
+def layer_params(blocks: Dict[str, Any], i: int):
+    """Layer ``i`` of the stacked block tree (QTensor for quantized
+    leaves)."""
+    if isinstance(blocks, dict):
+        return {k: layer_params(v, i) for k, v in blocks.items()}
+    if isinstance(blocks, (list, tuple)):
+        raise NotImplementedError(
+            "segmented block stacks (mixed precision) are not ported yet: "
+            "ROADMAP Queue 1 item 7")
+    return blocks[i]
+
+
+def n_layers(params) -> int:
+    leaf = params["blocks"]["attn_norm"]["scale"]
+    return leaf.shape[0]
+
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
+    blk.check_supported(cfg)
+    return params["embed"][tokens]
+
+
+def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return mm(x, params["lm_head"])
+
+
+def _tokens(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, torch.Tensor):
+        return tokens.to(device=device, dtype=torch.int64)
+    return torch.from_numpy(np.array(tokens, dtype=np.int64)).to(device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               quant_kv: bool = False, device="cuda") -> Dict[str, Any]:
+    """The stacked per-layer decode cache: the engine's fixed slot pool
+    ``[L, batch, cache_len, KV, Dh]`` (int8 codes + f32 scales when
+    ``quant_kv``), plus per-lane ``length``."""
+    dev = resolve_device(device)
+    kv_shape = (cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.head_dim)
+    sc_shape = kv_shape[:-1] + (1,)
+    kv_dtype = torch.int8 if quant_kv else torch.float32
+    layers = {"k": torch.zeros(kv_shape, dtype=kv_dtype, device=dev),
+              "v": torch.zeros(kv_shape, dtype=kv_dtype, device=dev)}
+    if quant_kv:
+        layers["k_scale"] = torch.zeros(sc_shape, device=dev)
+        layers["v_scale"] = torch.zeros(sc_shape, device=dev)
+    return {"length": torch.zeros((batch,), dtype=torch.int32, device=dev),
+            "layers": layers}
+
+
+def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
+            quant_kv: bool = False, lengths=None, device="cuda"):
+    """Process right-padded prompts [B, T]; build their decode cache and
+    return the logits at each prompt's last token ([B, V], cache)."""
+    dev = resolve_device(device)
+    tokens = _tokens(tokens, dev)
+    b, t = tokens.shape
+    lengths = (torch.full((b,), t, dtype=torch.int32, device=dev)
+               if lengths is None
+               else torch.as_tensor(lengths, dtype=torch.int32, device=dev))
+    x = embed_tokens(params, tokens, cfg)
+    positions = torch.arange(t, device=dev).expand(b, t)
+    ks, vs = [], []
+    for i in range(n_layers(params)):
+        x, cache = blk.block_apply_seq(layer_params(params["blocks"], i), x,
+                                       cfg, positions, collect_cache=True)
+        ks.append(cache["kv"]["k"])
+        vs.append(cache["kv"]["v"])
+    x = apply_norm(params["final_norm"], x, cfg)
+    last = x[torch.arange(b, device=dev), (lengths - 1).long()][:, None]
+    logits = lm_logits(params, last, cfg)[:, 0]
+
+    # assemble the ring cache from the collected per-layer K/V
+    k_new, v_new = torch.stack(ks), torch.stack(vs)    # [L, B, T, KV, Dh]
+    pad = cache_len - t
+    if pad >= 0:
+        padkv = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
+        k_new, v_new = padkv(k_new), padkv(v_new)
+    else:
+        # the reference keeps the last cache_len positions in slots
+        # 0..cache_len-1 (lm.py:362-364), which disagrees with the
+        # position % S layout decode assumes; reproduced as it is
+        k_new, v_new = k_new[:, :, -cache_len:], v_new[:, :, -cache_len:]
+    if quant_kv:
+        kq, ksc = quantize_kv(k_new)
+        vq, vsc = quantize_kv(v_new)
+        layers = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+    else:
+        layers = {"k": k_new.contiguous(), "v": v_new.contiguous()}
+    return logits, {"length": lengths, "layers": layers}
+
+
+def _scatter_slots(pool: Dict[str, Any], fresh: Dict[str, Any],
+                   slots: torch.Tensor) -> Dict[str, Any]:
+    """Write a freshly prefilled batch-b cache into pool rows ``slots``,
+    in place; untouched slots keep their contents bit for bit."""
+    for name, dst in pool["layers"].items():
+        dst[:, slots] = fresh["layers"][name].to(dst.dtype)
+    pool["length"][slots] = fresh["length"]
+    return pool
+
+
+def prefill_into_slot(params, tokens, cache, slot, cfg: ModelConfig,
+                      quant_kv: bool = False, lengths=None, device="cuda"):
+    """Prefill request(s) and write their KV into rows ``slot`` (int or
+    [b]) of the engine's pool.  Returns (last-token logits [b, V], pool)."""
+    dev = resolve_device(device)
+    slots = torch.atleast_1d(torch.as_tensor(slot, dtype=torch.int64,
+                                             device=dev))
+    cache_len = cache["layers"]["k"].shape[2]
+    logits, fresh = prefill(params, tokens, cfg, cache_len=cache_len,
+                            quant_kv=quant_kv, lengths=lengths, device=dev)
+    return logits, _scatter_slots(cache, fresh, slots)
+
+
+def decode_step(params, tokens, cache, cfg: ModelConfig,
+                quant_kv: bool = False, active_mask=None, device="cuda"):
+    """One decode step: tokens [B, 1] -> (logits [B, V], cache).
+
+    The cache is updated in place.  ``active_mask`` [B] bool: retired
+    lanes still flow through the matmuls but their ``length`` does not
+    advance."""
+    dev = resolve_device(device)
+    tokens = _tokens(tokens, dev)
+    position = cache["length"]
+    x = embed_tokens(params, tokens, cfg)
+    cache_len = cache["layers"]["k"].shape[2]
+    for i in range(n_layers(params)):
+        layer_cache = {name: a[i] for name, a in cache["layers"].items()}
+        x = blk.block_apply_decode(layer_params(params["blocks"], i), x, cfg,
+                                   layer_cache, position, cache_len,
+                                   quant_kv=quant_kv)
+    x = apply_norm(params["final_norm"], x, cfg)
+    logits = lm_logits(params, x, cfg)[:, 0]
+    if active_mask is None:
+        cache["length"] = position + 1
+    else:
+        mask = torch.as_tensor(active_mask, device=dev).to(torch.int32)
+        cache["length"] = position + mask
+    return logits, cache
+
+
+def greedy_generate(params, prompt, cfg: ModelConfig, max_new: int,
+                    cache_len: Optional[int] = None, quant_kv: bool = False,
+                    device="cuda") -> torch.Tensor:
+    """Reference generation loop (the serving engine uses its own)."""
+    dev = resolve_device(device)
+    prompt = _tokens(prompt, dev)
+    b, t = prompt.shape
+    cache_len = cache_len or (t + max_new)
+    if cfg.window is not None:
+        cache_len = min(cache_len, cfg.window)
+    logits, cache = prefill(params, prompt, cfg, cache_len, quant_kv,
+                            device=dev)
+    out = []
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    for _ in range(max_new):
+        out.append(tok)
+        logits, cache = decode_step(params, tok, cache, cfg, quant_kv,
+                                    device=dev)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+    return torch.cat(out, dim=1)
+

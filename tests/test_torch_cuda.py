@@ -1,0 +1,109 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the
+card.  Marked ``cuda``: they skip where torch sees no CUDA device (the
+kernels have no interpret mode) and run on an H100 with
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+import torch
+
+from repro_torch.core.quant import QTensor, _uniform_codebook, \
+    quantize_activations, quantize_kv, words_per_group
+from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attn import ref as da_ref
+from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
+from repro_torch.kernels.lut_gemv import ref as lut_ref
+from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda, \
+    lut_matmul_int_cuda
+from repro_torch.kernels.typeconv.kernel import int_to_f32_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def _qt(gen, k, n, bits, group, integer=False):
+    rows = (k // group) * words_per_group(bits, group)
+    packed = torch.randint(-2**31, 2**31, (rows, n), dtype=torch.int64,
+                           device="cuda", generator=gen).to(torch.int32)
+    if integer:
+        scales = torch.ones((k // group, n), device="cuda")
+        book = torch.arange(1 << bits, device="cuda",
+                            dtype=torch.float32) - (1 << (bits - 1))
+    else:
+        scales = torch.rand((k // group, n), device="cuda", generator=gen)
+        book = _uniform_codebook(bits, device="cuda")
+    return QTensor(packed=packed, scales=scales, codebook=book, bits=bits,
+                   group_size=group, k=k)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 8])
+@pytest.mark.parametrize("mkn", [(8, 1024, 256), (3, 192, 70), (37, 256, 33)])
+def test_lut_matmul_kernel_matches_plain(gen, bits, mkn):
+    m, k, n = mkn
+    group = 64
+    qt = _qt(gen, k, n, bits, group)
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    before = _build.launches["lut_matmul"]
+    y = lut_matmul_cuda(x, qt)
+    assert _build.launches["lut_matmul"] == before + 1
+    torch.testing.assert_close(y, lut_ref.lut_matmul_ref(x, qt), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("abits", [4, 6, 8])
+def test_int_kernel_bit_equal_on_integer_data(gen, bits, abits):
+    m, k, n = 9, 512, 100
+    qt = _qt(gen, k, n, bits, 128, integer=True)
+    xq, xs = quantize_activations(
+        torch.randn((m, k), device="cuda", generator=gen), abits)
+    y = lut_matmul_int_cuda(xq, xs, qt, abits)
+    assert torch.equal(y, lut_ref.lut_matmul_ref_int(xq, xs, qt))
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("d", [8, 32, 64])
+def test_decode_attention_kernel_matches_plain(gen, quantized, ring, d):
+    b, kv, g, s = 3, 2, 4, 300
+    q = torch.randn((b, kv * g, d), device="cuda", generator=gen)
+    k = torch.randn((b, s, kv, d), device="cuda", generator=gen)
+    v = torch.randn((b, s, kv, d), device="cuda", generator=gen)
+    ks = vs = None
+    if quantized:
+        (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    if ring:
+        pos = torch.tensor([4, 299, 650], dtype=torch.int32, device="cuda")
+        got = decode_attention_cuda(q, k, v, pos, ks, vs, 200, ring=True)
+        want = da_ref.decode_attention_ring_ref(q, k, v, pos, 200, ks, vs)
+    else:
+        lens = torch.tensor([1, 150, 300], dtype=torch.int32, device="cuda")
+        got = decode_attention_cuda(q, k, v, lens, ks, vs, 64, ring=False)
+        want = da_ref.decode_attention_ref(q, k, v, lens, ks, vs, 64)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [2, 8, 16, 25])
+def test_typeconv_kernel_bit_equal(gen, n):
+    lim = 1 << (n - 1)
+    a = torch.randint(-lim + 1, lim, (1000,), device="cuda", generator=gen,
+                      dtype=torch.int32)
+    assert torch.equal(int_to_f32_cuda(a, n), a.float())
+
+
+def test_kernels_refuse_what_they_do_not_take(gen):
+    qt = _qt(gen, 256, 64, 4, 64)
+    with pytest.raises(ValueError):
+        lut_matmul_cuda(torch.randn((4, 256), device="cuda").t().contiguous()
+                        .t(), qt)                # not contiguous
+    with pytest.raises(ValueError):
+        lut_matmul_cuda(torch.randn((4, 128), device="cuda"), qt)   # K
+    with pytest.raises(ValueError):
+        int_to_f32_cuda(torch.zeros(4, device="cuda"), 8)           # dtype
