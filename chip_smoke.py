@@ -11,13 +11,18 @@ Phases (each passes or the script exits nonzero):
      the main path's shapes, then timed (CUDA events, median of 30 launches,
      L2 flushed before each) beside its plain version, one PyTorch library
      call and its bound;
-  3. model  — full-width tinymistral_248m (random weights, seed 0, uniform:4,
-     int8 KV): one prefill of 2 prompts and 4 greedy decode steps on the card
-     through the kernels and on the CPU through the plain versions; logits
-     must agree and tokens must be identical;
+  3. model  — full-width tinymistral_248m (random weights, seed 0, int8 KV):
+     one prefill of 2 prompts and 4 greedy decode steps on the card through
+     the kernels and on the CPU through the plain versions.  Under uniform:4
+     the logits must agree and the tokens must be identical; under
+     uniform:4a8, where int8 activation rounding amplifies f32 rounding
+     differences, every int LUT-GEMV launch of the card run must agree with
+     its plain version on the same inputs;
   4. engine — the continuous-batching Engine serves 16 requests under
      uniform:4 and uniform:4a8; the kernels' launch counters must show every
-     decode step went through the LUT-GEMV and decode-attention kernels.
+     decode step sent all 85 weight matmuls through the plan's LUT-GEMV and
+     every layer's attention through the decode-attention kernel, and the
+     other LUT-GEMV was not launched.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -41,7 +46,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 
 # Tolerances.  The f32 LUT-GEMV sums K <= 4096 products in another order than
-# the plain version's matmul, so results differ by f32 rounding of that sum;
+# the plain version's matmul, so results differ by f32 rounding of that sum
+# (the integer path on quantized data too, before its per-row scale);
 # the integer path is exact on integer-valued data (integer codebook, unit
 # scales, every partial sum below 2**24) and must be bit-equal; decode
 # attention keeps the reference tests' 2e-5 (tests/test_kernels.py:80); the
@@ -216,22 +222,35 @@ def phase_kernels(rt):
     group = 128
 
     # --- LUT-GEMV: correctness grid --------------------------------------
+    # f32 path and int path on quantized data (real codebook and scales,
+    # activations quantized from f32 as the model does) within rtol/atol;
+    # int path on integer-valued data bit-equal
     errs = {"lut_matmul": 0.0, "lut_matmul_int": 0.0}
+    int_real_err = 0.0
+
+    def within(name, y, ref):
+        err = (y - ref).abs()
+        if not bool((err <= LUT_ATOL + LUT_RTOL * ref.abs()).all()):
+            fail(f"{name}: max err {err.max().item():.3e}")
+        return err.max().item()
+
     shapes = sorted(set(MATMULS.values()))
     for m in (8, 64):
         for k, n in shapes:
             for bits in (2, 3, 4, 8):
+                case = f"m={m} k={k} n={n} b={bits}"
                 qt = rand_qtensor(torch, gen, k, n, bits, group, False)
                 x = torch.randn((m, k), device="cuda", generator=gen)
-                y = lut_matmul_cuda(x, qt)
-                ref = lut_matmul_ref(x, qt)
-                err = (y - ref).abs()
-                if not bool((err <= LUT_ATOL + LUT_RTOL * ref.abs()).all()):
-                    fail(f"lut_matmul m={m} k={k} n={n} b={bits}: max err "
-                         f"{err.max().item():.3e}")
-                errs["lut_matmul"] = max(errs["lut_matmul"], err.max().item())
+                errs["lut_matmul"] = max(errs["lut_matmul"], within(
+                    f"lut_matmul {case}", lut_matmul_cuda(x, qt),
+                    lut_matmul_ref(x, qt)))
                 qi = rand_qtensor(torch, gen, k, n, bits, group, True)
                 for abits in (4, 8):
+                    xq, xs = quantize_activations(x, abits)
+                    int_real_err = max(int_real_err, within(
+                        f"lut_matmul_int {case} a={abits} (quantized data)",
+                        lut_matmul_int_cuda(xq, xs, qt, abits),
+                        lut_matmul_ref_int(xq, xs, qt)))
                     qmax = (1 << (abits - 1)) - 1
                     xq = torch.randint(-qmax, qmax + 1, (m, k), device="cuda",
                                        generator=gen, dtype=torch.int32)
@@ -239,14 +258,17 @@ def phase_kernels(rt):
                                            generator=gen)
                     yi = lut_matmul_int_cuda(xq, xs, qi, abits)
                     refi = lut_matmul_ref_int(xq, xs, qi)
+                    err = (yi - refi).abs().max().item()
                     if not torch.equal(yi, refi):
-                        fail(f"lut_matmul_int m={m} k={k} n={n} b={bits} "
-                             f"a={abits}: not bit-equal, max err "
-                             f"{(yi - refi).abs().max().item():.3e}")
+                        fail(f"lut_matmul_int {case} a={abits}: not "
+                             f"bit-equal, max err {err:.3e}")
+                    errs["lut_matmul_int"] = max(errs["lut_matmul_int"], err)
     torch.cuda.synchronize()
     log(f"[kernels] lut_matmul: 40 cases within rtol {LUT_RTOL} / atol "
         f"{LUT_ATOL} (max abs err {errs['lut_matmul']:.3e}); lut_matmul_int:"
-        " 80 cases bit-equal")
+        f" 80 cases on quantized data within the same (max abs err "
+        f"{int_real_err:.3e}), 80 cases on integer data bit-equal (max abs "
+        f"err {errs['lut_matmul_int']:.3e})")
 
     # --- LUT-GEMV: timing at the decode shapes (M = 8, b = 4) -------------
     lut_rows = {"lut_matmul": [], "lut_matmul_int": []}
@@ -344,13 +366,18 @@ def phase_kernels(rt):
         bound_ms=a_bound, bound_by=a_by)
 
     # --- typeconv ---------------------------------------------------------
+    tc_err = 0.0
     for n_bits in (8, 16, 25):
         lim = 1 << (n_bits - 1)
         a = torch.randint(-lim + 1, lim, (64, 4096), device="cuda",
                           generator=gen, dtype=torch.int32)
-        if not torch.equal(int_to_f32_cuda(a, n_bits), a.float()):
-            fail(f"int_to_f32 n={n_bits}: not bit-equal to .float()")
-    log("[kernels] int_to_f32: n in {8, 16, 25} bit-equal to .float()")
+        out = int_to_f32_cuda(a, n_bits)
+        tc_err = max(tc_err, (out - a.float()).abs().max().item())
+        if not torch.equal(out, a.float()):
+            fail(f"int_to_f32 n={n_bits}: not bit-equal to .float(), max "
+                 f"err {tc_err:.3e}")
+    log(f"[kernels] int_to_f32: n in {{8, 16, 25}} bit-equal to .float() "
+        f"(max abs err {tc_err:.3e})")
     a = torch.randint(-127, 128, (64, 4096), device="cuda", generator=gen,
                       dtype=torch.int32)
     t_bound, t_by = bound_ms(8 * a.numel(), logic_ops(8) * a.numel())
@@ -364,10 +391,11 @@ def phase_kernels(rt):
                            max_abs_err=errs["lut_matmul"],
                            shapes=lut_rows["lut_matmul"]),
         "lut_matmul_int": dict(per_step(lut_rows["lut_matmul_int"]),
-                               max_abs_err=0.0,
+                               max_abs_err=max(errs["lut_matmul_int"],
+                                               int_real_err),
                                shapes=lut_rows["lut_matmul_int"]),
         "decode_attention": dict(attn_row, max_abs_err=attn_err),
-        "int_to_f32": dict(tc_row, max_abs_err=0.0),
+        "int_to_f32": dict(tc_row, max_abs_err=tc_err),
     }
     for name, row in rt["kernels"].items():
         log(f"[kernels] {name}: device {row['ms']:.4f} ms (plain "
@@ -413,35 +441,115 @@ def phase_model(rt):
     from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
         quantize_params
     cfg, raw = full_model(rt)
-    params, b0, b1 = quantize_params(raw, QuantPolicy(bits=4, group_size=128,
-                                                      min_size=1024))
     rng = np.random.default_rng(0)
     lengths = np.array([40, 27], np.int32)
     toks = np.zeros((2, 48), np.int64)
     for i, n in enumerate(lengths):
         toks[i, :n] = rng.integers(0, cfg.vocab, size=n)
-    t0 = time.perf_counter()
-    gl, gt = run_greedy(torch, lm, params, cfg, toks, lengths, 4, "cuda")
-    torch.cuda.synchronize()
-    t_gpu = time.perf_counter() - t0
-    cpu_params = map_tensors(params, lambda t: t.cpu())
-    t0 = time.perf_counter()
-    cl, ct = run_greedy(torch, lm, cpu_params, cfg, toks, lengths, 4, "cpu")
-    t_cpu = time.perf_counter() - t0
-    err = (gl - cl).abs().max().item()
-    log(f"[model] tinymistral_248m full width, uniform:4 ({b0 / b1:.2f}x "
-        f"smaller weights), int8 KV: prefill [2, 48] + 4 decode steps; card "
-        f"{t_gpu:.2f} s, CPU {t_cpu:.2f} s; logits max abs err {err:.3e} "
-        f"(max |logit| {cl.abs().max().item():.2f})")
-    if not torch.isfinite(gl).all():
-        fail("non-finite logits on the card")
-    if not torch.allclose(gl, cl, rtol=MODEL_RTOL, atol=MODEL_ATOL):
-        fail(f"card and CPU logits differ by {err:.3e}")
-    if not torch.equal(gt, ct):
-        fail(f"greedy tokens differ: card {gt.T.tolist()} CPU "
-             f"{ct.T.tolist()}")
-    log(f"[model] greedy tokens identical on card and CPU: {gt.T.tolist()}")
-    rt["model_err"] = err
+    rt["model_err"] = {}
+    for plan, act_bits in (("uniform:4", None), ("uniform:4a8", 8)):
+        params, b0, b1 = quantize_params(raw, QuantPolicy(
+            bits=4, group_size=128, min_size=1024, act_bits=act_bits))
+        t0 = time.perf_counter()
+        if act_bits is None:
+            gl, gt = run_greedy(torch, lm, params, cfg, toks, lengths, 4,
+                                "cuda")
+        else:
+            (gl, gt), held = run_held(torch, lm, params, cfg, toks, lengths)
+        torch.cuda.synchronize()
+        t_gpu = time.perf_counter() - t0
+        cpu_params = map_tensors(params, lambda t: t.cpu())
+        t0 = time.perf_counter()
+        cl, ct = run_greedy(torch, lm, cpu_params, cfg, toks, lengths, 4,
+                            "cpu")
+        t_cpu = time.perf_counter() - t0
+        if act_bits is not None:
+            pl = run_perturbed(torch, lm, cpu_params, cfg, toks, lengths)
+            noise_err = (pl - cl).abs().max().item()
+        del params, cpu_params
+        err = (gl - cl).abs().max().item()
+        log(f"[model] tinymistral_248m full width, {plan} ({b0 / b1:.2f}x "
+            f"smaller weights), int8 KV: prefill [2, 48] + 4 decode steps; "
+            f"card {t_gpu:.2f} s, CPU {t_cpu:.2f} s; logits max abs err "
+            f"{err:.3e} (max |logit| {cl.abs().max().item():.2f}); greedy "
+            f"tokens card {gt.T.tolist()} CPU {ct.T.tolist()}")
+        if (tuple(gl.shape) != (5, 2, cfg.vocab)
+                or not torch.isfinite(gl).all()):
+            fail(f"{plan}: card logits of shape {tuple(gl.shape)}, or not "
+                 "finite")
+        rt["model_err"][plan] = err
+        if act_bits is not None:
+            # int8 activation rounding turns f32 rounding differences into
+            # logit differences as large as the card's (the CPU against
+            # itself with f32-rounding-sized noise shows how large), so the
+            # card is held to its plain version launch by launch, on the
+            # card's own inputs, instead of end to end
+            # prefill and 4 decode steps, 85 weight matmuls each
+            if held["calls"] < 5 * ((len(MATMULS) - 1) * cfg.n_layers + 1):
+                fail(f"{plan}: only {held['calls']} int LUT-GEMV launches")
+            log(f"[model] {plan}: all {held['calls']} int LUT-GEMV launches "
+                f"within rtol {LUT_RTOL} / atol {LUT_ATOL} of their plain "
+                f"version on the same inputs (max abs err "
+                f"{held['err']:.3e}); card vs CPU not compared end to end: "
+                f"the CPU against itself with activations scaled by 1 + "
+                f"1e-7 N(0, 1) before each quantization differs by "
+                f"{noise_err:.3e}")
+            rt["model_err"][plan + " per launch"] = held["err"]
+            rt["model_err"][plan + " CPU vs CPU with noise"] = noise_err
+            continue
+        if not torch.allclose(gl, cl, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+            fail(f"{plan}: card and CPU logits differ by {err:.3e}")
+        if not torch.equal(gt, ct):
+            fail(f"{plan}: greedy tokens differ")
+        log(f"[model] {plan}: logits within rtol {MODEL_RTOL} / atol "
+            f"{MODEL_ATOL}, greedy tokens identical on card and CPU")
+
+
+def run_held(torch, lm, params, cfg, toks, lengths):
+    """``run_greedy`` on the card with every int LUT-GEMV launch held
+    against its plain version on the same inputs (LUT tolerance)."""
+    from repro_torch.kernels.lut_gemv import ops
+    from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref_int
+    kernel = ops.lut_matmul_int_cuda
+    held = {"calls": 0, "err": 0.0}
+
+    def checked(xq, xs, qt, abits):
+        y = kernel(xq, xs, qt, abits)
+        ref = lut_matmul_ref_int(xq, xs, qt)
+        err = (y - ref).abs()
+        if not bool((err <= LUT_ATOL + LUT_RTOL * ref.abs()).all()):
+            fail(f"int LUT-GEMV in the model, x {tuple(xq.shape)} N={qt.n}:"
+                 f" max err {err.max().item():.3e}")
+        held["calls"] += 1
+        held["err"] = max(held["err"], err.max().item())
+        return y
+
+    ops.lut_matmul_int_cuda = checked
+    try:
+        out = run_greedy(torch, lm, params, cfg, toks, lengths, 4, "cuda")
+    finally:
+        ops.lut_matmul_int_cuda = kernel
+    return out, held
+
+
+def run_perturbed(torch, lm, params, cfg, toks, lengths):
+    """The logits of ``run_greedy`` on the CPU with every activation scaled
+    by 1 + 1e-7 N(0, 1) before its int8 quantization: noise of the size of
+    f32 rounding, which is all that separates the card's inputs from the
+    CPU's."""
+    from repro_torch.kernels.lut_gemv import ops
+    quantize = ops.quantize_activations
+    gen = torch.Generator().manual_seed(1)
+
+    def noisy(x, bits):
+        noise = torch.randn(x.shape, generator=gen, dtype=x.dtype)
+        return quantize(x * (1 + 1e-7 * noise), bits)
+
+    ops.quantize_activations = noisy
+    try:
+        return run_greedy(torch, lm, params, cfg, toks, lengths, 4, "cpu")[0]
+    finally:
+        ops.quantize_activations = quantize
 
 
 # ---------------------------------------------------------------------------
@@ -457,8 +565,8 @@ def phase_engine(rt):
     cfg, raw = full_model(rt)
     timer = Timer(torch)
     rt["engine"] = {}
-    for plan, lut in (("uniform:4", "lut_matmul"),
-                      ("uniform:4a8", "lut_matmul_int")):
+    for plan, lut, other in (("uniform:4", "lut_matmul", "lut_matmul_int"),
+                             ("uniform:4a8", "lut_matmul_int", "lut_matmul")):
         eng = Engine(raw, cfg, EngineConfig(
             batch_size=8, cache_len=512, quant_kv=True, plan=plan,
             group_size=128), device="cuda")
@@ -480,7 +588,12 @@ def phase_engine(rt):
             fail(f"{plan}: expected 16 completions of 32 tokens")
         if any(not 0 <= tok < cfg.vocab for t in toks for tok in t):
             fail(f"{plan}: token id out of range")
-        need = st["decode_iterations"] * cfg.n_layers
+        # every decode step: each layer's 7 weight matmuls and lm_head
+        # through the plan's LUT-GEMV, each layer's attention through the
+        # decode-attention kernel, and nothing through the other LUT-GEMV
+        need_lut = st["decode_iterations"] * (
+            (len(MATMULS) - 1) * cfg.n_layers + 1)
+        need_attn = st["decode_iterations"] * cfg.n_layers
         log(f"[engine] {plan}: {st['requests']} requests, "
             f"{st['generated_tokens']} tokens in {dt:.3f} s = "
             f"{st['generated_tokens'] / dt:.1f} tok/s; decode "
@@ -488,10 +601,11 @@ def phase_engine(rt):
             f"steps; mean latency {st['mean_latency_s']:.3f} s, p99 "
             f"{st['p99_latency_s']:.3f} s, mean TTFT {st['mean_ttft_s']:.3f}"
             f" s; launches {counts}")
-        if counts[lut] < need or counts["decode_attention"] < need:
-            fail(f"{plan}: {lut} launched {counts[lut]} and decode_attention "
-                 f"{counts['decode_attention']} times, need >= {need} "
-                 f"(decode steps x layers)")
+        if (counts[lut] < need_lut or counts["decode_attention"] < need_attn
+                or counts[other]):
+            fail(f"{plan}: {lut} launched {counts[lut]} times (need >= "
+                 f"{need_lut}), decode_attention {counts['decode_attention']}"
+                 f" (need >= {need_attn}), {other} {counts[other]} (need 0)")
         # where a decode step's time goes: its kernels alone (CUDA graph
         # replay of one full-pool step) against the eager step the engine
         # runs (kernels + Python + launch overhead)
@@ -516,30 +630,34 @@ def phase_engine(rt):
 
 
 def kernels_line(rt) -> dict:
+    """``launches`` is each kernel's count from the engine run of the plan
+    that routes through it (the standalone int_to_f32 is on neither path:
+    its device function is inlined into the int LUT-GEMV, so its count is
+    read from the uniform:4a8 run and is expected to be 0)."""
     meta = {
         "lut_matmul": ("src/repro_torch/csrc/lut_gemv.cu",
                        "src/repro/kernels/lut_gemv/kernel.py:138",
-                       "uniform:4", "decode step: 85 calls, M=8, b=4"),
+                       "uniform:4", True, "decode step: 85 calls, M=8, b=4"),
         "lut_matmul_int": ("src/repro_torch/csrc/lut_gemv.cu",
                            "src/repro/kernels/lut_gemv/kernel.py:174",
-                           "uniform:4a8", "decode step: 85 calls, M=8, b=4, "
-                           "abits=8"),
+                           "uniform:4a8", True, "decode step: 85 calls, M=8, "
+                           "b=4, abits=8"),
         "decode_attention": ("src/repro_torch/csrc/decode_attn.cu",
                              "src/repro/kernels/decode_attn/kernel.py:79",
-                             "uniform:4", "one launch: B=8 S=512 KV=8 G=4 "
-                             "D=32, int8 ring"),
+                             "uniform:4", True, "one launch: B=8 S=512 KV=8 "
+                             "G=4 D=32, int8 ring"),
         "int_to_f32": ("src/repro_torch/csrc/typeconv.cu",
-                       "src/repro/kernels/typeconv/kernel.py:75", None,
+                       "src/repro/kernels/typeconv/kernel.py:75",
+                       "uniform:4a8", False,
                        "one launch: [64, 4096] int32, n=8"),
     }
     out = []
-    for name, (src, replaces, plan, per) in meta.items():
+    for name, (src, replaces, plan, on_path, per) in meta.items():
         row = rt["kernels"][name]
         entry = {"name": name, "route": "cuda", "source": src,
                  "replaces": replaces,
-                 "launches": (rt["engine"][plan]["launches"][name]
-                              if plan else 0),
-                 "on_main_path": plan is not None, "per": per}
+                 "launches": rt["engine"][plan]["launches"][name],
+                 "launches_run": plan, "on_main_path": on_path, "per": per}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "shapes"):
             if key in row:

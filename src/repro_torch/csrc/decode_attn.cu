@@ -177,7 +177,8 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
 // [B, S, KV, 1] f32) or f32; lens int32 [B] (lengths, or positions when
 // ring != 0); out f32 [B, H, D].  window <= 0 means none in lengths mode; in
 // ring mode it is the effective window (the model's, else the ring size).
-// Requires H % KV == 0 and (H / KV) * D <= 1024; the wrapper checks.
+// Requires H % KV == 0, (H / KV) * D <= 1024 and a dynamic shared memory of
+// at most 48 KB (the launch does not opt in to more); the wrapper checks.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,
                                       const void* lens, void* out, int B, int H, int KV,

@@ -17,6 +17,14 @@ import torch
 from repro_torch.kernels import _build
 
 MAX_GD = 1024        # (H / KV) * D accumulators spread over 128 threads
+TB = 128             # positions per chunk and threads per block (the .cu)
+MAX_SMEM = 48 << 10  # dynamic shared memory a launch gets without opting in
+
+
+def smem_bytes(g: int, d: int) -> int:
+    """Dynamic shared memory of one block: the group's queries [G, D], the
+    chunk's scores [G, TB] and the running max, sum and rescale [3, G]."""
+    return 4 * (g * d + g * TB + 3 * g)
 
 
 @functools.cache
@@ -37,9 +45,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, S, KV, 1]) or f32; lens int32 [B] — lengths, or absolute positions
     when ``ring``.  Returns f32 [B, H, D]."""
     dev = q.device
-    if dev.type != "cuda" or q.dtype != torch.float32 or q.ndim != 3:
-        raise ValueError(f"q must be f32 [B, H, D] on CUDA, got {q.dtype} "
-                         f"{tuple(q.shape)} on {dev}")
+    if q.dtype != torch.float32 or q.ndim != 3:
+        raise ValueError(f"q must be f32 [B, H, D], got {q.dtype} "
+                         f"{tuple(q.shape)}")
     b, h, d = q.shape
     if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"k must be [B, S, KV, D] matching q, got "
@@ -50,6 +58,10 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if h % kv or (h // kv) * d > MAX_GD:
         raise ValueError(f"H={h}, KV={kv}, D={d}: need H % KV == 0 and "
                          f"(H/KV)*D <= {MAX_GD}")
+    if smem_bytes(h // kv, d) > MAX_SMEM:
+        raise ValueError(f"G={h // kv}, D={d}: a block needs "
+                         f"{smem_bytes(h // kv, d)} bytes of shared memory, "
+                         f"more than the {MAX_SMEM} a launch gets")
     quantized = k_scale is not None
     if quantized:
         if k.dtype != torch.int8 or v_scale is None:
@@ -63,6 +75,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"unscaled K/V must be f32, got {k.dtype}")
     if lens.dtype != torch.int32 or tuple(lens.shape) != (b,):
         raise ValueError(f"lens must be int32 [{b}]")
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
+                         f"device {dev}")
     for t in (q, k, v, lens):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("decode_attention_cuda needs contiguous "

@@ -16,6 +16,7 @@ from repro.models import blocks as jblocks
 from repro.models.common import ModelConfig as JModelConfig
 from repro_torch.core import quant as tq
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attn import kernel as tda_kernel
 from repro_torch.kernels.decode_attn import ops as tda_ops
 from repro_torch.kernels.lut_gemv import ops as tlut_ops
 from repro_torch.models import blocks as tblocks
@@ -182,6 +183,24 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
     assert all(v == 0 for v in _build.launches.values())
     with pytest.raises(ValueError, match="device"):
         tlut_ops.lut_matmul(torch.empty((4, 64), device="meta"), qt)
+
+
+@pytest.mark.parametrize("g, d, fits", [(4, 32, True), (32, 32, True),
+                                        (128, 8, False)])
+def test_decode_attention_wrapper_refuses_what_cannot_launch(g, d, fits):
+    """Shapes whose block needs more than 48 KB of shared memory raise a
+    ValueError before any launch; shapes that fit pass the shape checks
+    and stop only at the device check (these tensors are on ``meta``)."""
+    _build.reset_launches()
+    kv = 2
+    q = torch.empty((1, kv * g, d), device="meta")
+    k = torch.empty((1, 16, kv, d), device="meta")
+    lens = torch.empty((1,), dtype=torch.int32, device="meta")
+    assert (tda_kernel.smem_bytes(g, d) <= tda_kernel.MAX_SMEM) == fits
+    with pytest.raises(ValueError, match="CUDA" if fits else "shared memory"):
+        tda_kernel.decode_attention_cuda(q, k, k, lens, None, None, None,
+                                         ring=False)
+    assert _build.launches["decode_attention"] == 0
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
