@@ -10,7 +10,10 @@ Phases (each passes or the script exits nonzero):
   2. kernels — each kernel against its plain PyTorch version on the card, at
      the main path's shapes, then timed (CUDA events, median of 30 launches,
      L2 flushed before each) beside its plain version, one PyTorch library
-     call and its bound;
+     call and its bound; both LUT-GEMV flavours must also give bit-identical
+     results on two calls at every decode shape, and are timed per shape at
+     M = 8 (decode) and M = 64 (prefill) beside the split count their launch
+     plan chose;
   3. model  — full-width tinymistral_248m (random weights, seed 0, int8 KV):
      one prefill of 2 prompts and 4 greedy decode steps on the card through
      the kernels and on the CPU through the plain versions.  Under uniform:4
@@ -86,17 +89,28 @@ class Timer:
 
     ``__call__``: ``fn`` is captured once into a CUDA graph, and the median
     of ``iters`` replays is taken, each between two CUDA events after an L2
-    flush (64 MB written; the flush also keeps the card busy while the host
-    enqueues the replay, so no launch gap is timed).  That is the device
-    time of the call's kernels, without the Python and launch overhead.
+    flush (64 MB written).  Before the start event the card spins for
+    ~100 us, so the host has enqueued the replay before the card reaches
+    the event: no host gap is timed.  That is the device time of the call's
+    kernels, without the Python and launch overhead; a graph of one
+    1-element fill gives the method's floor (phase 2's
+    ``timer_floor_ms``).  With ``spin_cycles = 0`` the card does not spin
+    and the host's enqueue of the replay is timed whenever it outlasts the
+    flush (``tools/lut_gemv_times.py`` compares the two methods).
     ``call_ms``: host wall time per call over back-to-back eager calls,
     what a caller pays per call including that overhead."""
 
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
+        self.spin_cycles = 200_000        # ~100 us at the H100's clocks
 
     def __call__(self, fn, iters: int = 30) -> float:
+        return self.replay_ms(fn, iters, flush=True)
+
+    def replay_ms(self, fn, iters: int = 10, flush: bool = False) -> float:
+        """Median device time of a CUDA-graph replay of ``fn``, with an L2
+        flush before each replay or none."""
         torch = self.torch
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -109,7 +123,10 @@ class Timer:
             fn()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
+            if flush:
+                self.flush.zero_()
+            if self.spin_cycles:
+                torch.cuda._sleep(self.spin_cycles)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -211,7 +228,7 @@ def phase_kernels(rt):
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref, \
         decode_attention_ring_ref, ring_valid
     from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda, \
-        lut_matmul_int_cuda
+        lut_matmul_int_cuda, plan
     from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref, \
         lut_matmul_ref_int
     from repro_torch.kernels.typeconv.kernel import int_to_f32_cuda
@@ -270,33 +287,95 @@ def phase_kernels(rt):
         f"{int_real_err:.3e}), 80 cases on integer data bit-equal (max abs "
         f"err {errs['lut_matmul_int']:.3e})")
 
-    # --- LUT-GEMV: timing at the decode shapes (M = 8, b = 4) -------------
-    lut_rows = {"lut_matmul": [], "lut_matmul_int": []}
+    # --- LUT-GEMV: the launch plan and determinism at the decode shapes --
+    plans = {(m, k, n): plan(m, k, n, group, 4)
+             for m in (8, 64) for k, n in shapes}
+    log("[kernels] LUT-GEMV launch plan (b=4, G=128; splits x tiles = "
+        "blocks): " + "; ".join(
+            f"M={m} ({k}, {n}) {p.splits}x{p.tiles}={p.blocks}"
+            for (m, k, n), p in plans.items()))
     for k, n in shapes:
         qt = rand_qtensor(torch, gen, k, n, 4, group, False)
-        wd = dequantize(qt)
         x = torch.randn((8, k), device="cuda", generator=gen)
         xq, xs = quantize_activations(x, 8)
-        xqf = xq.float()
-        qbytes = 4 * (qt.packed.numel() + qt.scales.numel()
-                      + qt.codebook.numel())
-        ops = 2 * 8 * k * n
-        lut_rows["lut_matmul"].append(dict(
-            k=k, n=n, **timings(timer, lambda: lut_matmul_cuda(x, qt),
-                                lambda: lut_matmul_ref(x, qt),
-                                lambda: torch.matmul(x, wd)),
-            nbytes=qbytes + 4 * 8 * k + 4 * 8 * n, ops=ops))
-        lut_rows["lut_matmul_int"].append(dict(
-            k=k, n=n, **timings(timer,
-                                lambda: lut_matmul_int_cuda(xq, xs, qt, 8),
-                                lambda: lut_matmul_ref_int(xq, xs, qt),
-                                lambda: torch.matmul(xqf, wd)),
-            nbytes=qbytes + 4 * 8 * k + 4 * 8 + 4 * 8 * n, ops=ops))
+        for name, fn in (("lut_matmul", lambda: lut_matmul_cuda(x, qt)),
+                         ("lut_matmul_int",
+                          lambda: lut_matmul_int_cuda(xq, xs, qt, 8))):
+            if not torch.equal(fn(), fn()):
+                fail(f"{name} M=8 ({k}, {n}): two calls on the same inputs "
+                     "differ")
+    log(f"[kernels] lut_matmul and lut_matmul_int: two calls bit-identical "
+        f"at all {len(shapes)} decode shapes (M=8, b=4)")
+
+    # --- LUT-GEMV: timing per shape at M = 8 (decode) and 64 (prefill) ---
+    lut_rows = {"lut_matmul": [], "lut_matmul_int": []}
+    for m in (8, 64):
+        for k, n in shapes:
+            qt = rand_qtensor(torch, gen, k, n, 4, group, False)
+            wd = dequantize(qt)
+            x = torch.randn((m, k), device="cuda", generator=gen)
+            xq, xs = quantize_activations(x, 8)
+            xqf = xq.float()
+            qbytes = 4 * (qt.packed.numel() + qt.scales.numel()
+                          + qt.codebook.numel())
+            p = plans[m, k, n]
+            common = dict(m=m, k=k, n=n, splits=p.splits, blocks=p.blocks,
+                          ops=2 * m * k * n)
+            lut_rows["lut_matmul"].append(dict(
+                **common, **timings(timer, lambda: lut_matmul_cuda(x, qt),
+                                    lambda: lut_matmul_ref(x, qt),
+                                    lambda: torch.matmul(x, wd)),
+                nbytes=qbytes + 4 * m * k + 4 * m * n))
+            lut_rows["lut_matmul_int"].append(dict(
+                **common, **timings(
+                    timer, lambda: lut_matmul_int_cuda(xq, xs, qt, 8),
+                    lambda: lut_matmul_ref_int(xq, xs, qt),
+                    lambda: torch.matmul(xqf, wd)),
+                nbytes=qbytes + 4 * m * k + 4 * m + 4 * m * n))
+
+    # --- LUT-GEMV: a decode step's 85 calls as one CUDA graph --------------
+    # each layer's 7 matmuls on their own weights and lm_head, in the decode
+    # step's order, replayed with no flush between calls: the device time a
+    # decode step spends in the LUT-GEMV, launch gaps included
+    layers = [{name: rand_qtensor(torch, gen, k, n, 4, group, False)
+               for name, (k, n) in MATMULS.items() if name != "lm_head"}
+              for _ in range(12)]
+    head = rand_qtensor(torch, gen, *MATMULS["lm_head"], 4, group, False)
+    xk = {k: torch.randn((8, k), device="cuda", generator=gen)
+          for k in (1024, 4096)}
+    xqk = {k: quantize_activations(v, 8) for k, v in xk.items()}
+    step_calls = {
+        "lut_matmul": lambda qt: lut_matmul_cuda(xk[qt.k], qt),
+        "lut_matmul_int": lambda qt: lut_matmul_int_cuda(*xqk[qt.k], qt, 8)}
+    step_graph = {}
+    for name, call in step_calls.items():
+        def step(call=call):
+            for layer in layers:
+                for qt in layer.values():
+                    call(qt)
+            call(head)
+        step_graph[name] = timer.replay_ms(step)
+    # the library's step: torch.matmul on every weight dequantized
+    wds = [dequantize(qt) for layer in layers for qt in layer.values()]
+    wds.append(dequantize(head))
+    step_graph["library"] = timer.replay_ms(
+        lambda: [torch.matmul(xk[w.shape[0]], w) for w in wds])
+    floor = timer(lambda: timer.flush[:1].zero_())
+    log(f"[kernels] LUT-GEMV decode step as one graph (85 calls, no flush): "
+        f"lut_matmul {step_graph['lut_matmul']:.4f} ms, lut_matmul_int "
+        f"{step_graph['lut_matmul_int']:.4f} ms, library (torch.matmul on "
+        f"the dequantized weights) {step_graph['library']:.4f} ms; the "
+        f"per-call timer's floor (a 1-element fill) {1e3 * floor:.2f} us")
+    del layers, head, wds
 
     def per_step(rows):
-        """Totals over one decode step's 85 calls; the bound is that of
-        the step's whole work (its bytes, or its f32 operations)."""
-        by_shape = {(r["k"], r["n"]): r for r in rows}
+        """Totals over one decode step's 85 calls (the M = 8 rows); the
+        bound is that of the step's whole work (its bytes, or its f32
+        operations).  Every row gets its own bound and share of it."""
+        for r in rows:
+            r["bound_ms"], r["bound_by"] = bound_ms(r["nbytes"], r["ops"])
+            r["bound_share"] = r["bound_ms"] / r["ms"]
+        by_shape = {(r["k"], r["n"]): r for r in rows if r["m"] == 8}
         calls = {}
         for name, kn in MATMULS.items():
             calls[kn] = calls.get(kn, 0) + (1 if name == "lm_head" else 12)
@@ -305,8 +384,6 @@ def phase_kernels(rt):
                            "ops")}
         tot["bound_ms"], tot["bound_by"] = bound_ms(tot.pop("nbytes"),
                                                     tot.pop("ops"))
-        for r in rows:
-            r["bound_ms"], r["bound_by"] = bound_ms(r["nbytes"], r["ops"])
         return tot
 
     # --- decode attention -------------------------------------------------
@@ -389,10 +466,16 @@ def phase_kernels(rt):
     rt["kernels"] = {
         "lut_matmul": dict(per_step(lut_rows["lut_matmul"]),
                            max_abs_err=errs["lut_matmul"],
+                           step_graph_ms=step_graph["lut_matmul"],
+                           library_step_graph_ms=step_graph["library"],
+                           timer_floor_ms=floor,
                            shapes=lut_rows["lut_matmul"]),
         "lut_matmul_int": dict(per_step(lut_rows["lut_matmul_int"]),
                                max_abs_err=max(errs["lut_matmul_int"],
                                                int_real_err),
+                               step_graph_ms=step_graph["lut_matmul_int"],
+                               library_step_graph_ms=step_graph["library"],
+                               timer_floor_ms=floor,
                                shapes=lut_rows["lut_matmul_int"]),
         "decode_attention": dict(attn_row, max_abs_err=attn_err),
         "int_to_f32": dict(tc_row, max_abs_err=tc_err),
@@ -402,6 +485,12 @@ def phase_kernels(rt):
             f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, bound "
             f"{row['bound_ms']:.4f} by {row['bound_by']}); eager call "
             f"{row['call_ms']:.4f} ms")
+        for r in row.get("shapes", []):
+            log(f"[kernels]   M={r['m']} ({r['k']}, {r['n']}) splits "
+                f"{r['splits']}: {1e3 * r['ms']:.2f} us, library "
+                f"{1e3 * r['library_ms']:.2f} us, bound "
+                f"{1e3 * r['bound_ms']:.2f} us ({100 * r['bound_share']:.1f}%"
+                f" of it)")
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +748,8 @@ def kernels_line(rt) -> dict:
                  "launches": rt["engine"][plan]["launches"][name],
                  "launches_run": plan, "on_main_path": on_path, "per": per}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "call_ms", "shapes"):
+                    "library_ms", "call_ms", "step_graph_ms",
+                    "library_step_graph_ms", "timer_floor_ms", "shapes"):
             if key in row:
                 entry[key] = row[key]
         out.append(entry)

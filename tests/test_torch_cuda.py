@@ -13,6 +13,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import ref as da_ref
 from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
 from repro_torch.kernels.lut_gemv import ref as lut_ref
+from repro_torch.kernels.lut_gemv import kernel as lut_kernel
 from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda, \
     lut_matmul_int_cuda
 from repro_torch.kernels.typeconv.kernel import int_to_f32_cuda
@@ -57,7 +58,7 @@ def test_lut_matmul_kernel_matches_plain(gen, bits, mkn):
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 8])
 @pytest.mark.parametrize("abits", [4, 6, 8])
 def test_int_kernel_bit_equal_on_integer_data(gen, bits, abits):
     m, k, n = 9, 512, 100
@@ -66,6 +67,78 @@ def test_int_kernel_bit_equal_on_integer_data(gen, bits, abits):
         torch.randn((m, k), device="cuda", generator=gen), abits)
     y = lut_matmul_int_cuda(xq, xs, qt, abits)
     assert torch.equal(y, lut_ref.lut_matmul_ref_int(xq, xs, qt))
+
+
+# (M, K, N, G): one group; a slab count the splits do not divide; partial
+# slabs (32 does not divide G); N not a multiple of the 128-column tile;
+# M = 1, 9 (a ragged row tile) and 64 (prefill, no split)
+EDGE_SHAPES = [(8, 128, 300, 128), (8, 1024, 4096, 128), (5, 480, 200, 48),
+               (8, 512, 333, 64), (1, 1024, 1024, 128), (9, 256, 129, 64),
+               (64, 1024, 1024, 128)]
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("mkng", EDGE_SHAPES)
+def test_lut_kernels_on_edge_shapes(gen, bits, mkng):
+    """Both flavours where the launch plan has edges: the f32 path within
+    the reference tolerance, the int path on integer data bit-equal."""
+    m, k, n, group = mkng
+    qt = _qt(gen, k, n, bits, group)
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    torch.testing.assert_close(lut_matmul_cuda(x, qt),
+                               lut_ref.lut_matmul_ref(x, qt), rtol=1e-5,
+                               atol=1e-4)
+    qi = _qt(gen, k, n, bits, group, integer=True)
+    xq, xs = quantize_activations(x, 8)
+    assert torch.equal(lut_matmul_int_cuda(xq, xs, qi, 8),
+                       lut_ref.lut_matmul_ref_int(xq, xs, qi))
+
+
+@pytest.mark.parametrize("mkng", [(8, 1024, 256, 128), (8, 4096, 1024, 128),
+                                  (64, 1024, 333, 64)])
+def test_lut_kernels_deterministic_and_graph_safe(gen, mkng):
+    """Two calls on the same inputs are bit-identical (the cluster sums the
+    splits in a fixed order), and a CUDA-graph replay equals the eager
+    call."""
+    m, k, n, group = mkng
+    qt = _qt(gen, k, n, 4, group)
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    xq, xs = quantize_activations(x, 8)
+    calls = (lambda: lut_matmul_cuda(x, qt),
+             lambda: lut_matmul_int_cuda(xq, xs, qt, 8))
+    for fn in calls:
+        first = fn()
+        assert torch.equal(fn(), first)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert torch.equal(fn(), first)
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 5, 6, 8])
+def test_lut_plan_model_matches_the_card(gen, bits):
+    """The CPU's model of the card (shared memory per block, resident
+    blocks per SM from it and the instance's registers) is what the CUDA
+    runtime reports for every instance, and no instance uses more than the
+    128 registers the CPU plans with; the wrapper plans with the card's
+    own SM count and occupancy."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for abits in (0, 4, 6, 8):
+        blocks, smem, regs = lut_kernel.occupancy(bits, abits)
+        assert smem == lut_kernel.smem_bytes(bits)
+        assert regs <= 128
+        assert blocks == lut_kernel.resident_blocks(bits, abits, regs)
+        assert blocks >= lut_kernel.resident_blocks(bits, abits)
+        assert lut_kernel._card(0, bits, abits) == (sms, blocks)
 
 
 @pytest.mark.parametrize("quantized", [False, True])

@@ -2,6 +2,7 @@
 versions) against the JAX reference's Pallas kernels in interpret mode
 and their jnp oracles, over the reference tests' grids."""
 import dataclasses
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +19,7 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import kernel as tda_kernel
 from repro_torch.kernels.decode_attn import ops as tda_ops
+from repro_torch.kernels.lut_gemv import kernel as tlut_kernel
 from repro_torch.kernels.lut_gemv import ops as tlut_ops
 from repro_torch.models import blocks as tblocks
 from repro_torch.models.common import ModelConfig as TModelConfig
@@ -183,6 +185,96 @@ def test_cpu_calls_launch_nothing_and_other_devices_raise():
     assert all(v == 0 for v in _build.launches.values())
     with pytest.raises(ValueError, match="device"):
         tlut_ops.lut_matmul(torch.empty((4, 64), device="meta"), qt)
+
+
+# tinymistral_248m's weight matmuls (K, N); blocks per call at M = 8, G = 128
+# on the CPU's model of an H100.  The three narrow shapes stay below two
+# blocks per SM because a tile's splits form one cluster of at most 16
+# blocks; lm_head keeps one split because a second split would need a
+# second, partial wave (PERF.md's split sweep times both choices).
+TINYMISTRAL_BLOCKS = {(1024, 256): 32, (1024, 1024): 128, (1024, 4096): 288,
+                      (4096, 1024): 128, (1024, 32005): 251}
+
+
+@pytest.mark.parametrize("k, n", sorted(TINYMISTRAL_BLOCKS))
+def test_lut_gemv_plan_covers_balances_and_fills(k, n):
+    """The launch plan over M in {1, 8, 9, 64}, every G the reference takes
+    and every bit width: splits and warps tile the slabs in order, each
+    exactly once; splits differ by at most one slab; the kernel's
+    multiply-shift maps every slab to its group; a call reaches two blocks
+    per SM unless one more split would overflow a cluster, the slabs or one
+    wave of resident blocks; shared memory fits."""
+    kern = tlut_kernel
+    for m in (1, 8, 9, 64):
+        for group in (32, 64, 128, 256):
+            for bits in tq.KERNEL_BITS:
+                p = kern.plan(m, k, n, group, bits)
+                seen, counts = [], []
+                for s in range(p.splits):
+                    first, count = p.split_slabs(s)
+                    counts.append(count)
+                    for w in range(kern.WARPS):
+                        off, c = kern.warp_share(count, w)
+                        seen.extend(range(first + off, first + off + c))
+                assert seen == list(range(p.slabs))
+                assert max(counts) - min(counts) <= 1
+                assert p.slabs == (k // group) * -(-group // 32)
+                assert [p.group_of(j) for j in range(p.slabs)] == [
+                    j // p.slabs_per_group for j in range(p.slabs)]
+                assert p.row_tiles == -(-m // 8) and p.col_tiles == -(-n // 128)
+                wave = kern.resident_blocks(bits) * kern.SMS
+                assert 1 <= p.splits <= kern.MAX_SPLITS
+                assert p.blocks <= wave or p.splits == 1
+                assert (p.blocks >= kern.TARGET_BLOCKS
+                        or p.splits == min(p.slabs, kern.MAX_SPLITS)
+                        or (p.splits + 1) * p.tiles > wave)
+                assert p.smem + 4 * (1 << bits) <= 227 * 1024
+    assert kern.plan(8, k, n, 128, 4).blocks == TINYMISTRAL_BLOCKS[k, n]
+
+
+def test_lut_gemv_tile_constants_match_the_kernel_source():
+    """The plan's tile constants are the ones ``csrc/lut_gemv.cu`` is
+    compiled with."""
+    src = (_build.CSRC / "lut_gemv.cu").read_text()
+    defined = {name: int(value) for name, value in re.findall(
+        r"^constexpr int (\w+) = (\d+);", src, re.M)}
+    assert {name: defined.get(name) for name in
+            ("MT", "BN", "WARPS", "SLAB", "NSTAGE", "MAX_SPLITS")} == {
+        "MT": tlut_kernel.MT, "BN": tlut_kernel.BN,
+        "WARPS": tlut_kernel.WARPS, "SLAB": tlut_kernel.SLAB,
+        "NSTAGE": tlut_kernel.NSTAGE, "MAX_SPLITS": tlut_kernel.MAX_SPLITS}
+
+
+@pytest.mark.parametrize("m, k, group, bits, fits", [
+    (8, 1024, 128, 4, True), (64, 256, 256, 8, True), (3, 96, 48, 5, True),
+    (8, 1024, 512, 4, False), (8, 1000, 96, 4, False), (8, 256, 64, 7, False),
+    (8 * 65536, 64, 64, 4, False)])
+def test_lut_gemv_wrapper_refuses_what_cannot_launch(m, k, group, bits, fits):
+    """Shapes the plan refuses (G > 256 or not dividing K, bits the kernel
+    has no instance for, more row tiles than the grid holds) raise a
+    ValueError before the device check and launch nothing; shapes it takes
+    stop only at the device check (these tensors are on ``meta``)."""
+    _build.reset_launches()
+    n = 40
+    rows = (k // group) * (-(-7 * group // 32))
+    qt = tq.QTensor(packed=torch.empty((rows, n), dtype=torch.int32,
+                                       device="meta"),
+                    scales=torch.empty((k // group, n), device="meta"),
+                    codebook=torch.empty((1 << bits,), device="meta"),
+                    bits=bits, group_size=group, k=k)
+    if fits:
+        rows = (k // group) * tq.words_per_group(bits, group)
+        qt = dataclasses.replace(qt, packed=torch.empty(
+            (rows, n), dtype=torch.int32, device="meta"))
+    match = "CUDA" if fits else "group_size|bits|grid"
+    with pytest.raises(ValueError, match=match):
+        tlut_kernel.lut_matmul_cuda(torch.empty((m, k), device="meta"), qt)
+    with pytest.raises(ValueError, match=match):
+        tlut_kernel.lut_matmul_int_cuda(
+            torch.empty((m, k), dtype=torch.int32, device="meta"),
+            torch.empty((m, 1), device="meta"), qt, 8)
+    assert _build.launches["lut_matmul"] == 0
+    assert _build.launches["lut_matmul_int"] == 0
 
 
 @pytest.mark.parametrize("g, d, fits", [(4, 32, True), (32, 32, True),
