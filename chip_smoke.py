@@ -5,15 +5,20 @@
 
 Phases (each passes or the script exits nonzero):
   1. build  — nvcc builds every kernel of the port from ``src/repro_torch/csrc``
-     and the SASS of the Algorithm-1 users is checked for int->float
-     conversion instructions (there must be none);
+     and the SASS of every kernel is checked for int->float conversion
+     instructions (there must be none: Algorithm 1 and the int8 KV widening
+     use integer and float bit operations, and no kernel divides at run
+     time);
   2. kernels — each kernel against its plain PyTorch version on the card, at
      the main path's shapes, then timed (CUDA events, median of 30 launches,
      L2 flushed before each) beside its plain version, one PyTorch library
      call and its bound; both LUT-GEMV flavours must also give bit-identical
      results on two calls at every decode shape, and are timed per shape at
      M = 8 (decode) and M = 64 (prefill) beside the split count their launch
-     plan chose;
+     plan chose; decode attention is timed at the main path's call (S 512,
+     a wrapped ring), at S = 4096 and at the engine's positions (p in
+     [40, 100)), each beside its launch plan and a bound over the valid
+     slots, and typeconv also at [4096, 4096];
   3. model  — full-width tinymistral_248m (random weights, seed 0, int8 KV):
      one prefill of 2 prompts and 4 greedy decode steps on the card through
      the kernels and on the CPU through the plain versions.  Under uniform:4
@@ -25,7 +30,8 @@ Phases (each passes or the script exits nonzero):
      uniform:4 and uniform:4a8; the kernels' launch counters must show every
      decode step sent all 85 weight matmuls through the plan's LUT-GEMV and
      every layer's attention through the decode-attention kernel, and the
-     other LUT-GEMV was not launched.
+     other LUT-GEMV was not launched; one decode step's device time, and its
+     12 attention launches as one graph on the engine's own cache.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -96,7 +102,11 @@ class Timer:
     1-element fill gives the method's floor (phase 2's
     ``timer_floor_ms``).  With ``spin_cycles = 0`` the card does not spin
     and the host's enqueue of the replay is timed whenever it outlasts the
-    flush (``tools/lut_gemv_times.py`` compares the two methods).
+    flush (``tools/lut_gemv_times.py`` compares the two methods).  With
+    ``flush_by_read`` the flush reads the 64 MB instead (a sum), so L2 is
+    left holding clean lines: the written flush leaves ~50 MB of dirty
+    lines that the timed call's misses must write back to device memory
+    first (``tools/decode_attn_times.py`` compares the two).
     ``call_ms``: host wall time per call over back-to-back eager calls,
     what a caller pays per call including that overhead."""
 
@@ -104,6 +114,7 @@ class Timer:
         self.torch = torch
         self.flush = torch.empty(16 << 20, dtype=torch.float32, device="cuda")
         self.spin_cycles = 200_000        # ~100 us at the H100's clocks
+        self.flush_by_read = False
 
     def __call__(self, fn, iters: int = 30) -> float:
         return self.replay_ms(fn, iters, flush=True)
@@ -123,7 +134,9 @@ class Timer:
             fn()
         times = []
         for _ in range(iters):
-            if flush:
+            if flush and self.flush_by_read:
+                self.flush.sum()
+            elif flush:
                 self.flush.zero_()
             if self.spin_cycles:
                 torch.cuda._sleep(self.spin_cycles)
@@ -159,6 +172,55 @@ def bound_ms(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# decode attention at tinymistral's widths: the engine's 8 lanes, 32 query
+# heads over 8 kv heads of width 32, int8 K/V, the model's window
+ATTN_B, ATTN_KV, ATTN_G, ATTN_D, ATTN_WINDOW = 8, 8, 4, 32, 4096
+
+
+def attn_inputs(torch, gen, s):
+    """Random q and K/V of ``s`` slots at tinymistral's widths: f32 and int8
+    with scales."""
+    b, kvh, g, d = ATTN_B, ATTN_KV, ATTN_G, ATTN_D
+    from repro_torch.core.quant import quantize_kv
+    x = {"q": torch.randn((b, kvh * g, d), device="cuda", generator=gen),
+         "kf": torch.randn((b, s, kvh, d), device="cuda", generator=gen),
+         "vf": torch.randn((b, s, kvh, d), device="cuda", generator=gen)}
+    x["kq"], x["ksc"] = quantize_kv(x["kf"])
+    x["vq"], x["vsc"] = quantize_kv(x["vf"])
+    return x
+
+
+def attention_row(torch, timer, x, position, kernel) -> dict:
+    """The main path's call, ``kernel`` (a decode_attention_cuda) in ring
+    mode on int8 K/V at ``position``, timed beside its plain version and SDPA
+    on the dequantized K/V (the library call; the dequantization is not
+    timed).  The bound counts what this call needs: q, the output, the
+    positions, and the K and V rows and scales of the valid slots only."""
+    from repro_torch.kernels.decode_attn.ref import \
+        decode_attention_ring_ref, ring_valid
+    q, kq, vq, ksc, vsc = (x[n] for n in ("q", "kq", "vq", "ksc", "vsc"))
+    b, s, kvh, d = kq.shape
+    h = q.shape[1]
+    valid = ring_valid(position, s, ATTN_WINDOW)
+    slots = int(valid.sum())
+    kdq = (kq.float() * ksc).transpose(1, 2).contiguous()   # [B, KV, S, D]
+    vdq = (vq.float() * vsc).transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    q4 = q[:, :, None, :]
+    nbytes = 2 * 4 * q.numel() + 4 * b + slots * kvh * (2 * d + 2 * 4)
+    bound, by = bound_ms(nbytes, 4 * slots * h * d)
+    row = timings(
+        timer,
+        lambda: kernel(q, kq, vq, position, ksc, vsc, ATTN_WINDOW, ring=True),
+        lambda: decode_attention_ring_ref(q, kq, vq, position, ATTN_WINDOW,
+                                          ksc, vsc),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kdq, vdq, attn_mask=mask, enable_gqa=True))
+    row.update(s=s, valid_slots=slots, bound_ms=bound, bound_by=by,
+               bound_share=bound / row["ms"])
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -183,7 +245,7 @@ def phase_build(rt):
         f"{secs:.1f} s; max registers/thread {max(regs) if regs else 'n/a'}; "
         f"spilling kernels: {len(spills)}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    for name in ("lut_gemv", "typeconv"):
+    for name in ("lut_gemv", "typeconv", "decode_attn"):
         sass = subprocess.run([cuobjdump, "-sass",
                                str(_build.library_path(name))],
                               capture_output=True, text=True, check=True)
@@ -192,8 +254,8 @@ def phase_build(rt):
         n_i2f = sass.stdout.count("I2F")
         log(f"[build] {name}: {n_i2f} I2F instructions in the SASS")
         if n_i2f:
-            fail(f"{name} converts int->float with I2F; Algorithm 1 must "
-                 "widen the codes with integer ops only")
+            fail(f"{name} converts int->float with I2F; codes must be "
+                 "widened with integer and float bit operations only")
     rt["build_s"] = secs
 
 
@@ -221,12 +283,12 @@ def rand_qtensor(torch, gen, k, n, bits, group, integer):
 
 def phase_kernels(rt):
     import torch
-    from repro_torch.core.quant import dequantize, quantize_activations, \
-        quantize_kv
+    from repro_torch.core.quant import dequantize, quantize_activations
     from repro_torch.core.typeconv import logic_ops
-    from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
+    from repro_torch.kernels.decode_attn.kernel import card_plan, \
+        decode_attention_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref, \
-        decode_attention_ring_ref, ring_valid
+        decode_attention_ring_ref
     from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda, \
         lut_matmul_int_cuda, plan
     from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref, \
@@ -387,14 +449,12 @@ def phase_kernels(rt):
         return tot
 
     # --- decode attention -------------------------------------------------
-    b, s, kvh, g, d = 8, 512, 8, 4, 32
+    b, s, kvh, g, d = ATTN_B, 512, ATTN_KV, ATTN_G, ATTN_D
     h = kvh * g
     attn_err = 0.0
-    q = torch.randn((b, h, d), device="cuda", generator=gen)
-    kf = torch.randn((b, s, kvh, d), device="cuda", generator=gen)
-    vf = torch.randn((b, s, kvh, d), device="cuda", generator=gen)
-    kq, ksc = quantize_kv(kf)
-    vq, vsc = quantize_kv(vf)
+    x = attn_inputs(torch, gen, s)
+    q, kf, vf, kq, ksc, vq, vsc = (x[n] for n in ("q", "kf", "vf", "kq", "ksc",
+                                                  "vq", "vsc"))
     lengths = torch.randint(1, s + 1, (b,), device="cuda", generator=gen,
                             dtype=torch.int32)
     # a ring that has wrapped: positions past S for most lanes
@@ -424,23 +484,40 @@ def phase_kernels(rt):
             attn_err = max(attn_err, err)
     log(f"[kernels] decode_attention: 8 cases (lengths/ring x int8/f32 x 2 "
         f"windows) within {ATTN_TOL} (max abs err {attn_err:.3e})")
-    # timing: the main path's call (ring mode, int8 KV, model window)
-    kdq = (kq.float() * ksc).transpose(1, 2).contiguous()   # [B, KV, S, D]
-    vdq = (vq.float() * vsc).transpose(1, 2).contiguous()
-    mask = ring_valid(position, s, 4096)[:, None, None, :]
-    q4 = q[:, :, None, :]
-    attn_bytes = (q.numel() * 4 + 2 * kq.numel() + 2 * ksc.numel() * 4
-                  + position.numel() * 4 + q.numel() * 4)
-    a_bound, a_by = bound_ms(attn_bytes, 4 * b * h * s * d)
-    attn_row = dict(
-        **timings(timer,
-                  lambda: decode_attention_cuda(q, kq, vq, position, ksc, vsc,
-                                                4096, ring=True),
-                  lambda: decode_attention_ring_ref(q, kq, vq, position, 4096,
-                                                    ksc, vsc),
-                  lambda: torch.nn.functional.scaled_dot_product_attention(
-                      q4, kdq, vdq, attn_mask=mask, enable_gqa=True)),
-        bound_ms=a_bound, bound_by=a_by)
+    main_call = lambda: decode_attention_cuda(q, kq, vq, position, ksc, vsc,
+                                              ATTN_WINDOW, ring=True)
+    if not torch.equal(main_call(), main_call()):
+        fail("decode_attention: two calls on the same inputs differ")
+    # timing: the main path's call (ring mode, int8 KV, model window) at the
+    # wrapped positions above, at S = 4096 with every slot valid, and at
+    # the engine's positions (prompts of 8-64 tokens plus up to 32 new)
+    long = attn_inputs(torch, gen, 4096)
+    cases = {"main": (x, position),
+             "s4096": (long, torch.randint(4095, 3 * 4096, (b,),
+                                           device="cuda", generator=gen,
+                                           dtype=torch.int32)),
+             "engine": (x, torch.randint(40, 100, (b,), device="cuda",
+                                         generator=gen, dtype=torch.int32))}
+    attn_rows = {}
+    for name, (xx, pos) in cases.items():
+        ss = xx["kq"].shape[1]
+        p = card_plan(b, h, kvh, d, ss, ATTN_WINDOW, True, True, q.device)
+        row = attention_row(torch, timer, xx, pos, decode_attention_cuda)
+        row.update(case=name, splits=p.splits, blocks=p.blocks,
+                   cluster=p.splits, lanes_per_row=p.lanes,
+                   rows_per_stage=p.tw, smem=p.smem)
+        attn_rows[name] = row
+        log(f"[kernels] decode_attention {name}: S={ss}, {row['valid_slots']}"
+            f" valid slots; plan {p.splits} splits (cluster of {p.splits}) x "
+            f"{b * kvh} (b, kv) = {p.blocks} blocks, {p.lanes} lanes/row, "
+            f"{p.tw} rows/stage, {p.smem} B shared; {1e3 * row['ms']:.2f} "
+            f"us (plain {1e3 * row['plain_ms']:.2f}, SDPA "
+            f"{1e3 * row['library_ms']:.2f}, bound {1e3 * row['bound_ms']:.3f}"
+            f" us by {row['bound_by']}, {100 * row['bound_share']:.1f}% of "
+            f"it)")
+    del long
+    attn_row = dict(attn_rows["main"],
+                    rows=[attn_rows["s4096"], attn_rows["engine"]])
 
     # --- typeconv ---------------------------------------------------------
     tc_err = 0.0
@@ -455,13 +532,24 @@ def phase_kernels(rt):
                  f"err {tc_err:.3e}")
     log(f"[kernels] int_to_f32: n in {{8, 16, 25}} bit-equal to .float() "
         f"(max abs err {tc_err:.3e})")
-    a = torch.randint(-127, 128, (64, 4096), device="cuda", generator=gen,
-                      dtype=torch.int32)
-    t_bound, t_by = bound_ms(8 * a.numel(), logic_ops(8) * a.numel())
-    tc_row = dict(**timings(timer, lambda: int_to_f32_cuda(a, 8),
-                            lambda: int_to_f32_plain(a, 8),
-                            lambda: a.float()),
-                  bound_ms=t_bound, bound_by=t_by)
+    tc_rows = []
+    for shape in ((64, 4096), (4096, 4096)):
+        a = torch.randint(-127, 128, shape, device="cuda", generator=gen,
+                          dtype=torch.int32)
+        t_bound, t_by = bound_ms(8 * a.numel(), logic_ops(8) * a.numel())
+        tc_rows.append(dict(**timings(timer, lambda: int_to_f32_cuda(a, 8),
+                                      lambda: int_to_f32_plain(a, 8),
+                                      lambda: a.float()),
+                            shape=list(shape), bound_ms=t_bound,
+                            bound_by=t_by))
+        tc_rows[-1]["bound_share"] = t_bound / tc_rows[-1]["ms"]
+        log(f"[kernels] int_to_f32 {list(shape)}: "
+            f"{1e3 * tc_rows[-1]['ms']:.2f} us (.float() "
+            f"{1e3 * tc_rows[-1]['library_ms']:.2f} us, bound "
+            f"{1e3 * t_bound:.2f} us, {100 * tc_rows[-1]['bound_share']:.1f}%"
+            f" of it)")
+        del a
+    tc_row = dict(tc_rows[0], rows=tc_rows[1:])
 
     rt["kernels"] = {
         "lut_matmul": dict(per_step(lut_rows["lut_matmul"]),
@@ -649,6 +737,7 @@ def phase_engine(rt):
     import numpy as np
     import torch
     from repro_torch.kernels import _build
+    from repro_torch.kernels.decode_attn.ops import decode_attention_ring
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine, EngineConfig
     cfg, raw = full_model(rt)
@@ -702,12 +791,25 @@ def phase_engine(rt):
         one_step = lambda: lm.decode_step(eng.params, tok, eng.cache, cfg,
                                           quant_kv=True, device="cuda")
         step_dev, step_wall = timer(one_step), timer.call_ms(one_step)
+        # the step's 12 attention launches as one graph (no flush, as the
+        # LUT-GEMV's step graph in phase 2) on the engine's own cache and
+        # positions
+        layers = eng.cache["layers"]
+        pos = eng.cache["length"].to(torch.int32)
+        qa = torch.randn((8, cfg.n_heads, cfg.head_dim), device="cuda")
+        attn_dev = timer.replay_ms(lambda: [decode_attention_ring(
+            qa, layers["k"][i], layers["v"][i], pos, cfg.window or 512,
+            layers["k_scale"][i], layers["v_scale"][i])
+            for i in range(cfg.n_layers)])
         log(f"[engine] {plan}: one decode step (8 lanes): device "
             f"{step_dev:.3f} ms, eager wall {step_wall:.3f} ms "
             f"({100 * (1 - step_dev / step_wall):.1f}% of the step is host "
-            f"and launch overhead)")
+            f"and launch overhead); its {cfg.n_layers} attention launches "
+            f"as one graph {attn_dev:.4f} ms (positions "
+            f"{pos.tolist()})")
         rt["engine"][plan] = dict(
             step_device_ms=step_dev, step_wall_ms=step_wall,
+            attention_step_graph_ms=attn_dev,
             tokens=st["generated_tokens"], seconds=dt,
             tok_per_s=st["generated_tokens"] / dt,
             decode_tok_per_s=st["measured_tps"],
@@ -749,7 +851,8 @@ def kernels_line(rt) -> dict:
                  "launches_run": plan, "on_main_path": on_path, "per": per}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "step_graph_ms",
-                    "library_step_graph_ms", "timer_floor_ms", "shapes"):
+                    "library_step_graph_ms", "timer_floor_ms", "shapes",
+                    "rows"):
             if key in row:
                 entry[key] = row[key]
         out.append(entry)

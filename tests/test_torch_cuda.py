@@ -10,6 +10,7 @@ import torch
 from repro_torch.core.quant import QTensor, _uniform_codebook, \
     quantize_activations, quantize_kv, words_per_group
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attn import kernel as da_kernel
 from repro_torch.kernels.decode_attn import ref as da_ref
 from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
 from repro_torch.kernels.lut_gemv import ref as lut_ref
@@ -141,26 +142,108 @@ def test_lut_plan_model_matches_the_card(gen, bits):
         assert lut_kernel._card(0, bits, abits) == (sms, blocks)
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("ring", [False, True])
-@pytest.mark.parametrize("d", [8, 32, 64])
-def test_decode_attention_kernel_matches_plain(gen, quantized, ring, d):
-    b, kv, g, s = 3, 2, 4, 300
+def _attn_inputs(gen, b, kv, g, d, s, quantized):
     q = torch.randn((b, kv * g, d), device="cuda", generator=gen)
     k = torch.randn((b, s, kv, d), device="cuda", generator=gen)
     v = torch.randn((b, s, kv, d), device="cuda", generator=gen)
     ks = vs = None
     if quantized:
         (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
+    return q, k, v, ks, vs
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("d", [8, 32, 64, 120, 128])
+@pytest.mark.parametrize("g", [1, 4, 9])
+@pytest.mark.parametrize("s", [1, 300, 512, 4096])
+def test_decode_attention_kernel_matches_plain(gen, quantized, ring, d, g, s):
+    """Every head width and group size the repo's configs have, over short
+    and long caches.  Lengths mode: an empty lane (L = 0), one slot, half
+    and all of S, with and without a window; the plain version gives NaN
+    for the empty lane (softmax over no slot), the kernel zeros, as the
+    Pallas kernel's max(l, 1e-30) does.  Ring mode: positions before the
+    ring wraps (p < S) and after, under a short and the model's window."""
+    b, kv = 4, 2
+    q, k, v, ks, vs = _attn_inputs(gen, b, kv, g, d, s, quantized)
     if ring:
-        pos = torch.tensor([4, 299, 650], dtype=torch.int32, device="cuda")
-        got = decode_attention_cuda(q, k, v, pos, ks, vs, 200, ring=True)
-        want = da_ref.decode_attention_ring_ref(q, k, v, pos, 200, ks, vs)
+        pos = torch.tensor([0, s // 2, s + 5, 3 * s + s // 3],
+                           dtype=torch.int32, device="cuda")
+        for window in (200, 4096):
+            got = decode_attention_cuda(q, k, v, pos, ks, vs, window,
+                                        ring=True)
+            want = da_ref.decode_attention_ring_ref(q, k, v, pos, window, ks,
+                                                    vs)
+            torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
     else:
-        lens = torch.tensor([1, 150, 300], dtype=torch.int32, device="cuda")
-        got = decode_attention_cuda(q, k, v, lens, ks, vs, 64, ring=False)
-        want = da_ref.decode_attention_ref(q, k, v, lens, ks, vs, 64)
-    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        lens = torch.tensor([0, 1, (s + 1) // 2, s], dtype=torch.int32,
+                            device="cuda")
+        for window in (64, None):
+            got = decode_attention_cuda(q, k, v, lens, ks, vs, window,
+                                        ring=False)
+            want = da_ref.decode_attention_ref(q, k, v, lens, ks, vs, window)
+            assert torch.equal(got[0], torch.zeros_like(got[0]))
+            torch.testing.assert_close(got[1:], want[1:], rtol=2e-5,
+                                       atol=2e-5)
+
+
+# (B, KV, G, D, S, ring, quantized): the main path's call (tinymistral,
+# wrapped positions), a long ring, f32 K/V with G 9 and D 120
+GRAPH_CASES = [(8, 8, 4, 32, 512, True, True), (8, 8, 4, 32, 4096, True, True),
+               (3, 2, 9, 120, 300, False, False)]
+
+
+@pytest.mark.parametrize("case", GRAPH_CASES)
+def test_decode_attention_deterministic_and_graph_safe(gen, case):
+    """Two calls on the same inputs are bit-identical (the splits of a
+    sequence meet in a fixed order), and a CUDA-graph replay equals the
+    eager call."""
+    b, kv, g, d, s, ring, quantized = case
+    q, k, v, ks, vs = _attn_inputs(gen, b, kv, g, d, s, quantized)
+    lens = torch.randint(0, 3 * s, (b,), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    window = 4096 if ring else None
+    fn = lambda: decode_attention_cuda(q, k, v, lens, ks, vs, window,
+                                       ring=ring)
+    first = fn()
+    assert torch.equal(fn(), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_plan_model_matches_the_card(gen, g, quantized):
+    """The CPU's model of the card (resident blocks from shared memory, the
+    instance's warps and its registers) is what the CUDA runtime reports
+    for every instance, at every head width's shared memory; the wrapper
+    plans with the card's own cluster counts, and its grid at
+    tinymistral's batch stays in one wave: every cluster resident at
+    once."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (8, 32, 120, 128):
+        gm, *_, smem = da_kernel.tiles(g, d, quantized)
+        blocks, regs = da_kernel.occupancy(gm, quantized, smem)
+        assert blocks == da_kernel.resident_blocks(
+            smem, da_kernel.warps_of(gm), regs)
+        clusters = tuple(da_kernel.max_clusters(gm, quantized, 1 << i, smem)
+                         for i in range(da_kernel.MAX_SPLITS.bit_length()))
+        assert clusters[0] == sms * blocks
+        assert da_kernel._card(0, gm, quantized, smem) == clusters
+        for s in (512, 4096):
+            p = da_kernel.card_plan(8, 8 * g, 8, d, s, 4096, True, quantized,
+                                    torch.device("cuda", 0))
+            assert p.b * p.kv <= clusters[p.lg_splits]
 
 
 @pytest.mark.parametrize("n", [2, 8, 16, 25])

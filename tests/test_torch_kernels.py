@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.core import quant as jq
 from repro.kernels.decode_attn import ops as jda_ops
 from repro.kernels.lut_gemv import ops as jlut_ops
@@ -19,6 +20,7 @@ from repro_torch.core import quant as tq
 from repro_torch.kernels import _build
 from repro_torch.kernels.decode_attn import kernel as tda_kernel
 from repro_torch.kernels.decode_attn import ops as tda_ops
+from repro_torch.kernels.decode_attn import ref as tda_ref
 from repro_torch.kernels.lut_gemv import kernel as tlut_kernel
 from repro_torch.kernels.lut_gemv import ops as tlut_ops
 from repro_torch.models import blocks as tblocks
@@ -277,22 +279,135 @@ def test_lut_gemv_wrapper_refuses_what_cannot_launch(m, k, group, bits, fits):
     assert _build.launches["lut_matmul_int"] == 0
 
 
-@pytest.mark.parametrize("g, d, fits", [(4, 32, True), (32, 32, True),
-                                        (128, 8, False)])
+@pytest.mark.parametrize("g, d, fits", [(4, 32, True), (32, 32, False),
+                                        (128, 8, False), (9, 128, True),
+                                        (16, 120, True), (1, 8, True),
+                                        (4, 12, False), (17, 64, False),
+                                        (4, 136, False)])
 def test_decode_attention_wrapper_refuses_what_cannot_launch(g, d, fits):
-    """Shapes whose block needs more than 48 KB of shared memory raise a
-    ValueError before any launch; shapes that fit pass the shape checks
-    and stop only at the device check (these tensors are on ``meta``)."""
+    """Shapes the kernel has no path for (more than 16 query heads per kv
+    head, a head width that is not a multiple of 8 up to 128) raise a
+    ValueError before any launch; shapes it takes pass the shape checks and
+    stop only at the device check (these tensors are on ``meta``)."""
     _build.reset_launches()
     kv = 2
     q = torch.empty((1, kv * g, d), device="meta")
     k = torch.empty((1, 16, kv, d), device="meta")
     lens = torch.empty((1,), dtype=torch.int32, device="meta")
-    assert (tda_kernel.smem_bytes(g, d) <= tda_kernel.MAX_SMEM) == fits
-    with pytest.raises(ValueError, match="CUDA" if fits else "shared memory"):
+    with pytest.raises(ValueError, match="CUDA" if fits else "G = H/KV|D="):
         tda_kernel.decode_attention_cuda(q, k, k, lens, None, None, None,
                                          ring=False)
     assert _build.launches["decode_attention"] == 0
+
+
+# (G, D) of every attention config in src/repro/configs at full width;
+# xLSTM keeps no KV cache (its D is 256)
+CONFIG_HEADS = sorted({(c.n_heads // c.n_kv, c.head_dim)
+                       for c in map(jconfigs.get_config, jconfigs.ARCHS)
+                       if c.family != "ssm"})
+
+
+def _rows_covered(p, n):
+    """The logical rows the plan's splits, warps and stage tiles visit for a
+    sequence of n valid rows, in visiting order."""
+    seen = []
+    for split in range(p.splits):
+        first, count = tda_kernel.split_rows(n, p.splits, split)
+        for w in range(p.warps):
+            off, c = tda_kernel.warp_share(count, w, p.warps)
+            for t in range(-(-c // p.tw)):
+                j0 = first + off + t * p.tw
+                seen.extend(range(j0, j0 + min(p.tw, c - t * p.tw)))
+    return seen
+
+
+@pytest.mark.parametrize("g, d", CONFIG_HEADS)
+def test_decode_attention_plan_covers_fits_and_stays_in_a_wave(g, d):
+    """Over S in {1, 7, 512, 4096}, both modes and K/V types and three
+    batch shapes: the splits, warps and stage tiles visit every valid row
+    of a sequence exactly once, in order, for every row count the shapes
+    allow (sampled); a row is covered by its lanes, a stage by whole warp
+    passes; the shared memory fits; the splits are a power of two no larger
+    than a cluster or the outputs its blocks share out, and all clusters
+    are resident at once on the CPU's model of an H100."""
+    kern = tda_kernel
+    for quantized in (True, False):
+        for s in (1, 7, 512, 4096):
+            for ring, window in ((True, 4096), (True, 100), (False, None),
+                                 (False, 64)):
+                for b, kv in ((8, 8), (1, 1), (3, 2)):
+                    p = kern.plan(b, kv * g, kv, d, s, window, ring,
+                                  quantized)
+                    assert p.lanes * p.elems >= d and p.lanes <= 32
+                    assert p.padded_row == p.lanes * p.elems * (
+                        1 if quantized else 4)
+                    assert p.rows_per_pass <= p.tw <= kern.MAX_TW
+                    assert p.tw % p.rows_per_pass == 0
+                    assert p.stage_bytes % 16 == 0
+                    assert kern.NSTAGE * p.warps * p.stage_bytes <= p.smem
+                    assert p.smem <= kern.MAX_SMEM
+                    assert p.smem + 1024 <= kern.SM_SMEM
+                    assert 1 <= p.splits <= kern.MAX_SPLITS
+                    assert p.splits & (p.splits - 1) == 0
+                    assert p.splits <= p.gm * p.lanes * p.elems
+                    resident = kern.resident_blocks(p.smem, p.warps)
+                    assert (p.splits == 1 or b * kv <= kern.model_clusters(
+                        resident)[p.lg_splits])
+                    assert p.nmax == (min(s, window) if window else s)
+                    for n in sorted({*range(min(p.nmax, 40) + 1),
+                                     p.nmax - 1, p.nmax} - {-1}):
+                        assert _rows_covered(p, n) == list(range(n))
+    # tinymistral's decode call: one split at the engine's ring of 512
+    # slots, two at S = 4096 (64 clusters of 2 at one block per SM)
+    assert kern.plan(8, 32, 8, 32, 512, 4096, True, True).blocks == 64
+    assert kern.plan(8, 32, 8, 32, 4096, 4096, True, True).blocks == 128
+
+
+def test_decode_attention_constants_match_the_kernel_source():
+    """The plan's constants are the ones ``csrc/decode_attn.cu`` is
+    compiled with."""
+    src = (_build.CSRC / "decode_attn.cu").read_text()
+    defined = {name: int(value) for name, value in re.findall(
+        r"^constexpr int (\w+) = (\d+);", src, re.M)}
+    names = ("WARPS", "WARPS_G16", "NSTAGE", "MAX_TW", "MAX_SPLITS", "MAX_G",
+             "MAX_D", "MAX_E", "MAX_E_F32", "MIN_E", "LANE_REGS", "MAX_SMEM")
+    assert {n: defined.get(n) for n in names} == {
+        n: getattr(tda_kernel, n) for n in names}
+
+
+@pytest.mark.parametrize("s", [1, 7, 64, 512])
+def test_decode_attention_valid_range_matches_the_masks(s):
+    """The kernel's valid range, written out in Python, against the plain
+    versions' masks, exhaustively: ring mode for every position in
+    [0, 3S) and window in {1, 100, S, 4096} (the slots, and that logical
+    row j holds position p - n + 1 + j, oldest first); lengths mode for
+    every length in [0, 3S) with no window or those windows.  p mod S by
+    the kernel's multiply-high holds for large positions too."""
+    kern = tda_kernel
+    pos = torch.arange(3 * s, dtype=torch.int32)
+    for w in (1, 100, s, 4096):
+        want = tda_ref.ring_valid(pos, s, w).numpy()
+        for p in range(3 * s):
+            n, start = kern.valid_range(p, s, w, ring=True)
+            got = np.zeros(s, bool)
+            for j in range(n):
+                slot = kern.slot_of(start, j, s)
+                got[slot] = True
+                assert p - (p % s - slot) % s == p - n + 1 + j
+            np.testing.assert_array_equal(got, want[p])
+    slots = np.arange(s)
+    for w in (None, 1, 100, s, 4096):
+        for length in range(3 * s):
+            n, start = kern.valid_range(length, s, w, ring=False)
+            got = np.zeros(s, bool)
+            got[[kern.slot_of(start, j, s) for j in range(n)]] = True
+            want = slots < length
+            if w is not None:
+                want &= slots >= length - w
+            np.testing.assert_array_equal(got, want)
+    rng = np.random.default_rng(s)
+    for p in [*rng.integers(0, 2 ** 31 - 1, 2000), 2 ** 31 - 1, s - 1, s]:
+        assert kern.mod_s(int(p), s) == int(p) % s
 
 
 def test_kernel_build_needs_nvcc(monkeypatch):
