@@ -8,7 +8,11 @@ Phases (each passes or the script exits nonzero):
      and the SASS of every kernel is checked for int->float conversion
      instructions (there must be none: Algorithm 1 and the int8 KV widening
      use integer and float bit operations, and no kernel divides at run
-     time);
+     time); typeconv's SASS must also hold no FLO, POPC or BREV (each would
+     do a step of the conversion without Algorithm 1), and its integer
+     instructions per element are counted in the vector loop of each n's
+     instance; the card's 32-bit integer rate (64 per SM per clock) is read
+     from its SM count and highest SM clock;
   2. kernels — each kernel against its plain PyTorch version on the card, at
      the main path's shapes, then timed (CUDA events, median of 30 launches,
      L2 flushed before each) beside its plain version, one PyTorch library
@@ -18,7 +22,11 @@ Phases (each passes or the script exits nonzero):
      plan chose; decode attention is timed at the main path's call (S 512,
      a wrapped ring), at S = 4096 and at the engine's positions (p in
      [40, 100)), each beside its launch plan and a bound over the valid
-     slots, and typeconv also at [4096, 4096];
+     slots; typeconv must be bit-equal to ``.float()`` for every n in
+     2..25, with 0 and +-(2**(n-1) - 1), a count that is not a multiple of 4
+     and views at odd offsets, and is timed at [64, 4096] and [4096, 4096]
+     (n = 8) and at [4096, 4096] (n = 16, 25) beside two bounds: its bytes
+     and its SASS's integer instructions at the integer rate;
   3. model  — full-width tinymistral_248m (random weights, seed 0, int8 KV):
      one prefill of 2 prompts and 4 greedy decode steps on the card through
      the kernels and on the CPU through the plain versions.  Under uniform:4
@@ -40,8 +48,11 @@ result as JSON) goes to ``build/chip_smoke/``.
 """
 from __future__ import annotations
 
+import collections
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -53,6 +64,10 @@ OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
+# Hopper issues 64 32-bit integer instructions per SM per clock (a quarter
+# of its f32 rate; the CUDA programming guide's throughput table); the
+# card's rate is this times its SM count and highest SM clock (int_rate)
+INT_OPS_PER_SM_CLOCK = 64
 
 # Tolerances.  The f32 LUT-GEMV sums K <= 4096 products in another order than
 # the plain version's matmul, so results differ by f32 rounding of that sum
@@ -166,10 +181,130 @@ def timings(timer, kernel, plain, library) -> dict:
             "library_ms": timer(library), "call_ms": timer.call_ms(kernel)}
 
 
-def bound_ms(nbytes: float, ops: float):
+def bound_ms(nbytes: float, ops: float, ops_per_s: float = F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int_rate(torch) -> dict:
+    """The card's 32-bit integer instruction rate and where its three
+    factors come from."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    return {"ops_per_s": INT_OPS_PER_SM_CLOCK * sms * mhz * 1e6,
+            "per_sm_clock": INT_OPS_PER_SM_CLOCK, "sms": sms,
+            "max_sm_mhz": mhz,
+            "from": "64 / SM / clock (CUDA programming guide, Hopper) x "
+                    "torch.cuda.get_device_properties(0)."
+                    "multi_processor_count x nvidia-smi clocks.max.sm"}
+
+
+# ---------------------------------------------------------------------------
+# SASS
+# ---------------------------------------------------------------------------
+
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)")
+SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+# opcodes that would convert without Algorithm 1: int->float, find leading
+# one, population count, bit reverse (and their uniform-datapath forms)
+TYPECONV_BANNED = ("I2F", "FLO", "POPC", "BREV")
+
+
+def sass_listing(path) -> str:
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([cuobjdump, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_functions(text: str) -> dict:
+    """Each function of a ``cuobjdump -sass`` listing: its instructions as
+    (address, opcode, operands), branch labels resolved to addresses."""
+    funcs, insns, labels, pending = {}, None, None, []
+    for line in text.splitlines():
+        if "Function : " in line:
+            insns, labels, pending = [], {}, []
+            funcs[line.split("Function : ")[1].strip()] = (insns, labels)
+            continue
+        if insns is None:
+            continue
+        m = SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = SASS_INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insns.append((addr, m.group(2), m.group(3)))
+    out = {}
+    for name, (insns, labels) in funcs.items():
+        resolved = []
+        for addr, op, rest in insns:
+            target = None
+            if op.split(".")[0] == "BRA":
+                lab = re.search(r"\((\.L_x_\d+)\)", rest)
+                hexa = re.search(r"0x([0-9a-f]+)", rest.split(";")[0])
+                target = labels.get(lab.group(1)) if lab else \
+                    int(hexa.group(1), 16) if hexa else None
+            resolved.append((addr, op, target))
+        out[name] = resolved
+    return out
+
+
+def banned_counts(insns) -> dict:
+    """How many instructions of each TYPECONV_BANNED kind (I2F also counts
+    I2FP; U-prefixed uniform-datapath forms count with their kind)."""
+    counts = dict.fromkeys(TYPECONV_BANNED, 0)
+    for _, op, _ in insns:
+        base = op.split(".")[0]
+        base = base[1:] if base.startswith("U") else base
+        for kind in TYPECONV_BANNED:
+            if base == kind or (kind == "I2F" and base.startswith("I2F")):
+                counts[kind] += 1
+    return counts
+
+
+def vector_loop(insns):
+    """The loop (a backward branch's address range) with the most 16-byte
+    loads: (its instructions but NOPs, the elements its int4 loads bring),
+    or None."""
+    best_loads, best = 0, None
+    for addr, op, target in insns:
+        if target is None or target > addr:
+            continue
+        body = [o for a, o, _ in insns if target <= a <= addr and o != "NOP"]
+        loads = sum(o.startswith("LDG") and ".128" in o for o in body)
+        if loads > best_loads:
+            best_loads, best = loads, (body, 4 * loads)
+    return best
+
+
+def typeconv_sass(text: str) -> dict:
+    """typeconv's SASS: the banned opcodes over the whole library, and for
+    each n's kernel instance the integer instructions per element of its
+    vector loop (every instruction of the loop body, loads, stores and
+    branch included, over the elements one iteration converts)."""
+    funcs = sass_functions(text)
+    every = [i for insns in funcs.values() for i in insns]
+    res = {"banned": banned_counts(every), "ops_per_elem": {},
+           "loop_opcodes": {}}
+    for name, insns in funcs.items():
+        m = re.search(r"int_to_f32_kernelILi(\d+)E", name)
+        loop = vector_loop(insns) if m else None
+        if loop:
+            n = int(m.group(1))
+            body, elems = loop
+            res["ops_per_elem"][n] = len(body) / elems
+            res["loop_opcodes"][n] = dict(collections.Counter(
+                o.split(".")[0] for o in body).most_common())
+    return res
 
 
 # decode attention at tinymistral's widths: the engine's 8 lanes, 32 query
@@ -221,6 +356,60 @@ def attention_row(torch, timer, x, position, kernel) -> dict:
     return row
 
 
+# typeconv: bit-equality cases (shape, element offset of the view) for
+# every n, and the timed cases (shape, n)
+TC_CHECKS = (((64, 4096), 0), ((777,), 0), ((64 * 4096 - 1,), 1),
+             (((1 << 23) + 5,), 3))
+TC_CASES = (((64, 4096), 8), ((4096, 4096), 8), ((4096, 4096), 16),
+            ((4096, 4096), 25))
+
+
+def typeconv_input(torch, gen, n, shape, offset=0):
+    """Random n-bit ints (|a| < 2**(n-1)) of ``shape``, a view at element
+    ``offset`` of a fresh card buffer, with 0 and +-(2**(n-1) - 1) at both
+    ends."""
+    lim = 1 << (n - 1)
+    buf = torch.randint(-lim + 1, lim, (offset + math.prod(shape),),
+                        device="cuda", generator=gen, dtype=torch.int32)
+    a = buf[offset:]
+    ends = torch.tensor([0, lim - 1, -(lim - 1)], dtype=torch.int32,
+                        device="cuda")
+    a[:3], a[-3:] = ends, ends
+    return a.view(shape)
+
+
+def typeconv_row(torch, timer, a, n, kernel, ops_per_elem, int_ops_per_s):
+    """``kernel(a, n)`` timed beside the plain version and ``.float()``,
+    with two bounds: the bytes (4 read and 4 written per element) at the
+    memory rate, and ``ops_per_elem`` integer instructions per element (the
+    count in this tree's SASS for n) at the card's integer rate."""
+    from repro_torch.core.typeconv import logic_ops
+    from repro_torch.kernels.typeconv.ref import int_to_f32_plain
+    row = timings(timer, lambda: kernel(a, n), lambda: int_to_f32_plain(a, n),
+                  lambda: a.float())
+    t_bytes = bound_ms(8 * a.numel(), 0)[0]
+    t_ops = bound_ms(0, ops_per_elem * a.numel(), int_ops_per_s)[0]
+    row["bound_ms"], row["bound_by"] = bound_ms(
+        8 * a.numel(), ops_per_elem * a.numel(), int_ops_per_s)
+    row.update(shape=list(a.shape), n=n, int_ops_per_elem=ops_per_elem,
+               paper_ops_per_elem=logic_ops(n), bytes_bound_ms=t_bytes,
+               int_ops_bound_ms=t_ops, bytes_share=t_bytes / row["ms"],
+               int_ops_share=t_ops / row["ms"],
+               bound_share=row["bound_ms"] / row["ms"])
+    return row
+
+
+def typeconv_text(row) -> str:
+    return (f"{row['shape']} n={row['n']}: {1e3 * row['ms']:.2f} us (.float()"
+            f" {1e3 * row['library_ms']:.2f}, plain {1e3 * row['plain_ms']:.2f}"
+            f", eager call {1e3 * row['call_ms']:.2f} us); bytes bound "
+            f"{1e3 * row['bytes_bound_ms']:.2f} us ({100 * row['bytes_share']:.1f}"
+            f"% of it), integer bound {1e3 * row['int_ops_bound_ms']:.2f} us at "
+            f"{row['int_ops_per_elem']:.3f} ops per element (paper "
+            f"{row['paper_ops_per_elem']:.1f}; {100 * row['int_ops_share']:.1f}"
+            f"% of it)")
+
+
 # ---------------------------------------------------------------------------
 # phase 1: build
 # ---------------------------------------------------------------------------
@@ -244,18 +433,37 @@ def phase_build(rt):
     log(f"[build] nvcc built {sorted(logs) or 'nothing (cached)'} in "
         f"{secs:.1f} s; max registers/thread {max(regs) if regs else 'n/a'}; "
         f"spilling kernels: {len(spills)}")
-    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    listings = {}
     for name in ("lut_gemv", "typeconv", "decode_attn"):
-        sass = subprocess.run([cuobjdump, "-sass",
-                               str(_build.library_path(name))],
-                              capture_output=True, text=True, check=True)
-        if "Function" not in sass.stdout:
+        listings[name] = sass_listing(_build.library_path(name))
+        if "Function" not in listings[name]:
             fail(f"cuobjdump printed no SASS for {name}")
-        n_i2f = sass.stdout.count("I2F")
+        n_i2f = listings[name].count("I2F")
         log(f"[build] {name}: {n_i2f} I2F instructions in the SASS")
         if n_i2f:
             fail(f"{name} converts int->float with I2F; codes must be "
                  "widened with integer and float bit operations only")
+    with open(os.path.join(OUT_DIR, "typeconv.sass"), "w") as f:
+        f.write(listings["typeconv"])
+    tc = typeconv_sass(listings["typeconv"])
+    log("[build] typeconv SASS: " + ", ".join(
+        f"{n} {kind}" for kind, n in tc["banned"].items()) + " instructions")
+    if any(tc["banned"].values()):
+        fail("typeconv's SASS converts without Algorithm 1: "
+             f"{tc['banned']}")
+    if sorted(tc["ops_per_elem"]) != list(range(2, 26)):
+        fail("no vector loop found in the SASS of typeconv's instances for "
+             f"n = {sorted(set(range(2, 26)) - set(tc['ops_per_elem']))}")
+    log("[build] typeconv integer instructions per element (vector loop "
+        "body / elements per iteration), n = 2..25: " + ", ".join(
+            f"{tc['ops_per_elem'][n]:.3f}" for n in range(2, 26))
+        + f"; n = 8 loop body {tc['loop_opcodes'][8]}")
+    import torch
+    rate = int_rate(torch)
+    log(f"[build] 32-bit integer rate {rate['ops_per_s']:.4e} ops/s = "
+        f"{rate['per_sm_clock']} / SM / clock x {rate['sms']} SMs x "
+        f"{rate['max_sm_mhz']:.0f} MHz ({rate['from']})")
+    rt["typeconv_sass"], rt["int_rate"] = tc, rate
     rt["build_s"] = secs
 
 
@@ -284,7 +492,6 @@ def rand_qtensor(torch, gen, k, n, bits, group, integer):
 def phase_kernels(rt):
     import torch
     from repro_torch.core.quant import dequantize, quantize_activations
-    from repro_torch.core.typeconv import logic_ops
     from repro_torch.kernels.decode_attn.kernel import card_plan, \
         decode_attention_cuda
     from repro_torch.kernels.decode_attn.ref import decode_attention_ref, \
@@ -294,7 +501,6 @@ def phase_kernels(rt):
     from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref, \
         lut_matmul_ref_int
     from repro_torch.kernels.typeconv.kernel import int_to_f32_cuda
-    from repro_torch.kernels.typeconv.ref import int_to_f32_plain
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     timer = Timer(torch)
@@ -520,36 +726,29 @@ def phase_kernels(rt):
                     rows=[attn_rows["s4096"], attn_rows["engine"]])
 
     # --- typeconv ---------------------------------------------------------
-    tc_err = 0.0
-    for n_bits in (8, 16, 25):
-        lim = 1 << (n_bits - 1)
-        a = torch.randint(-lim + 1, lim, (64, 4096), device="cuda",
-                          generator=gen, dtype=torch.int32)
-        out = int_to_f32_cuda(a, n_bits)
-        tc_err = max(tc_err, (out - a.float()).abs().max().item())
-        if not torch.equal(out, a.float()):
-            fail(f"int_to_f32 n={n_bits}: not bit-equal to .float(), max "
-                 f"err {tc_err:.3e}")
-    log(f"[kernels] int_to_f32: n in {{8, 16, 25}} bit-equal to .float() "
-        f"(max abs err {tc_err:.3e})")
+    tc_err, tc_cases = 0.0, 0
+    for n_bits in range(2, 26):
+        for shape, offset in TC_CHECKS:
+            a = typeconv_input(torch, gen, n_bits, shape, offset)
+            out, ref = int_to_f32_cuda(a, n_bits), a.float()
+            tc_err = max(tc_err, (out - ref).abs().max().item())
+            if not torch.equal(out, ref):
+                fail(f"int_to_f32 n={n_bits} {list(shape)} at offset "
+                     f"{offset}: not bit-equal to .float(), max err "
+                     f"{tc_err:.3e}")
+            tc_cases += 1
+    log(f"[kernels] int_to_f32: {tc_cases} cases bit-equal to .float() "
+        f"(n = 2..25 x (shape, element offset) {list(TC_CHECKS)}, 0 and "
+        f"+-(2**(n-1) - 1) at both ends; max abs err {tc_err:.3e})")
+    ops, rate = rt["typeconv_sass"]["ops_per_elem"], rt["int_rate"]
     tc_rows = []
-    for shape in ((64, 4096), (4096, 4096)):
-        a = torch.randint(-127, 128, shape, device="cuda", generator=gen,
-                          dtype=torch.int32)
-        t_bound, t_by = bound_ms(8 * a.numel(), logic_ops(8) * a.numel())
-        tc_rows.append(dict(**timings(timer, lambda: int_to_f32_cuda(a, 8),
-                                      lambda: int_to_f32_plain(a, 8),
-                                      lambda: a.float()),
-                            shape=list(shape), bound_ms=t_bound,
-                            bound_by=t_by))
-        tc_rows[-1]["bound_share"] = t_bound / tc_rows[-1]["ms"]
-        log(f"[kernels] int_to_f32 {list(shape)}: "
-            f"{1e3 * tc_rows[-1]['ms']:.2f} us (.float() "
-            f"{1e3 * tc_rows[-1]['library_ms']:.2f} us, bound "
-            f"{1e3 * t_bound:.2f} us, {100 * tc_rows[-1]['bound_share']:.1f}%"
-            f" of it)")
+    for shape, n_bits in TC_CASES:
+        a = typeconv_input(torch, gen, n_bits, shape)
+        tc_rows.append(typeconv_row(torch, timer, a, n_bits, int_to_f32_cuda,
+                                    ops[n_bits], rate["ops_per_s"]))
+        log(f"[kernels] int_to_f32 {typeconv_text(tc_rows[-1])}")
         del a
-    tc_row = dict(tc_rows[0], rows=tc_rows[1:])
+    tc_row = dict(tc_rows[0], rows=tc_rows[1:], int_rate=rate)
 
     rt["kernels"] = {
         "lut_matmul": dict(per_step(lut_rows["lut_matmul"]),
@@ -850,7 +1049,9 @@ def kernels_line(rt) -> dict:
                  "launches": rt["engine"][plan]["launches"][name],
                  "launches_run": plan, "on_main_path": on_path, "per": per}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms", "call_ms", "step_graph_ms",
+                    "library_ms", "call_ms", "bytes_bound_ms",
+                    "int_ops_bound_ms", "int_ops_per_elem",
+                    "paper_ops_per_elem", "int_rate", "step_graph_ms",
                     "library_step_graph_ms", "timer_floor_ms", "shapes",
                     "rows"):
             if key in row:

@@ -3,7 +3,7 @@
 Each module defines ``full()`` (the exact published configuration) and
 ``smoke()`` (a reduced same-family config for CPU tests).  The port has
 the paper's small evaluation model so far; the other architectures wait
-for ROADMAP Queue 1 item 9 (``llama2_7b`` / ``llama2_13b`` first).
+for ROADMAP's other families (``llama2_7b`` / ``llama2_13b`` first).
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ def _module(name: str):
     arch = canon(name)
     if arch not in ARCHS:
         raise ValueError(f"arch {name!r} is not ported yet (have {ARCHS}); "
-                         "see ROADMAP Queue 1 item 9")
+                         "see ROADMAP, other families")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

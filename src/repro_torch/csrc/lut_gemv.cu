@@ -209,7 +209,7 @@ __global__ void __launch_bounds__(THREADS)
   if constexpr (ABITS > 0) {
     // Algorithm 1 once per block for each of the 2^ABITS codes
     for (int i = threadIdx.x; i < (1 << ABITS); i += THREADS)
-      xlut[i] = sail_int_to_f32(i - (1 << (ABITS - 1)), ABITS);
+      xlut[i] = sail_int_to_f32<ABITS>(i - (1 << (ABITS - 1)));
   }
   __syncthreads();
 

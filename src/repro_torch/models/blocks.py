@@ -33,8 +33,8 @@ def check_supported(cfg: ModelConfig) -> None:
             or cfg.attention_bias or cfg.tie_embeddings:
         raise NotImplementedError(
             f"{cfg.name}: only dense RoPE/RMSNorm/SwiGLU models without "
-            "qk-norm, attention bias or tied embeddings are ported (ROADMAP "
-            "Queue 1 item 9)")
+            "qk-norm, attention bias or tied embeddings are ported (ROADMAP, "
+            "other families)")
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,

@@ -49,7 +49,7 @@ def layer_params(blocks: Dict[str, Any], i: int):
     if isinstance(blocks, (list, tuple)):
         raise NotImplementedError(
             "segmented block stacks (mixed precision) are not ported yet: "
-            "ROADMAP Queue 1 item 7")
+            "ROADMAP, the planning slice")
     return blocks[i]
 
 

@@ -9,7 +9,7 @@ to the serving format; embeddings and 1-D parameters stay f32.
 
 Single-segment policies only: one ``bits`` / ``act_bits`` for every leaf.
 Per-path ``rules`` / ``allocation`` / ``act_rules`` wait for the planning
-slice (ROADMAP Queue 1 item 7) and raise ``NotImplementedError``.
+slice (ROADMAP) and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -76,11 +76,11 @@ class QuantPolicy:
         if self.rules or self.allocation is not None or self.act_rules:
             raise NotImplementedError(
                 "per-path rules / allocation / act_rules (mixed-precision "
-                "policies) are not ported yet: ROADMAP Queue 1 item 7")
+                "policies) are not ported yet: ROADMAP, the planning slice")
         if isinstance(self.bits, (tuple, list)):
             raise NotImplementedError(
                 "per-layer bit tuples (segmented stacks) are not ported yet: "
-                "ROADMAP Queue 1 item 7")
+                "ROADMAP, the planning slice")
         if self.bits not in SUPPORTED_BITS:
             raise ValueError(f"bits must be one of {SUPPORTED_BITS}, got "
                              f"{self.bits}")

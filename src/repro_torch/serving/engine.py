@@ -42,8 +42,8 @@ def parse_plan(plan: str) -> Tuple[int, Optional[int]]:
     if m is None:
         raise ValueError(
             f"plan {plan!r}: only 'uniform:<b>[a<ab>]' is ported; rules/auto "
-            "plans and PlanSpec objects wait for the planning slice (ROADMAP "
-            "Queue 1 item 7)")
+            "plans and PlanSpec objects wait for the planning slice "
+            "(ROADMAP)")
     return int(m.group(1)), None if m.group(2) is None else int(m.group(2))
 
 

@@ -17,6 +17,7 @@ from repro_torch.kernels.lut_gemv import ref as lut_ref
 from repro_torch.kernels.lut_gemv import kernel as lut_kernel
 from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda, \
     lut_matmul_int_cuda
+from repro_torch.kernels.typeconv import kernel as tc_kernel
 from repro_torch.kernels.typeconv.kernel import int_to_f32_cuda
 
 pytestmark = pytest.mark.cuda
@@ -246,12 +247,40 @@ def test_decode_attention_plan_model_matches_the_card(gen, g, quantized):
             assert p.b * p.kv <= clusters[p.lg_splits]
 
 
-@pytest.mark.parametrize("n", [2, 8, 16, 25])
-def test_typeconv_kernel_bit_equal(gen, n):
+@pytest.mark.parametrize("size, offset", [(1000, 0), (777, 0), (1000, 1),
+                                          (777, 2), (4099, 3),
+                                          ((1 << 23) + 5, 1)])
+@pytest.mark.parametrize("n", range(2, 26))
+def test_typeconv_kernel_bit_equal(gen, n, size, offset):
+    """Every n the kernel has an instance for, 0 and +-(2**(n-1) - 1) at both
+    ends, a count that is not a multiple of 4 (the scalar tail) and a view
+    at an odd element offset (the scalar head, and an output buffer at the
+    same offset modulo 16 bytes); 2**23 + 5 elements give each thread of
+    a full wave more than 4 vectors, so the unrolled iterations run too."""
     lim = 1 << (n - 1)
-    a = torch.randint(-lim + 1, lim, (1000,), device="cuda", generator=gen,
-                      dtype=torch.int32)
-    assert torch.equal(int_to_f32_cuda(a, n), a.float())
+    buf = torch.randint(-lim + 1, lim, (offset + size,), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    a = buf[offset:]
+    ends = torch.tensor([0, lim - 1, -(lim - 1)], dtype=torch.int32,
+                        device="cuda")
+    a[:3], a[-3:] = ends, ends
+    before = _build.launches["int_to_f32"]
+    out = int_to_f32_cuda(a, n)
+    assert _build.launches["int_to_f32"] == before + 1
+    assert out.shape == a.shape and out.is_contiguous()
+    assert (out.data_ptr() - a.data_ptr()) % 16 == 0
+    assert torch.equal(out, a.float())
+
+
+@pytest.mark.parametrize("n", range(2, 26))
+def test_typeconv_grid_fills_the_card(gen, n):
+    """Each instance holds at least 1024 threads on an SM (its 16-byte
+    loads need many in flight), and a large call launches one full wave."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_sm = tc_kernel.occupancy(n)
+    assert per_sm * tc_kernel.THREADS >= 1024
+    assert tc_kernel._card(0, n) == (sms, per_sm)
+    assert tc_kernel.grid(1 << 24, sms, per_sm) == sms * per_sm
 
 
 def test_kernels_refuse_what_they_do_not_take(gen):

@@ -119,7 +119,8 @@ def _imports(path):
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     files += [os.path.join(ROOT, "tools", n) for n in ("lut_gemv_times.py",
-                                                       "decode_attn_times.py")]
+                                                       "decode_attn_times.py",
+                                                       "typeconv_times.py")]
     for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
         files += [os.path.join(base, n) for n in names if n.endswith(".py")]
     return files

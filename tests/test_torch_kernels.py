@@ -3,6 +3,8 @@ versions) against the JAX reference's Pallas kernels in interpret mode
 and their jnp oracles, over the reference tests' grids."""
 import dataclasses
 import re
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -23,6 +25,7 @@ from repro_torch.kernels.decode_attn import ops as tda_ops
 from repro_torch.kernels.decode_attn import ref as tda_ref
 from repro_torch.kernels.lut_gemv import kernel as tlut_kernel
 from repro_torch.kernels.lut_gemv import ops as tlut_ops
+from repro_torch.kernels.typeconv import kernel as ttc_kernel
 from repro_torch.models import blocks as tblocks
 from repro_torch.models.common import ModelConfig as TModelConfig
 
@@ -420,3 +423,115 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     if not _build.library_path("typeconv").exists():
         with pytest.raises(RuntimeError, match="nvcc"):
             _build.build(["typeconv"])
+
+
+def test_typeconv_wrapper_refuses_before_the_device_check():
+    """dtype, layout and n are refused with a ValueError before the device
+    check (so here, on CPU and ``meta`` tensors), and nothing launches."""
+    _build.reset_launches()
+    f = ttc_kernel.int_to_f32_cuda
+    for dev in ("cpu", "meta"):
+        with pytest.raises(ValueError, match="int32"):
+            f(torch.zeros(8, device=dev), 8)
+        with pytest.raises(ValueError, match="int32"):
+            f(torch.zeros(8, dtype=torch.int64, device=dev), 8)
+        with pytest.raises(ValueError, match="contiguous"):
+            f(torch.zeros((4, 6), dtype=torch.int32, device=dev).t(), 8)
+        with pytest.raises(ValueError, match="contiguous"):
+            f(torch.zeros(16, dtype=torch.int32, device=dev)[::2], 8)
+        for n in (1, 26):
+            with pytest.raises(ValueError, match="2 <= n <= 25"):
+                f(torch.zeros(8, dtype=torch.int32, device=dev), n)
+        with pytest.raises(ValueError, match="CUDA"):
+            f(torch.zeros(8, dtype=torch.int32, device=dev), 8)
+    assert _build.launches["int_to_f32"] == 0
+
+
+def test_typeconv_grid_and_output_alignment():
+    """One 16-byte vector per thread up to a full wave of the card, and an
+    output buffer at the input's offset modulo 16 bytes."""
+    g = ttc_kernel.grid
+    assert g(64 * 4096, 132, 8) == 256           # 65536 vectors, 256 a block
+    assert g(4096 * 4096, 132, 8) == 132 * 8     # a wave; threads loop
+    assert g(777, 132, 8) == 1 and g(1, 132, 8) == 1
+    assert g(257 * 4, 132, 8) == 2              # 257 vectors
+    assert g(10 ** 9, 100, 3) == 300
+    for ptr, off in ((0, 0), (4, 1), (8, 2), (12, 3), (1 << 40, 0),
+                     ((1 << 40) + 20, 1)):
+        assert ttc_kernel.out_offset(ptr) == off
+        assert (ptr - 4 * off) % 16 == 0
+
+
+def test_typeconv_constants_match_the_kernel_source():
+    src = (_build.CSRC / "typeconv.cu").read_text()
+    defined = {name: int(value) for name, value in re.findall(
+        r"^constexpr int (\w+) = (\d+);", src, re.M)}
+    names = ("THREADS", "MIN_N", "MAX_N")
+    assert {n: defined.get(n) for n in names} == {
+        n: getattr(ttc_kernel, n) for n in names}
+
+
+# Runs typeconv.cuh's device function on the host: the CUDA qualifiers and
+# the bitcast intrinsic are defined away, and every n-bit value is checked
+# against the compiler's own int -> float cast, bit for bit.
+_HOST_HARNESS = r"""
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <utility>
+#define __device__
+#define __forceinline__ inline
+static inline float __uint_as_float(uint32_t u) {
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+#include "typeconv.cuh"
+
+template <int N> long mismatches() {
+  long bad = 0;
+  const int32_t lim = 1 << (N - 1);
+  for (int32_t a = -lim + 1; a < lim; ++a) {
+    const float got = sail_int_to_f32<N>(a), want = static_cast<float>(a);
+    bad += std::memcmp(&got, &want, 4) != 0;
+  }
+  return bad;
+}
+
+template <int... I> long run(int n, std::integer_sequence<int, I...>) {
+  long r = -1;
+  ((n == I + 2 ? (r = mismatches<I + 2>(), 0) : 0), ...);
+  return r;
+}
+
+int main(int argc, char** argv) {
+  const int n = std::atoi(argv[1]);
+  std::printf("%ld\n", run(n, std::make_integer_sequence<int, 24>{}));
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_typeconv(tmp_path_factory):
+    cxx = shutil.which("c++") or shutil.which("g++") or shutil.which("clang++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to run typeconv.cuh on the CPU")
+    d = tmp_path_factory.mktemp("typeconv_host")
+    (d / "harness.cpp").write_text(_HOST_HARNESS)
+    exe = d / "harness"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-I", str(_build.CSRC), "-o",
+                    str(exe), str(d / "harness.cpp")], check=True,
+                   capture_output=True, timeout=120)
+    return exe
+
+
+@pytest.mark.parametrize("n", range(ttc_kernel.MIN_N, ttc_kernel.MAX_N + 1))
+def test_typeconv_device_function_bit_equal_on_the_host(host_typeconv, n):
+    """The CUDA kernel's arithmetic (``csrc/typeconv.cuh``, the bit-parallel
+    Algorithm 1 the card runs) is bit-equal to a cast for every value of
+    every n the kernel has an instance for: 2**n - 1 values each."""
+    out = subprocess.run([str(host_typeconv), str(n)], check=True,
+                         capture_output=True, text=True, timeout=60)
+    assert int(out.stdout) == 0
