@@ -22,7 +22,13 @@ Phases (each passes or the script exits nonzero):
      plan chose; decode attention is timed at the main path's call (S 512,
      a wrapped ring), at S = 4096 and at the engine's positions (p in
      [40, 100)), each beside its launch plan and a bound over the valid
-     slots; typeconv must be bit-equal to ``.float()`` for every n in
+     slots; its table mode (the paged engine's) must agree with its plain
+     version and be bit-equal to ring mode on the same rows laid out
+     contiguously over D x G x S x block size x K/V type x window, and is
+     timed at the engine's shape (block size 16, every slot of 7 lanes
+     valid, the 8th lane's table all trash) at S 512 and 4096 beside ring
+     mode on the same rows; typeconv must be bit-equal
+     to ``.float()`` for every n in
      2..25, with 0 and +-(2**(n-1) - 1), a count that is not a multiple of 4
      and views at odd offsets, and is timed at [64, 4096] and [4096, 4096]
      (n = 8) and at [4096, 4096] (n = 16, 25) beside two bounds: its bytes
@@ -39,7 +45,17 @@ Phases (each passes or the script exits nonzero):
      decode step sent all 85 weight matmuls through the plan's LUT-GEMV and
      every layer's attention through the decode-attention kernel, and the
      other LUT-GEMV was not launched; one decode step's device time, and its
-     12 attention launches as one graph on the engine's own cache.
+     12 attention launches as one graph on the engine's own cache;
+  5. paged — the engine over a paged pool (uniform:4, block size 16): run A
+     serves phase 4's 16 requests over 8 lanes' worth of blocks without
+     prefix sharing, and its tokens must equal the ring engine's; run B
+     serves 16 requests in four groups sharing a 32-token prefix over one
+     lane's 32 blocks, twice, and must complete them all with prefix hits,
+     preemptions, every block returned and the same tokens both times; in
+     both runs every decode step's attention must go through the table mode
+     (none through ring mode) and its 85 weight matmuls through the LUT-GEMV;
+     one full-pool paged step is timed beside the ring step, and a paged and
+     a ring engine at equal KV bytes report how many requests they held.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -353,6 +369,81 @@ def attention_row(torch, timer, x, position, kernel) -> dict:
             q4, kdq, vdq, attn_mask=mask, enable_gqa=True))
     row.update(s=s, valid_slots=slots, bound_ms=bound, bound_by=by,
                bound_share=bound / row["ms"])
+    return row
+
+
+def paged_inputs(torch, gen, b, kv, g, d, s, bs, quantized, position=None):
+    """q and a block pool of int8 (with scales) or f32 K/V holding ``b``
+    lanes of mbs = ceil(S / BS) blocks each, shuffled among twice as many
+    blocks (gaps between a lane's blocks) plus a trash block (the last);
+    int32 tables [B, mbs], the last lane's entries all trash.  Positions
+    never wrap (paged lanes): ``position`` for every lane but the last, or
+    0, one block, the lane's last slot and spread ones; the trash lane
+    sits at a frozen 5."""
+    from repro_torch.core.quant import quantize_kv
+    mbs = -(-s // bs)
+    nb = 2 * b * mbs
+    shape = (nb + 1, bs, kv, d)
+    x = {"q": torch.randn((b, kv * g, d), device="cuda", generator=gen),
+         "k": torch.randn(shape, device="cuda", generator=gen),
+         "v": torch.randn(shape, device="cuda", generator=gen),
+         "ks": None, "vs": None}
+    if quantized:
+        x["k"], x["ks"] = quantize_kv(x["k"])
+        x["v"], x["vs"] = quantize_kv(x["v"])
+    perm = torch.randperm(nb, device="cuda", generator=gen)
+    tables = perm[:b * mbs].reshape(b, mbs).to(torch.int32).contiguous()
+    tables[-1] = nb
+    if position is None:
+        pos = [0, bs, mbs * bs - 1] + [97 * i % (mbs * bs)
+                                       for i in range(3, b)]
+    else:
+        pos = [position] * b
+    x["tables"] = tables
+    x["pos"] = torch.tensor(pos[:b - 1] + [5], dtype=torch.int32,
+                            device="cuda")
+    return x
+
+
+def table_row(torch, timer, x, kernel) -> dict:
+    """Table mode at ``x`` (``paged_inputs``) timed beside ring mode on the
+    same rows laid out contiguously (the gap is the price of the
+    indirection), the plain version (the reference's gather, then ring
+    attention) and SDPA on the gathered, dequantized K/V (the library call;
+    neither the gather nor the dequantization is timed).  The bound counts
+    what the call needs: q, the output, the positions, the tables, and the
+    K and V rows and scales of the valid slots only."""
+    from repro_torch.kernels.decode_attn.ref import decode_attention_paged_ref, \
+        gather_blocks, ring_valid
+    q, k, v, ks, vs, tables, pos = (x[n] for n in ("q", "k", "v", "ks", "vs",
+                                                   "tables", "pos"))
+    b, h, d = q.shape
+    bs, kvh = k.shape[1], k.shape[2]
+    s = tables.shape[1] * bs
+    gather = lambda a: gather_blocks(a, tables)
+    kc, vc, ksc, vsc = gather(k), gather(v), gather(ks), gather(vs)
+    valid = ring_valid(pos, s, ATTN_WINDOW)
+    slots = int(valid.sum())
+    kdq = (kc.float() * ksc).transpose(1, 2).contiguous()
+    vdq = (vc.float() * vsc).transpose(1, 2).contiguous()
+    mask = valid[:, None, None, :]
+    q4 = q[:, :, None, :]
+    nbytes = (2 * 4 * q.numel() + 4 * b + 4 * tables.numel()
+              + slots * kvh * (2 * d + 2 * 4))
+    bound, by = bound_ms(nbytes, 4 * slots * h * d)
+    row = timings(
+        timer,
+        lambda: kernel(q, k, v, pos, ks, vs, ATTN_WINDOW, ring=True,
+                       tables=tables),
+        lambda: decode_attention_paged_ref(q, k, v, pos, tables, ATTN_WINDOW,
+                                           ks, vs),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kdq, vdq, attn_mask=mask, enable_gqa=True))
+    row["ring_ms"] = timer(lambda: kernel(q, kc, vc, pos, ksc, vsc,
+                                          ATTN_WINDOW, ring=True))
+    row.update(s=s, block_size=bs, valid_slots=slots, bound_ms=bound,
+               bound_by=by, bound_share=bound / row["ms"],
+               indirection=row["ms"] / row["ring_ms"] - 1)
     return row
 
 
@@ -722,8 +813,78 @@ def phase_kernels(rt):
             f" us by {row['bound_by']}, {100 * row['bound_share']:.1f}% of "
             f"it)")
     del long
+
+    # --- decode attention, table mode ------------------------------------
+    # against its plain version at ATTN_TOL and bit-equal to ring mode on
+    # the same rows laid out contiguously (one plan, one row order: only
+    # row_of differs), over D x G x S x BS x K/V type x window, with
+    # shuffled tables with gaps and a lane all trash
+    from repro_torch.kernels.decode_attn.ref import decode_attention_paged_ref, \
+        gather_blocks
+    table_err, table_cases = 0.0, 0
+    for d_ in (32, 128):
+        for g_ in (1, 4):
+            for s_ in (512, 4096):
+                for bs in (8, 12, 16):
+                    for quant in (False, True):
+                        pg = paged_inputs(torch, gen, 4, 2, g_, d_, s_, bs,
+                                          quant)
+                        args_ = (pg["q"], pg["k"], pg["v"], pg["pos"])
+                        scs = (pg["ks"], pg["vs"])
+                        gat = lambda a: None if a is None else \
+                            gather_blocks(a, pg["tables"])
+                        for window in (4096, 300):
+                            case = (f"D={d_} G={g_} S={s_} BS={bs} "
+                                    f"quant={quant} window={window}")
+                            out = decode_attention_cuda(
+                                *args_, *scs, window, ring=True,
+                                tables=pg["tables"])
+                            ref = decode_attention_paged_ref(
+                                *args_, pg["tables"], window, *scs)
+                            err = (out - ref).abs().max().item()
+                            if not torch.allclose(out, ref, rtol=ATTN_TOL,
+                                                  atol=ATTN_TOL):
+                                fail(f"decode_attention table {case}: max "
+                                     f"err {err:.3e}")
+                            ring = decode_attention_cuda(
+                                pg["q"], gat(pg["k"]), gat(pg["v"]),
+                                pg["pos"], gat(pg["ks"]), gat(pg["vs"]),
+                                window, ring=True)
+                            if not torch.equal(out, ring):
+                                fail(f"decode_attention table {case}: not "
+                                     "bit-equal to ring mode on the same "
+                                     "rows")
+                            table_err = max(table_err, err)
+                            table_cases += 1
+    log(f"[kernels] decode_attention table mode: {table_cases} cases (D "
+        f"32/128 x G 1/4 x S 512/4096 x BS 8/12/16 x int8/f32 x window "
+        f"4096/300, shuffled tables with gaps, a lane all trash) within "
+        f"{ATTN_TOL} of the plain version (max abs err {table_err:.3e}) and "
+        f"bit-equal to ring mode on the same rows")
+    attn_err = max(attn_err, table_err)
+    # timing at the engine's shape (B 8, KV 8, G 4, D 32, int8, BS 16) with
+    # every slot of 7 lanes valid (the 8th lane's table all trash), at S 512
+    # and 4096
+    for name, s_ in (("table_s512", 512), ("table_s4096", 4096)):
+        pg = paged_inputs(torch, gen, b, kvh, g, d, s_, 16, True, s_ - 1)
+        p = card_plan(b, h, kvh, d, s_, ATTN_WINDOW, True, True, q.device)
+        row = table_row(torch, timer, pg, decode_attention_cuda)
+        row.update(case=name, splits=p.splits, blocks=p.blocks)
+        attn_rows[name] = row
+        log(f"[kernels] decode_attention {name}: S={s_}, BS 16, "
+            f"{row['valid_slots']} valid slots, plan {p.splits} splits x "
+            f"{b * kvh} (b, kv) = {p.blocks} blocks; table mode "
+            f"{1e3 * row['ms']:.2f} us, ring mode on the same rows "
+            f"{1e3 * row['ring_ms']:.2f} us ({100 * row['indirection']:+.1f}"
+            f"% for the indirection); plain {1e3 * row['plain_ms']:.2f}, "
+            f"SDPA {1e3 * row['library_ms']:.2f}, bound "
+            f"{1e3 * row['bound_ms']:.3f} us by {row['bound_by']} "
+            f"({100 * row['bound_share']:.1f}% of it)")
+        del pg
     attn_row = dict(attn_rows["main"],
-                    rows=[attn_rows["s4096"], attn_rows["engine"]])
+                    rows=[attn_rows[n] for n in ("s4096", "engine",
+                                                 "table_s512",
+                                                 "table_s4096")])
 
     # --- typeconv ---------------------------------------------------------
     tc_err, tc_cases = 0.0, 0
@@ -933,7 +1094,6 @@ def run_perturbed(torch, lm, params, cfg, toks, lengths):
 # ---------------------------------------------------------------------------
 
 def phase_engine(rt):
-    import numpy as np
     import torch
     from repro_torch.kernels import _build
     from repro_torch.kernels.decode_attn.ops import decode_attention_ring
@@ -947,11 +1107,8 @@ def phase_engine(rt):
         eng = Engine(raw, cfg, EngineConfig(
             batch_size=8, cache_len=512, quant_kv=True, plan=plan,
             group_size=128), device="cuda")
-        rng = np.random.default_rng(0)
-        for _ in range(16):
-            n = int(rng.integers(8, 65))
-            eng.submit(rng.integers(0, cfg.vocab, size=n).tolist(),
-                       max_new_tokens=32)
+        for prompt in engine_requests(cfg):
+            eng.submit(prompt, max_new_tokens=32)
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -961,6 +1118,8 @@ def phase_engine(rt):
         counts = dict(_build.launches)
         st = eng.stats()
         toks = [c.tokens for c in done]
+        rt.setdefault("ring_tokens", {})[plan] = {c.uid: c.tokens
+                                                  for c in done}
         if len(done) != 16 or any(len(t) != 32 for t in toks):
             fail(f"{plan}: expected 16 completions of 32 tokens")
         if any(not 0 <= tok < cfg.vocab for t in toks for tok in t):
@@ -1019,6 +1178,170 @@ def phase_engine(rt):
             mean_ttft_s=st["mean_ttft_s"], launches=counts)
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the paged engine, through the kernels' table mode
+# ---------------------------------------------------------------------------
+
+PAGED = dict(batch_size=8, cache_len=512, quant_kv=True, plan="uniform:4",
+             group_size=128, kv_block_size=16)
+
+
+def engine_requests(cfg, seed=0):
+    """Phase 4's 16 requests: prompts of 8-64 random tokens."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, cfg.vocab, size=int(rng.integers(8, 65)))
+            .tolist() for _ in range(16)]
+
+
+def prefix_requests(cfg, n=16, seed=1):
+    """``n`` prompts in four groups, each group sharing a 32-token prefix,
+    then 8-32 more tokens each."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    stems = [rng.integers(0, cfg.vocab, size=32).tolist() for _ in range(4)]
+    return [stems[i % 4] + rng.integers(0, cfg.vocab, size=int(
+        rng.integers(8, 33))).tolist() for i in range(n)]
+
+
+def serve_counted(torch, eng, prompts, max_new=32):
+    """Serve ``prompts`` with the launch counters set to 0 just before and
+    read just after: ({uid: tokens}, counts, seconds)."""
+    from repro_torch.kernels import _build
+    uids = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    return {u: eng.completions[u].tokens for u in uids}, counts, dt
+
+
+def check_paged_launches(name, st, counts, cfg):
+    """Every decode step: each layer's attention through the table mode
+    and none through ring mode, the 85 weight matmuls through the f32
+    LUT-GEMV and none through the int one."""
+    steps = st["decode_iterations"]
+    ring = counts["decode_attention"] - counts["decode_attention_table"]
+    need_lut = steps * ((len(MATMULS) - 1) * cfg.n_layers + 1)
+    table = counts["decode_attention_table"]
+    if (table < steps * cfg.n_layers or ring
+            or counts["lut_matmul"] < need_lut or counts["lut_matmul_int"]):
+        fail(f"paged {name}: table-mode attention {table} (need >= "
+             f"{steps * cfg.n_layers}), ring mode {ring} (need 0), "
+             f"lut_matmul {counts['lut_matmul']} (need >= {need_lut}), "
+             f"lut_matmul_int {counts['lut_matmul_int']} (need 0)")
+
+
+def phase_paged(rt):
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw = full_model(rt)
+    timer = Timer(torch)
+    res = rt["paged"] = {}
+
+    # run A: phase 4's 16 requests, a pool of 8 lanes x 32 blocks, no
+    # sharing: admission and prefill groups are the ring engine's, so the
+    # tokens must be the ring engine's exactly
+    eng = Engine(raw, cfg, EngineConfig(**PAGED, kv_pool_blocks=8 * 32,
+                                        share_prefix=False), device="cuda")
+    got, counts, dt = serve_counted(torch, eng, engine_requests(cfg))
+    st = eng.stats()
+    check_paged_launches("run A", st, counts, cfg)
+    ring = rt["ring_tokens"]["uniform:4"]
+    same = sum(got[u] == ring[u] for u in ring)
+    log(f"[paged] run A (16 requests, 256 blocks of 16, no sharing): "
+        f"{st['generated_tokens']} tokens in {dt:.3f} s, decode "
+        f"{st['measured_tps']:.1f} tok/s over {st['decode_iterations']} "
+        f"steps; {same} of 16 completions equal the ring engine's; launches "
+        f"{counts}")
+    if got != ring:
+        fail(f"paged run A: tokens differ from the ring engine's ({same} of "
+             "16 equal)")
+    res["A"] = dict(tokens=st["generated_tokens"], seconds=dt,
+                    decode_tok_per_s=st["measured_tps"],
+                    decode_steps=st["decode_iterations"], launches=counts,
+                    equal_to_ring=same, block_pool=st["block_pool"])
+
+    # one full-pool paged decode step, device (graph replay) and eager wall,
+    # at the ring step's positions: each lane on its own 32 blocks
+    tables = torch.arange(8 * 32, dtype=torch.int32,
+                          device="cuda").reshape(8, 32)
+    tok = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    step = lambda: lm.decode_step(eng.params, tok, eng.cache, cfg,
+                                  quant_kv=True, device="cuda",
+                                  block_tables=tables)
+    step_dev, step_wall = timer(step), timer.call_ms(step)
+    ring_step = rt["engine"]["uniform:4"]
+    log(f"[paged] one full-pool paged decode step (8 lanes, positions "
+        f"{eng.cache['length'].tolist()}): device {step_dev:.3f} ms, eager "
+        f"wall {step_wall:.3f} ms; the ring step "
+        f"{ring_step['step_device_ms']:.3f} / "
+        f"{ring_step['step_wall_ms']:.3f} ms")
+    res["step_device_ms"], res["step_wall_ms"] = step_dev, step_wall
+    del eng
+
+    # run B: 16 requests sharing four 32-token prefixes, 32 new tokens each,
+    # a pool of one lane's 32 blocks: sharing and preemption; twice
+    prompts = prefix_requests(cfg)
+    runs = []
+    for rep_ in range(2):
+        eng = Engine(raw, cfg, EngineConfig(**PAGED, kv_pool_blocks=32),
+                     device="cuda")
+        got, counts, dt = serve_counted(torch, eng, prompts)
+        st = eng.stats()
+        pool = st["block_pool"]
+        eng.block_mgr.check_invariants()
+        check_paged_launches("run B", st, counts, cfg)
+        if (len(got) != 16 or any(len(t) != 32 for t in got.values())
+                or pool["preemptions"] == 0 or pool["shared_hits"] == 0
+                or pool["used_blocks"] != 0):
+            fail(f"paged run B: {len(got)} completions, pool {pool}")
+        runs.append(got)
+        log(f"[paged] run B #{rep_ + 1} (16 requests in 4 prefix groups, 32 "
+            f"blocks of 16): {st['generated_tokens']} tokens in {dt:.3f} s "
+            f"over {st['decode_iterations']} decode and "
+            f"{st['prefill_iterations']} prefill steps; pool {pool}; "
+            f"launches {counts}")
+    if runs[0] != runs[1]:
+        fail("paged run B: two runs gave different tokens")
+    ring_eng = Engine(raw, cfg, EngineConfig(
+        **{k: v for k, v in PAGED.items() if k != "kv_block_size"}),
+        device="cuda")
+    ring, _, _ = serve_counted(torch, ring_eng, prompts)
+    same = sum(runs[0][u] == ring[u] for u in ring)
+    log(f"[paged] run B: the same tokens twice; {same} of 16 completions "
+        f"equal the ring engine's on the same requests (preempted requests "
+        f"recompute their KV by prefill, sharers read the registrant's)")
+    res["B"] = dict(tokens=st["generated_tokens"], seconds=dt,
+                    decode_steps=st["decode_iterations"],
+                    prefill_steps=st["prefill_iterations"],
+                    launches=counts, block_pool=pool, equal_to_ring=same)
+    del eng, ring_eng
+
+    # equal KV bytes: 2 ring lanes of 512 tokens against 64 blocks of 16
+    # shared by up to 8 lanes, on 8 requests of run B's prefix groups
+    peaks = {}
+    for name, fields in (("ring", dict(batch_size=2)),
+                         ("paged", dict(batch_size=8, kv_block_size=16,
+                                        kv_pool_blocks=64))):
+        kw = {k: v for k, v in PAGED.items() if k != "kv_block_size"}
+        eng = Engine(raw, cfg, EngineConfig(**{**kw, **fields}),
+                     device="cuda")
+        serve_counted(torch, eng, prompts[:8])
+        peaks[name] = eng.stats()["peak_active"]
+        del eng
+    log(f"[paged] equal KV bytes (1024 token rows): peak_active paged "
+        f"{peaks['paged']}, ring {peaks['ring']}")
+    if peaks["paged"] <= peaks["ring"]:
+        fail(f"equal KV bytes: the paged pool held {peaks['paged']} requests"
+             f" at once, the ring pool {peaks['ring']}")
+    res["peak_active_equal_bytes"] = peaks
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -1035,7 +1358,9 @@ def kernels_line(rt) -> dict:
         "decode_attention": ("src/repro_torch/csrc/decode_attn.cu",
                              "src/repro/kernels/decode_attn/kernel.py:79",
                              "uniform:4", True, "one launch: B=8 S=512 KV=8 "
-                             "G=4 D=32, int8 ring"),
+                             "G=4 D=32, int8 ring; rows: S 4096, the engine's "
+                             "positions, table mode (BS 16) at S 512 and "
+                             "4096"),
         "int_to_f32": ("src/repro_torch/csrc/typeconv.cu",
                        "src/repro/kernels/typeconv/kernel.py:75",
                        "uniform:4a8", False,
@@ -1048,6 +1373,10 @@ def kernels_line(rt) -> dict:
                  "replaces": replaces,
                  "launches": rt["engine"][plan]["launches"][name],
                  "launches_run": plan, "on_main_path": on_path, "per": per}
+        if name == "decode_attention":      # the paged runs' table mode
+            entry["launches_table"] = {
+                run: rt["paged"][run]["launches"]["decode_attention_table"]
+                for run in ("A", "B")}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -1076,7 +1405,8 @@ def main() -> int:
     rt = {}
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
-                     ("model", phase_model), ("engine", phase_engine)):
+                     ("model", phase_model), ("engine", phase_engine),
+                     ("paged", phase_paged)):
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
@@ -1084,7 +1414,8 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"card": card_line(), "kernels": line["kernels"],
-                   "engine": rt["engine"], "build_s": rt["build_s"],
+                   "engine": rt["engine"], "paged": rt["paged"],
+                   "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line))

@@ -4,12 +4,14 @@ scheduler in ``repro.core.scheduler``; pure Python, copied).
 One model iteration serves every active user (SAIL Sec. III-A), requests
 occupy fixed KV-pool slots from admission to retirement, and freed slots
 are back-filled from the FIFO queue at iteration granularity under a
-Sarathi-style per-iteration prefill-token budget.
+Sarathi-style per-iteration prefill-token budget.  The paged engine
+gates admission on free KV blocks (``schedule(can_admit=...)``) and
+requeues a preempted request at the front (``preempt``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 # Request lifecycle: WAITING -> PREFILL (slot assigned) -> DECODE -> DONE.
 WAITING = "waiting"
@@ -57,9 +59,16 @@ class IterationScheduler:
             self.free_slots = list(range(self.max_batch))
             self._slots_init = True
 
-    def schedule(self, max_active: Optional[int] = None) -> List[Request]:
+    def schedule(self, max_active: Optional[int] = None,
+                 can_admit: Optional[Callable[[Request], bool]] = None
+                 ) -> List[Request]:
         """Admit waiting requests into free slots; return the newly
-        admitted ones (state PREFILL, ``slot`` assigned)."""
+        admitted ones (state PREFILL, ``slot`` assigned).
+
+        ``can_admit``: optional callback consulted last, immediately before
+        a request would be admitted — the paged engine's block gate, which
+        allocates the request's blocks as a side effect.  A False answer
+        stops admission for this call, keeping FIFO order."""
         self._ensure_slots()
         admitted: List[Request] = []
         used = 0
@@ -70,6 +79,8 @@ class IterationScheduler:
             if (admitted and self.prefill_budget is not None
                     and used + nxt.prompt_len > self.prefill_budget):
                 break
+            if can_admit is not None and not can_admit(nxt):
+                break
             req = self.waiting.pop(0)
             req.slot = self.free_slots.pop(0)
             req.state = PREFILL
@@ -77,6 +88,23 @@ class IterationScheduler:
             self.running.append(req)
             admitted.append(req)
         return admitted
+
+    def preempt(self, uid: int) -> Request:
+        """Evict a running request back to the FRONT of the waiting queue
+        (recompute-style preemption): its slot is freed and it resumes
+        first once blocks free up.  The engine releases its KV blocks and
+        extends ``prompt_len`` over its committed tokens."""
+        for r in self.running:
+            if r.uid == uid:
+                self.running.remove(r)
+                if r.slot >= 0:
+                    self.free_slots.append(r.slot)
+                    self.free_slots.sort()
+                    r.slot = -1
+                r.state = WAITING
+                self.waiting.insert(0, r)
+                return r
+        raise KeyError(f"uid {uid} not running")
 
     def release(self, uid: int) -> Request:
         """Retire a finished request; its slot returns to the free pool."""

@@ -3,7 +3,12 @@
 // split-S flash-decoding.  Replaces decode_attention_pallas
 // (src/repro/kernels/decode_attn/kernel.py:79) in its lengths mode and, in
 // ring mode, the jnp _decode_attend the reference decode step calls
-// (src/repro/models/blocks.py:236, 438-462).
+// (src/repro/models/blocks.py:236, 438-462).  Table mode is ring mode over
+// a paged block pool [NB, BS, KV, D] (scales [NB, BS, KV, 1]): logical slot
+// j of sequence b lives in physical block tables[b, j / BS], row j % BS, so
+// the kernel reads each lane's rows through its block table in place where
+// the reference gathers the lane's blocks into a contiguous f32 view first
+// (src/repro/models/blocks.py:191-216) and then calls _decode_attend.
 //
 // Bound: device-memory bytes, the valid K and V rows (1 byte per element when
 // int8) plus their scales; the work is 4*H*D flops per valid slot, 2 per
@@ -19,7 +24,14 @@
 //     rest following it around the ring (valid_range; lengths mode
 //     [max(0, L - w), min(L, S)), ring mode the n = min(p + 1, w, S) newest
 //     slots ending at p mod S).  Logical row j lives at slot start + j,
-//     wrapped once (row_of: the one slot -> address map);
+//     wrapped once (row_of: the one slot -> address map).  Table mode keeps
+//     the ring's range with S = (table width) * BS (a paged lane never
+//     wraps, so its valid slots are max(0, p + 1 - w) .. p) and row_of
+//     sends slot j through the table: one 4-byte table load per 16-byte
+//     chunk, which hits L1 (caching a warp's entries in shared memory, or
+//     TMA row reads, are later work).  The launch plan does not see the
+//     mode: at the same S the two modes run the same splits, warps and row
+//     order, so on the same rows their outputs are bit-equal;
 //   * split S across blocks: the grid is (splits, KV, B); the n rows of one
 //     (b, kv head) are cut into `splits` chunks of ceil(n / splits) rows,
 //     and each chunk into W contiguous warp shares (W = 16 warps a block, 8
@@ -62,7 +74,8 @@
 //     empty window gives zeros.
 // No runtime integer division or modulo appears (nvcc lowers it through
 // I2F): counts come from the host as shifts, p mod S is one multiply-high
-// by a host reciprocal per block, and the ring wrap is a compare.
+// by a host reciprocal per block, the ring wrap is a compare, and a slot's
+// block j / BS one multiply-high by a second host reciprocal (any BS >= 1).
 // Its times beside its bound, the parent version's and SDPA's, and a split
 // sweep: PERF.md (tools/decode_attn_times.py).
 #include <cooperative_groups.h>
@@ -112,11 +125,14 @@ struct Args {
   const float* ks;       // [B, S, KV] (QUANT)
   const float* vs;
   const int32_t* lens;   // [B] lengths, or positions (ring)
+  const int32_t* tables; // table mode: [B, MBS] physical blocks; else null
   float* out;            // [B, H, D]
   int H, KV, S, D, G;
   int window;            // ring: the effective window (> 0); lengths: <= 0 is none
   int ring;
+  int BS, MBS;           // table mode: rows per block, table width (S = MBS * BS)
   unsigned s_magic;      // floor((2^32 - 1) / S): p / S by a multiply-high, at most 1 low
+  unsigned bs_magic;     // floor((2^32 - 1) / BS), the same for a slot's block
   float qscale;          // log2(e) / sqrt(D)
   int lg_splits;         // splits = 2^lg_splits = the cluster's size
   int lg_p;              // lanes per row
@@ -157,9 +173,21 @@ __device__ __forceinline__ Range valid_range(const Args& a, int len) {
 
 // Row index (in rows of D elements, and in scales) of logical row j of kv
 // head h in sequence b: the one place that maps a row to its cache address.
+// Table mode: slot -> (tables[b, slot / BS] * BS + slot % BS), the quotient
+// by a multiply-high that is exact or one low, corrected by one compare.
 __device__ __forceinline__ long long row_of(const Args& a, const Range& r, int b, int h, int j) {
   int slot = r.start + j;
   if (slot >= a.S) slot -= a.S;
+  if (a.tables != nullptr) {
+    int blk = static_cast<int>(__umulhi(static_cast<unsigned>(slot), a.bs_magic));
+    int off = slot - blk * a.BS;
+    if (off >= a.BS) {
+      off -= a.BS;
+      ++blk;
+    }
+    const long long phys = __ldg(a.tables + static_cast<long long>(b) * a.MBS + blk);
+    return (phys * a.BS + off) * a.KV + h;
+  }
   return (static_cast<long long>(b) * a.S + slot) * a.KV + h;
 }
 
@@ -595,26 +623,32 @@ extern "C" int repro_decode_attention_clusters(int gm, int quantized, int splits
 
 // q f32 [B, H, D]; k, v [B, S, KV, D] int8 (quantized != 0, scales
 // [B, S, KV, 1] f32) or f32; lens int32 [B] (lengths, or positions when
-// ring != 0); out f32 [B, H, D].  The launch plan (gm = G rounded up to a
-// power of two, the lane layout, the stage, the splits, the shared memory)
-// comes from repro_torch.kernels.decode_attn.kernel.plan, which also checks
-// shapes, types, contiguity and alignment.
+// ring != 0); out f32 [B, H, D].  Table mode (tables != null, ring != 0):
+// k, v are a block pool [NB, BS, KV, D] (scales [NB, BS, KV, 1]), tables
+// int32 [B, mbs] its physical blocks, S = mbs * BS; every table entry must
+// lie in [0, NB).  The launch plan (gm = G rounded up to a power of two,
+// the lane layout, the stage, the splits, the shared memory) comes from
+// repro_torch.kernels.decode_attn.kernel.plan, which also checks shapes,
+// types, contiguity and alignment.
 extern "C" int repro_decode_attention(const void* q, const void* k, const void* v,
                                       const void* k_scale, const void* v_scale,
-                                      const void* lens, void* out, int B, int H, int KV,
-                                      int S, int D, int window, int quantized, int ring,
-                                      int gm, int lg_splits, int lg_p, int lg_tw, int lg_cpr,
-                                      int copy16, int stage_bytes, int smem,
-                                      unsigned s_magic, float qscale, void* stream) {
+                                      const void* lens, const void* tables, void* out,
+                                      int B, int H, int KV, int S, int D, int window,
+                                      int quantized, int ring, int gm, int lg_splits, int lg_p,
+                                      int lg_tw, int lg_cpr, int copy16, int stage_bytes,
+                                      int smem, int bs, int mbs, unsigned s_magic,
+                                      unsigned bs_magic, float qscale, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (lg_splits < 0 || (1 << lg_splits) > MAX_SPLITS || lg_tw < 0 || (1 << lg_tw) > MAX_TW ||
       H % KV != 0 || H / KV > gm || gm > MAX_G || D > MAX_D || smem > MAX_SMEM ||
-      smem < WARPS_G16 * NSTAGE * stage_bytes)
+      smem < WARPS_G16 * NSTAGE * stage_bytes ||
+      (tables != nullptr && (!ring || bs < 1 || mbs < 1 || static_cast<long long>(bs) * mbs != S)))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{static_cast<const float*>(q), k, v, static_cast<const float*>(k_scale),
          static_cast<const float*>(v_scale), static_cast<const int32_t*>(lens),
-         static_cast<float*>(out), H, KV, S, D, H / KV, window, ring, s_magic, qscale,
-         lg_splits, lg_p, lg_tw, lg_cpr, copy16, quantized ? D : 4 * D, stage_bytes};
+         static_cast<const int32_t*>(tables), static_cast<float*>(out), H, KV, S, D, H / KV,
+         window, ring, bs, mbs, s_magic, bs_magic, qscale, lg_splits, lg_p, lg_tw, lg_cpr,
+         copy16, quantized ? D : 4 * D, stage_bytes};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_instance(gm, quantized,
                        [&](auto inst) { return decltype(inst)::launch(a, B, smem, st); });

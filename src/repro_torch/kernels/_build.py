@@ -30,7 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 launches: Dict[str, int] = {"lut_matmul": 0, "lut_matmul_int": 0,
-                            "decode_attention": 0, "int_to_f32": 0}
+                            "decode_attention": 0, "int_to_f32": 0,
+                            # the table-mode share of decode_attention's
+                            "decode_attention_table": 0}
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -2,9 +2,12 @@
 
 Replaces ``decode_attention_pallas``
 (``src/repro/kernels/decode_attn/kernel.py:79``) in its ``lengths`` mode,
-and the reference decode step's jnp ``_decode_attend``
-(``src/repro/models/blocks.py:236``) in its ring mode.  The kernel masks
-the ragged edges itself, so nothing is padded.
+the reference decode step's jnp ``_decode_attend``
+(``src/repro/models/blocks.py:236``) in its ring mode, and in its table
+mode the paged decode step's gather of a lane's blocks followed by
+``_decode_attend`` (``src/repro/models/blocks.py:191-216``): ring validity
+over a block pool read through each lane's block table in place.  The
+kernel masks the ragged edges itself, so nothing is padded.
 
 ``plan`` is the launch plan as a pure function of the shapes and the card:
 the lane layout of a row, the rows of one shared-memory stage, the shared
@@ -250,6 +253,23 @@ def slot_of(start: int, j: int, s: int) -> int:
     return slot - s if slot >= s else slot
 
 
+def bs_magic(bs: int) -> int:
+    """floor((2^32 - 1) / BS): the kernel's reciprocal of the block size."""
+    return (2 ** 32 - 1) // bs
+
+
+def table_row(table, slot: int, bs: int) -> int:
+    """Table mode's pool row of ``slot`` for a lane whose block table is
+    ``table`` (``row_of`` in the .cu, before the kv head): the block
+    ``slot / BS`` by a multiply-high that is exact or one low, corrected by
+    one compare."""
+    blk = (slot * bs_magic(bs)) >> 32
+    off = slot - blk * bs
+    if off >= bs:
+        off, blk = off - bs, blk + 1
+    return int(table[blk]) * bs + off
+
+
 def split_rows(n: int, splits: int, split: int) -> Tuple[int, int]:
     """(first row, count) of split ``split`` of n valid rows."""
     lg = splits.bit_length() - 1
@@ -272,8 +292,9 @@ def warp_share(count: int, w: int, warps: int) -> Tuple[int, int]:
 def _fn():
     """The C entry point with its signature declared (once)."""
     fn = _build.load("decode_attn").repro_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 16
-                   + [ctypes.c_uint, ctypes.c_float, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 18
+                   + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -325,28 +346,48 @@ def card_plan(b: int, h: int, kv: int, d: int, s: int, window: Optional[int],
                 _card(index, gm, quantized, smem))
 
 
-def _check(q, k, v, lens, k_scale, v_scale, window, ring):
-    """Shapes, types and layout; returns (b, h, kv, d, s)."""
+def _check(q, k, v, lens, k_scale, v_scale, window, ring, tables=None):
+    """Shapes, types and layout; returns (b, h, kv, d, s).  Table mode
+    (``tables`` given): k, v are a block pool [NB, BS, KV, D], tables an
+    int32 [B, mbs] on q's device, S = mbs * BS; its entries are not read
+    back (the engine keeps them in [0, NB))."""
     if q.dtype != torch.float32 or q.ndim != 3:
         raise ValueError(f"q must be f32 [B, H, D], got {q.dtype} "
                          f"{tuple(q.shape)}")
     b, h, d = q.shape
-    if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"k must be [B, S, KV, D] matching q, got "
-                         f"{tuple(k.shape)}")
-    s, kv = k.shape[1], k.shape[2]
+    dev = q.device
+    if tables is None:
+        if k.ndim != 4 or k.shape[0] != b or k.shape[3] != d:
+            raise ValueError(f"k must be [B, S, KV, D] matching q, got "
+                             f"{tuple(k.shape)}")
+        s, kv = k.shape[1], k.shape[2]
+    else:
+        if k.ndim != 4 or k.shape[0] < 1 or k.shape[1] < 1 \
+                or k.shape[3] != d:
+            raise ValueError(f"table mode: k must be a block pool "
+                             f"[NB, BS, KV, D] matching q, got "
+                             f"{tuple(k.shape)}")
+        if (tables.dtype != torch.int32 or tables.ndim != 2
+                or tables.shape[0] != b or tables.shape[1] < 1
+                or not tables.is_contiguous() or tables.device != dev):
+            raise ValueError(f"table mode: tables must be a contiguous int32 "
+                             f"[{b}, mbs] on {dev}, got {tables.dtype} "
+                             f"{tuple(tables.shape)} on {tables.device}")
+        if not ring:
+            raise ValueError("table mode takes ring validity (ring=True)")
+        s, kv = tables.shape[1] * k.shape[1], k.shape[2]
+    rows = tuple(k.shape[:2])
     if v.shape != k.shape or v.dtype != k.dtype:
         raise ValueError("k and v must share shape and dtype")
     check_shape(b, h, kv, d, s)
-    dev = q.device
     if k_scale is not None:
         if k.dtype != torch.int8 or v_scale is None:
             raise ValueError("scaled K/V must be int8 with both scales")
         for sc in (k_scale, v_scale):
-            if (sc.dtype != torch.float32 or tuple(sc.shape) != (b, s, kv, 1)
+            if (sc.dtype != torch.float32 or tuple(sc.shape) != rows + (kv, 1)
                     or sc.device != dev or not sc.is_contiguous()):
                 raise ValueError(f"K/V scales must be contiguous f32 "
-                                 f"[{b}, {s}, {kv}, 1] on {dev}")
+                                 f"{list(rows + (kv, 1))} on {dev}")
     elif k.dtype != torch.float32:
         raise ValueError(f"unscaled K/V must be f32, got {k.dtype}")
     if lens.dtype != torch.int32 or tuple(lens.shape) != (b,):
@@ -360,18 +401,31 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lens: torch.Tensor,
                           k_scale: Optional[torch.Tensor],
                           v_scale: Optional[torch.Tensor],
-                          window: Optional[int], ring: bool) -> torch.Tensor:
-    """q f32 [B, H, D]; k, v [B, S, KV, D] int8 (with f32 scales
-    [B, S, KV, 1]) or f32; lens int32 [B] — lengths, or absolute positions
-    when ``ring``.  Returns f32 [B, H, D].  ``window``: lengths mode, the
-    last ``window`` positions only (None: all); ring mode, the effective
-    window (the model's, else the ring size)."""
-    b, h, kv, d, s = _check(q, k, v, lens, k_scale, v_scale, window, ring)
+                          window: Optional[int], ring: bool,
+                          tables: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Three modes; q f32 [B, H, D] and the output f32 [B, H, D] in each.
+
+    * lengths (``ring=False``): k, v [B, S, KV, D] int8 (with f32 scales
+      [B, S, KV, 1]) or f32; lens int32 [B] the valid lengths; ``window``
+      the last ``window`` positions only (None: all);
+    * ring (``ring=True``): the same cache as a ring; lens int32 [B] the
+      absolute positions; ``window`` the effective window (the model's,
+      else the ring size);
+    * table (``ring=True`` and ``tables``): k, v a block pool
+      [NB, BS, KV, D] (scales [NB, BS, KV, 1]), ``tables`` int32 [B, mbs]
+      each lane's physical blocks, every entry in [0, NB); ring validity
+      over the lane's logical view of S = mbs * BS slots.
+
+    Shapes, types and layout are checked (``ValueError``) before the
+    device; table entries are not read back (a sync)."""
+    b, h, kv, d, s = _check(q, k, v, lens, k_scale, v_scale, window, ring,
+                            tables)
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention_cuda needs CUDA tensors, got "
                          f"device {dev}")
-    for t in (q, k, v, lens):
+    for t in (q, k, v, lens) + (() if tables is None else (tables,)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("decode_attention_cuda needs contiguous "
                              "tensors on one CUDA device")
@@ -380,12 +434,13 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("decode_attention_cuda needs q (and f32 K/V) "
                          "16-byte aligned and int8 K/V 8-byte aligned")
     p = card_plan(b, h, kv, d, s, window, ring, k_scale is not None, dev)
-    return _launch(q, k, v, lens, k_scale, v_scale, window, ring, p)
+    return _launch(q, k, v, lens, k_scale, v_scale, window, ring, p, tables)
 
 
-def _launch(q, k, v, lens, k_scale, v_scale, window, ring,
-            p: Plan) -> torch.Tensor:
-    """One launch of checked tensors under plan ``p``."""
+def _launch(q, k, v, lens, k_scale, v_scale, window, ring, p: Plan,
+            tables=None) -> torch.Tensor:
+    """One launch of checked tensors under plan ``p``; table mode counts in
+    ``launches["decode_attention_table"]`` as well as in the total."""
     b, h, d = q.shape
     copy16 = (d * k.element_size()) % 16 == 0 and k.data_ptr() % 16 == 0 \
         and v.data_ptr() % 16 == 0
@@ -394,13 +449,17 @@ def _launch(q, k, v, lens, k_scale, v_scale, window, ring,
     fn = _fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ptr = lambda t: None if t is None else t.data_ptr()
+    bs = 1 if tables is None else k.shape[1]
     _build.launches["decode_attention"] += 1
+    if tables is not None:
+        _build.launches["decode_attention_table"] += 1
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ptr(k_scale),
-                    ptr(v_scale), lens.data_ptr(), out.data_ptr(), b, h,
-                    p.kv, p.s, d, 0 if window is None else int(window),
-                    int(p.quantized), int(ring), p.gm, p.lg_splits,
-                    p.lanes.bit_length() - 1, p.tw.bit_length() - 1, lg_cpr,
-                    int(copy16), p.stage_bytes, p.smem, s_magic(p.s),
-                    math.log2(math.e) / math.sqrt(d), stream),
+                    ptr(v_scale), lens.data_ptr(), ptr(tables),
+                    out.data_ptr(), b, h, p.kv, p.s, d,
+                    0 if window is None else int(window), int(p.quantized),
+                    int(ring), p.gm, p.lg_splits, p.lanes.bit_length() - 1,
+                    p.tw.bit_length() - 1, lg_cpr, int(copy16),
+                    p.stage_bytes, p.smem, bs, p.s // bs, s_magic(p.s),
+                    bs_magic(bs), math.log2(math.e) / math.sqrt(d), stream),
                  "decode_attention")
     return out

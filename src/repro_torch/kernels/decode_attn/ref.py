@@ -4,7 +4,10 @@
 oracle (``repro.kernels.decode_attn.ref``); ``decode_attention_ring_ref``
 is the ring-slot contract of the reference decode step
 (``repro.models.blocks._decode_attend``), with int8 K/V dequantised first
-as the reference does."""
+as the reference does; ``decode_attention_paged_ref`` is the paged decode
+step's: the reference's gather of each lane's blocks into a contiguous
+view (``repro.models.blocks``, paged branch of ``block_apply_decode``),
+then the ring contract over it."""
 from __future__ import annotations
 
 import math
@@ -79,3 +82,37 @@ def decode_attention_ring_ref(q: torch.Tensor, k: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bghs,bsgd->bghd", p, v.to(torch.float32))
     return out.reshape(b, hh, dh)
+
+
+def gather_blocks(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """A lane's logical [B, mbs * BS, ...] view of a block pool
+    [NB, BS, ...] through its block table [B, mbs] (the reference's
+    ``pool[block_tables].reshape(...)``).  A table on the CPU is checked:
+    an entry outside [0, NB) raises ``ValueError`` (the kernel never reads
+    past the pool; on the card the check would cost a sync, and a CUDA
+    graph could not hold it)."""
+    nb, bs = pool.shape[:2]
+    if tables.device.type == "cpu" and tables.numel() and not bool(
+            ((tables >= 0) & (tables < nb)).all()):
+        raise ValueError(f"block table entries must lie in [0, {nb})")
+    tables = tables.to(device=pool.device, dtype=torch.int64)
+    b, mbs = tables.shape
+    return pool[tables].reshape((b, mbs * bs) + tuple(pool.shape[2:]))
+
+
+def decode_attention_paged_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, position: torch.Tensor,
+                               tables: torch.Tensor, window: int,
+                               k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Attention of one query token per lane over a paged block pool.
+
+    q [B, H, D]; k, v [NB, BS, KV, D] (int8 with scales [NB, BS, KV, 1], or
+    f32); tables int32 [B, mbs] each lane's physical blocks; position [B];
+    window the effective window (the model's, else mbs * BS).  Each lane's
+    blocks are gathered into a contiguous view and attended over with ring
+    validity (a paged lane never wraps).  Returns [B, H, D] f32."""
+    g = lambda a: None if a is None else gather_blocks(a, tables)
+    return decode_attention_ring_ref(q, g(k), g(v), position, window,
+                                     g(k_scale), g(v_scale))

@@ -1,22 +1,26 @@
 """Dense decoder block (port of ``repro.models.blocks``, dense family,
-ring KV pool).
+ring and paged KV pools).
 
 Layers are applied by a Python loop in ``lm``; parameters stay stacked
 along a leading layer axis like the reference trees, and one layer's
-slice is taken per step.  The decode step writes the ring cache in place
-(the reference's donated scatter) and calls the decode-attention kernel
-in ring mode at the place of the reference's jnp ``_decode_attend``
-(``blocks.py:236``), so the f32 K/V view of an int8 cache is never built
-on the card.
+slice is taken per step.  The decode step writes its token's K/V in place
+(the reference's donated scatter): into the ring cache at ``position %
+S``, or, in paged mode, through the lane's block table into a shared
+block pool.  It then calls the decode-attention kernel at the place of the
+reference's jnp ``_decode_attend`` (``blocks.py:236``): in ring mode, or
+in table mode, which reads each lane's blocks through its table where the
+reference gathers them into a contiguous view first (``blocks.py:191-216``).
+So the f32 K/V view of an int8 cache is never built on the card.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.quant import quantize_kv
-from repro_torch.kernels.decode_attn.ops import decode_attention_ring
+from repro_torch.kernels.decode_attn.ops import decode_attention_paged, \
+    decode_attention_ring
 from repro_torch.kernels.decode_attn.ref import decode_attention_ring_ref
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_attention, apply_mlp, apply_norm,
@@ -75,11 +79,23 @@ def _kv_from_seq(attn_p, h: torch.Tensor, cfg: ModelConfig,
 def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
                        layer_cache: Dict[str, torch.Tensor],
                        position: torch.Tensor, cache_len: int,
-                       quant_kv: bool = False) -> torch.Tensor:
+                       quant_kv: bool = False,
+                       block_tables: Optional[torch.Tensor] = None,
+                       write_at: Optional[Tuple[torch.Tensor,
+                                               torch.Tensor]] = None
+                       ) -> torch.Tensor:
     """One-token decode.  x [B, 1, D]; position [B] absolute positions.
 
     Writes this token's K/V into ``layer_cache`` (ring of ``cache_len``
-    slots, updated in place) and returns x."""
+    slots, updated in place) and returns x.
+
+    ``block_tables`` [B, mbs] int32: paged mode, where ``layer_cache``'s
+    K/V is a block pool [NB, BS, KV, Dh] and ``cache_len == mbs * BS``.
+    The write goes through the table; attention reads through it with the
+    ring validity rule (a paged lane never wraps, so slot j is valid iff
+    ``max(0, p + 1 - w) <= j <= p``).  ``write_at`` goes with it:
+    ``paged_slot(block_tables, position, BS)``, the same for every layer
+    of a step, so the decode step computes it once."""
     in_dtype = x.dtype
     b = x.shape[0]
     h = apply_norm(p["attn_norm"], x, cfg)
@@ -89,25 +105,35 @@ def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
     q = apply_rope(q, position[:, None], cfg)
     k = apply_rope(k, position[:, None], cfg)
 
-    slot = torch.remainder(position, cache_len)
+    if block_tables is None:
+        slot = torch.remainder(position, cache_len)
+        write = lambda cache, val: _ring_write(cache, val, slot)
+    else:
+        phys, off = write_at
+        write = lambda cache, val: _paged_write(cache, val, phys, off)
     if quant_kv:
         kq, ks = quantize_kv(k)
         vq, vs = quantize_kv(v)
-        _ring_write(layer_cache["k"], kq, slot)
-        _ring_write(layer_cache["v"], vq, slot)
-        _ring_write(layer_cache["k_scale"], ks, slot)
-        _ring_write(layer_cache["v_scale"], vs, slot)
+        write(layer_cache["k"], kq)
+        write(layer_cache["v"], vq)
+        write(layer_cache["k_scale"], ks)
+        write(layer_cache["v_scale"], vs)
         scales = (layer_cache["k_scale"], layer_cache["v_scale"])
     else:
-        _ring_write(layer_cache["k"], k, slot)
-        _ring_write(layer_cache["v"], v, slot)
+        write(layer_cache["k"], k)
+        write(layer_cache["v"], v)
         scales = (None, None)
 
     window = cfg.window if cfg.window is not None else cache_len
-    attn = decode_attention_ring(
-        q.reshape(b, cfg.n_heads, cfg.head_dim).contiguous(),
-        layer_cache["k"], layer_cache["v"], position.to(torch.int32),
-        window, *scales)
+    qh = q.reshape(b, cfg.n_heads, cfg.head_dim).contiguous()
+    if block_tables is None:
+        attn = decode_attention_ring(qh, layer_cache["k"], layer_cache["v"],
+                                     position.to(torch.int32), window,
+                                     *scales)
+    else:
+        attn = decode_attention_paged(qh, layer_cache["k"], layer_cache["v"],
+                                      position.to(torch.int32), block_tables,
+                                      window, *scales)
     attn_out = mm(attn.reshape(b, 1, cfg.q_dim), p["attn"]["wo"])
     x = (x + attn_out).to(in_dtype)
     h = apply_norm(p["mlp_norm"], x, cfg)
@@ -123,6 +149,30 @@ def _ring_write(cache: torch.Tensor, val: torch.Tensor,
     b = cache.shape[0]
     cache[torch.arange(b, device=cache.device), slot] = \
         val[:, 0].to(cache.dtype)
+
+
+def paged_slot(block_tables: torch.Tensor, position: torch.Tensor,
+               block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(physical block, row in it) [B] of each lane's token at
+    ``position`` through its block table; the logical block is clipped to
+    the table, as the reference clips it."""
+    logical = torch.clamp(torch.div(position, block_size,
+                                    rounding_mode="floor"),
+                          0, block_tables.shape[1] - 1)
+    phys = torch.gather(block_tables, 1, logical[:, None].to(torch.int64))
+    return phys[:, 0], torch.remainder(position, block_size)
+
+
+def _paged_write(pool: torch.Tensor, val: torch.Tensor, phys: torch.Tensor,
+                 off: torch.Tensor) -> None:
+    """Write one token per lane into the paged block pool, in place.
+
+    pool [NB, BS, KV, D(or 1)], val [B, 1, KV, D], phys/off [B].  Retired
+    and masked lanes all point at the trash block, so destinations repeat;
+    which of their values lands is unspecified on CUDA, and harmless: the
+    trash block is never read through a live table.  A live lane's row is
+    its own, so no live row is written twice."""
+    pool[phys, off] = val[:, 0].to(pool.dtype)
 
 
 def _decode_attend(q, k, v, position, cfg: ModelConfig, cache_len: int):

@@ -1,5 +1,5 @@
 """Causal language model serving path (port of ``repro.models.lm``,
-dense family, ring KV pool): init, prefill, decode.
+dense family, ring and paged KV pools): init, prefill, decode.
 
 A Python loop over layers replaces the reference's ``lax.scan``; the
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
@@ -78,17 +78,35 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     """The stacked per-layer decode cache: the engine's fixed slot pool
     ``[L, batch, cache_len, KV, Dh]`` (int8 codes + f32 scales when
     ``quant_kv``), plus per-lane ``length``."""
-    dev = resolve_device(device)
-    kv_shape = (cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.head_dim)
-    sc_shape = kv_shape[:-1] + (1,)
+    return _kv_pool((cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.head_dim),
+                    batch, quant_kv, resolve_device(device))
+
+
+def _kv_pool(kv_shape, batch: int, quant_kv: bool,
+             dev: torch.device) -> Dict[str, Any]:
+    """Zeroed K/V of ``kv_shape`` (int8 codes + f32 scales ``[..., 1]``
+    when ``quant_kv``) and a per-lane ``length`` [batch]."""
     kv_dtype = torch.int8 if quant_kv else torch.float32
     layers = {"k": torch.zeros(kv_shape, dtype=kv_dtype, device=dev),
               "v": torch.zeros(kv_shape, dtype=kv_dtype, device=dev)}
     if quant_kv:
-        layers["k_scale"] = torch.zeros(sc_shape, device=dev)
-        layers["v_scale"] = torch.zeros(sc_shape, device=dev)
+        layers["k_scale"] = torch.zeros(kv_shape[:-1] + (1,), device=dev)
+        layers["v_scale"] = torch.zeros(kv_shape[:-1] + (1,), device=dev)
     return {"length": torch.zeros((batch,), dtype=torch.int32, device=dev),
             "layers": layers}
+
+
+def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
+                     block_size: int, quant_kv: bool = False,
+                     device="cuda") -> Dict[str, Any]:
+    """A paged KV block pool: ``[L, num_blocks, block_size, KV, Dh]`` K/V
+    (int8 codes + f32 scales ``[..., 1]`` when ``quant_kv``) shared by
+    every request, plus per-lane ``length`` [batch].  Which block holds
+    which request's tokens is decided per step by ``decode_step``'s
+    ``block_tables``; callers reserve the last physical block as the trash
+    block that retired lanes and masked writes point at."""
+    return _kv_pool((cfg.n_layers, num_blocks, block_size, cfg.n_kv,
+                     cfg.head_dim), batch, quant_kv, resolve_device(device))
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
@@ -156,23 +174,87 @@ def prefill_into_slot(params, tokens, cache, slot, cfg: ModelConfig,
     return logits, _scatter_slots(cache, fresh, slots)
 
 
+def _scatter_blocks(pool: Dict[str, Any], fresh: Dict[str, Any],
+                    slots: torch.Tensor, phys: torch.Tensor,
+                    offs: torch.Tensor) -> Dict[str, Any]:
+    """Write a freshly prefilled batch-b cache into pool blocks, in place.
+
+    fresh layers are ``[L, b, T, ...]``; ``phys``/``offs`` are flat
+    ``[b*T]`` (physical block, in-block offset) destinations of its token
+    rows.  The caller sends padding rows and rows of SHARED prefix blocks
+    to the trash block, so shared blocks are never rewritten and repeated
+    destinations only ever carry dead values (which of them lands is
+    unspecified on CUDA, and never read)."""
+    for name, dst in pool["layers"].items():
+        src = fresh["layers"][name]
+        flat = src.reshape((src.shape[0], -1) + tuple(src.shape[3:]))
+        dst[:, phys, offs] = flat.to(dst.dtype)
+    pool["length"][slots] = fresh["length"]
+    return pool
+
+
+def _copy_blocks(layers: Dict[str, Any], src: torch.Tensor,
+                 dst: torch.Tensor) -> Dict[str, Any]:
+    """Copy-on-write: duplicate pool blocks ``src`` into free blocks
+    ``dst``, in place.  ``a[:, src]`` gathers every source before any
+    destination is written."""
+    for a in layers.values():
+        a[:, dst] = a[:, src]
+    return layers
+
+
+def prefill_into_blocks(params, tokens, cache, slots, phys, offs,
+                        cfg: ModelConfig, quant_kv: bool = False,
+                        lengths=None, device="cuda"):
+    """Prefill request(s) and scatter their KV into a paged block pool.
+
+    tokens [b, T] right-padded prompts; cache a pool from
+    ``init_paged_cache``; slots [b] decode lanes (for ``length``);
+    phys/offs flat [b*T] block destinations, trash-redirected where a row
+    must not be written (padding, shared prefix blocks).  Returns
+    (last-token logits [b, V], pool)."""
+    dev = resolve_device(device)
+    tokens = _tokens(tokens, dev)
+    slots = torch.atleast_1d(torch.as_tensor(slots, dtype=torch.int64,
+                                             device=dev))
+    logits, fresh = prefill(params, tokens, cfg, cache_len=tokens.shape[1],
+                            quant_kv=quant_kv, lengths=lengths, device=dev)
+    return logits, _scatter_blocks(cache, fresh, slots, _tokens(phys, dev),
+                                   _tokens(offs, dev))
+
+
 def decode_step(params, tokens, cache, cfg: ModelConfig,
-                quant_kv: bool = False, active_mask=None, device="cuda"):
+                quant_kv: bool = False, active_mask=None, device="cuda",
+                block_tables: Optional[torch.Tensor] = None):
     """One decode step: tokens [B, 1] -> (logits [B, V], cache).
 
     The cache is updated in place.  ``active_mask`` [B] bool: retired
     lanes still flow through the matmuls but their ``length`` does not
-    advance."""
+    advance.
+
+    ``block_tables`` [B, mbs] int32 on ``device``: paged mode over a pool
+    from ``init_paged_cache``; lane i's logical block j lives in physical
+    block ``block_tables[i, j]``, and the lane's logical ``cache_len`` is
+    ``mbs * block_size``.  Paged lanes never wrap (the engine refuses
+    requests longer than that), so the ring validity rule holds; retired
+    lanes' rows point at the trash block."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     position = cache["length"]
     x = embed_tokens(params, tokens, cfg)
     cache_len = cache["layers"]["k"].shape[2]
+    write_at = None
+    if block_tables is not None:
+        # shape[2] of a [L, NB, BS, KV, Dh] pool is the block size
+        write_at = blk.paged_slot(block_tables, position, cache_len)
+        cache_len = block_tables.shape[1] * cache_len
     for i in range(n_layers(params)):
         layer_cache = {name: a[i] for name, a in cache["layers"].items()}
         x = blk.block_apply_decode(layer_params(params["blocks"], i), x, cfg,
                                    layer_cache, position, cache_len,
-                                   quant_kv=quant_kv)
+                                   quant_kv=quant_kv,
+                                   block_tables=block_tables,
+                                   write_at=write_at)
     x = apply_norm(params["final_norm"], x, cfg)
     logits = lm_logits(params, x, cfg)[:, 0]
     if active_mask is None:

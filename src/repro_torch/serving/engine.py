@@ -1,5 +1,5 @@
-"""Continuous-batching serving engine over a fixed pool of KV-cache slots
-(port of ``repro.serving.engine``, continuous mode, ring pool).
+"""Continuous-batching serving engine over a pool of KV-cache slots
+(port of ``repro.serving.engine``, continuous mode, ring and paged pools).
 
 One model iteration serves every active user (SAIL Sec. III-A), so each
 layer's weights stream once per iteration for the whole batch:
@@ -10,11 +10,27 @@ layer's weights stream once per iteration for the whole batch:
     budget), commits each active slot's pending token (retiring on
     EOS / max tokens), then runs one masked decode for the rest.
 
+``EngineConfig.kv_block_size`` swaps the slot pool for a *paged* block
+pool (``lm.init_paged_cache`` + ``serving.block_pool``): each request
+holds a block table into a shared pool instead of a worst-case
+``cache_len`` row, identical prompt prefixes share blocks copy-on-write,
+admission is gated on free blocks, and the newest request is preempted
+(recompute-style) when the pool runs dry.  The reference's invariants
+hold: one extra physical *trash* block takes every dead write; a paged
+lane never wraps (``submit`` refuses longer requests), so ring and paged
+attention share one validity rule; shared prefix blocks are never
+rewritten; a preempted request resumes from its committed tokens and,
+under greedy sampling, produces the tokens it would have unpreempted.
+Decode attention reads each lane's rows through its table in place (the
+kernel's table mode); the table goes to the card once per step.
+
 Weights are SAIL-quantized from ``ql``/``group_size``/``min_size``, or
 from a ``plan`` of the form ``uniform:<b>[a<ab>]``; KV is int8 when
 ``quant_kv``.  Sampling is greedy.  Not ported yet (ROADMAP): the planner
-and controller, taps, the paged pool, speculation, tensor parallelism,
-run-to-completion mode, unquantized serving and temperature sampling.
+and controller (with the paged pool's free-block cap), plan ``kv_bits``,
+taps, speculation (with its paged verify), tensor parallelism (with its
+paged prefill), run-to-completion mode, unquantized serving and
+temperature sampling.
 """
 from __future__ import annotations
 
@@ -32,6 +48,8 @@ from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
     quantize_params
+from repro_torch.planning.cost import kv_pool_blocks
+from repro_torch.serving.block_pool import BlockSpaceManager
 
 _UNIFORM = re.compile(r"^uniform:(\d+)(?:a(\d+))?$")
 
@@ -59,6 +77,16 @@ class EngineConfig:
     eos_token: int = -1            # -1: never stop early
     prefill_budget: Optional[int] = None  # new prefill tokens per iteration
     prompt_bucket: int = 16        # prompts padded to a multiple
+    # Paged KV pool: a block size replaces the [batch_size, cache_len] slot
+    # pool with a shared pool of blocks (per-request block tables,
+    # copy-on-write prefix sharing, block-gated admission, preemption).
+    kv_block_size: Optional[int] = None   # tokens per block; None = slots
+    # pool size (first match wins): a block count, a byte budget priced by
+    # planning.cost.kv_pool_blocks, else batch_size slot-equivalents
+    kv_pool_blocks: Optional[int] = None
+    kv_budget_bytes: Optional[int] = None
+    share_prefix: bool = True      # COW-share identical prompt prefixes
+    preempt: bool = True           # evict the newest request when dry
 
 
 @dataclasses.dataclass
@@ -101,17 +129,33 @@ class Engine:
         self.decode_seconds = 0.0
         self._decode_tokens = 0
         self.peak_active = 0
+        self.events: Dict[int, Dict[str, int]] = {}   # per-uid iterations
         self._clen = (ecfg.cache_len if cfg.window is None
                       else min(ecfg.cache_len, cfg.window))
         self._cur = np.zeros((ecfg.batch_size,), np.int64)
-        self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
-                                   self._quant_kv, device=self.device)
+        self.paged = ecfg.kv_block_size is not None
+        self.block_mgr = None
+        if self.paged:
+            self._init_paged_pool(int(ecfg.kv_block_size))
+        else:
+            self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
+                                       self._quant_kv, device=self.device)
 
     # --- client API -------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int,
                on_token: Optional[Callable[[int, int], None]] = None) -> int:
         """Queue a request; returns its uid.  ``on_token(uid, token)`` is
-        called as each generated token is committed."""
+        called as each generated token is committed.  Paged mode refuses a
+        request longer than a lane's table holds (lanes never wrap)."""
+        if self.paged:
+            need = len(prompt) + max_new_tokens
+            room = self._mbs * int(self.ecfg.kv_block_size)
+            if need > room:
+                raise ValueError(
+                    f"request needs {need} KV positions but a paged lane "
+                    f"holds {room} ({self._mbs} blocks x "
+                    f"{self.ecfg.kv_block_size}); paged lanes never wrap: "
+                    "raise cache_len or shorten the request")
         self._uid += 1
         now = time.perf_counter()
         self.sched.submit(Request(uid=self._uid, prompt_len=len(prompt),
@@ -129,7 +173,8 @@ class Engine:
         each active slot's pending token (retiring on EOS / max tokens),
         then one masked decode for every remaining slot.  Returns True
         while work remains."""
-        admitted = self.sched.schedule()
+        admitted = self.sched.schedule(
+            can_admit=self._try_allocate if self.paged else None)
         if admitted:
             # one prefill pass per padded length: a burst streams each
             # layer's weights once, not once per request
@@ -152,16 +197,26 @@ class Engine:
             if finished:
                 self._finish(req)
         active = list(self.sched.running)
+        if self.paged and active:
+            # every active lane appends one KV position: grant its block
+            # slot first (copy-on-write off shared blocks, preempting the
+            # newest request when the pool runs dry)
+            active = self._ensure_append_blocks(active)
         self.peak_active = max(self.peak_active, len(active))
         if active:
             mask = np.zeros((self.ecfg.batch_size,), bool)
             for req in active:
                 mask[req.slot] = True
             t0 = time.perf_counter()
+            tables = None
+            if self.paged:
+                # the previous step's copy has finished: _sample synced
+                self._tables_dev.copy_(self._tables_host, non_blocking=True)
+                tables = self._tables_dev
             logits, self.cache = lm.decode_step(
                 self.params, self._cur[:, None], self.cache, self.cfg,
                 quant_kv=self._quant_kv, active_mask=mask,
-                device=self.device)
+                device=self.device, block_tables=tables)
             nxt = self._sample(logits)
             # _sample copies to the host, so dt covers the whole iteration
             dt = time.perf_counter() - t0
@@ -169,8 +224,12 @@ class Engine:
             self.decode_iterations += 1
             self.decode_seconds += dt
             self._decode_tokens += len(active)
+            if self.paged:
+                self._len_np[mask] += 1
             for req in active:
                 self._cur[req.slot] = nxt[req.slot]
+                self.events[req.uid].setdefault("first_decode_iteration",
+                                                self.iterations)
         return not self.sched.idle()
 
     def run(self) -> List[Completion]:
@@ -178,6 +237,127 @@ class Engine:
         while self.step():
             pass
         return list(self.completions.values())
+
+    # --- paged-pool internals -----------------------------------------------
+    def _init_paged_pool(self, bs: int) -> None:
+        """The block pool (with its trash block), its manager and the lanes'
+        block tables, on the host and on the card."""
+        ecfg, cfg = self.ecfg, self.cfg
+        if bs < 1:
+            raise ValueError(f"kv_block_size={bs}: need >= 1")
+        self._mbs = -(-self._clen // bs)       # table columns per lane
+        nblocks = self._paged_pool_blocks(bs)
+        self.block_mgr = BlockSpaceManager(nblocks, bs,
+                                           share_prefix=ecfg.share_prefix)
+        # one extra physical block: the trash block every dead table entry
+        # and masked write points at
+        self._trash = nblocks
+        self.cache = lm.init_paged_cache(cfg, ecfg.batch_size, nblocks + 1,
+                                         bs, self._quant_kv,
+                                         device=self.device)
+        # the host's tables live in a (pinned, on the card) buffer that one
+        # copy_ per decode step sends to a device tensor allocated here
+        shape = (ecfg.batch_size, self._mbs)
+        self._tables_host = torch.full(
+            shape, self._trash, dtype=torch.int32,
+            pin_memory=self.device.type == "cuda")
+        self._tables_np = self._tables_host.numpy()
+        self._tables_dev = torch.empty(shape, dtype=torch.int32,
+                                       device=self.device)
+        self._len_np = np.zeros((ecfg.batch_size,), np.int64)
+
+    def _paged_pool_blocks(self, bs: int) -> int:
+        """Pool size in blocks (without the trash block): the explicit
+        count, else what the byte budget buys at the pool's KV precision,
+        else ``batch_size`` worst-case lanes; at least one whole lane."""
+        ecfg, cfg = self.ecfg, self.cfg
+        if ecfg.kv_pool_blocks is not None:
+            n = int(ecfg.kv_pool_blocks)
+        elif ecfg.kv_budget_bytes is not None:
+            n = kv_pool_blocks(ecfg.kv_budget_bytes, bs, cfg.n_layers,
+                               cfg.n_kv, cfg.head_dim,
+                               8 if self._quant_kv else 32)
+        else:
+            n = ecfg.batch_size * self._mbs
+        return max(n, self._mbs)
+
+    def _try_allocate(self, req: Request) -> bool:
+        """The scheduler's admission gate: allocate the request's prefill
+        blocks (sharing any registered prefix).  Consulted only when the
+        request is otherwise certain to be admitted; False stops this
+        iteration's admissions (FIFO holds)."""
+        prompt = tuple(self._gen[req.uid][:req.prompt_len])
+        if not self.block_mgr.can_allocate(prompt):
+            return False
+        self.block_mgr.allocate(req.uid, prompt)
+        return True
+
+    def _ensure_append_blocks(self, active: List[Request]) -> List[Request]:
+        """Grant every active lane the slot its next KV write lands in:
+        in place in its frontier block, a fresh block at a block boundary,
+        or a copy-on-write split off a shared block.  When the pool runs dry
+        the newest request is preempted and the grant retried.  Returns the
+        requests that still decode this step; the copies run as one batched
+        in-place copy per pool tensor."""
+        bs = int(self.ecfg.kv_block_size)
+        cows: List[Tuple[int, int]] = []
+        preempted: set = set()
+        granted: List[Request] = []
+        for req in active:
+            if req.uid in preempted:
+                continue
+            pos = int(self._len_np[req.slot])
+            while True:
+                res = self.block_mgr.append_slot(req.uid, pos)
+                if res is not None:
+                    kind, src, dst = res
+                    if kind in ("alloc", "cow"):
+                        self._tables_np[req.slot, pos // bs] = dst
+                    if kind == "cow":
+                        cows.append((src, dst))
+                    break
+                victim = self._pick_victim()
+                if victim is None:
+                    raise MemoryError(
+                        "KV block pool exhausted and preemption is disabled "
+                        "(EngineConfig.preempt=False): grow kv_pool_blocks "
+                        "or kv_budget_bytes")
+                self._preempt(victim)
+                preempted.add(victim.uid)
+                if victim is req:
+                    break
+            if req.uid not in preempted:
+                granted.append(req)
+        if cows:
+            idx = lambda col: torch.as_tensor([c[col] for c in cows],
+                                              dtype=torch.int64,
+                                              device=self.device)
+            lm._copy_blocks(self.cache["layers"], idx(0), idx(1))
+        return [r for r in granted if r.uid not in preempted]
+
+    def _pick_victim(self) -> Optional[Request]:
+        """The newest running request that holds blocks (FIFO priority: the
+        oldest work keeps its blocks), or None when preemption is off."""
+        if not self.ecfg.preempt:
+            return None
+        for cand in reversed(self.sched.running):
+            if self.block_mgr.has_table(cand.uid):
+                return cand
+        return None
+
+    def _preempt(self, victim: Request) -> None:
+        """Recompute-style eviction: free the victim's blocks, trash its
+        table row, and requeue it at the FRONT of the waiting queue with
+        its committed tokens as the resume prompt."""
+        uid, slot = victim.uid, victim.slot
+        self.block_mgr.preempt(uid)
+        self._tables_np[slot, :] = self._trash
+        self._len_np[slot] = 0
+        self.sched.preempt(uid)
+        victim.prompt_len = len(self._gen[uid])
+        ev = self.events.setdefault(uid, {})
+        ev["preemptions"] = ev.get("preemptions", 0) + 1
+        ev["preempted_iteration"] = self.iterations
 
     # --- internals ----------------------------------------------------------
     def _padded_len(self, req: Request) -> int:
@@ -194,9 +374,29 @@ class Engine:
             toks[i, :req.prompt_len] = self._gen[req.uid][:req.prompt_len]
             lengths[i] = req.prompt_len
         slots = np.asarray([req.slot for req in reqs], np.int64)
-        logits, self.cache = lm.prefill_into_slot(
-            self.params, toks, self.cache, slots, self.cfg,
-            quant_kv=self._quant_kv, lengths=lengths, device=self.device)
+        if self.paged:
+            # scatter each token row through its request's table; padding
+            # rows and rows of shared prefix blocks go to the trash block
+            bs = int(self.ecfg.kv_block_size)
+            phys = np.full((b, padded), self._trash, np.int64)
+            offs = np.tile(np.arange(padded) % bs, (b, 1))
+            for i, req in enumerate(reqs):
+                table = self.block_mgr.table(req.uid)
+                nsh = self.block_mgr.shared_prefix_blocks(req.uid)
+                self._tables_np[req.slot] = self._trash
+                self._tables_np[req.slot, :len(table)] = table
+                t = np.arange(nsh * bs, req.prompt_len)
+                phys[i, t] = np.asarray(table)[t // bs]
+            logits, self.cache = lm.prefill_into_blocks(
+                self.params, toks, self.cache, slots, phys.ravel(),
+                offs.ravel(), self.cfg, quant_kv=self._quant_kv,
+                lengths=lengths, device=self.device)
+            for req in reqs:
+                self._len_np[req.slot] = req.prompt_len
+        else:
+            logits, self.cache = lm.prefill_into_slot(
+                self.params, toks, self.cache, slots, self.cfg,
+                quant_kv=self._quant_kv, lengths=lengths, device=self.device)
         self.iterations += 1
         self.prefill_iterations += 1
         self.prefill_tokens += int(lengths.sum())
@@ -204,16 +404,30 @@ class Engine:
         now = time.perf_counter()
         for i, req in enumerate(reqs):
             self._cur[req.slot] = int(first[i])
+            # kept across preemption: TTFT is submit -> FIRST token
             self._ttft.setdefault(req.uid, now - self._t0[req.uid])
             req.state = DECODE
+            ev = self.events.setdefault(req.uid, {})
+            if "admitted_iteration" in ev:
+                ev["resumed_iteration"] = self.iterations
+            else:
+                ev["admitted_iteration"] = self.iterations
 
     def _finish(self, req: Request) -> None:
+        slot = req.slot
         self.sched.release(req.uid)
+        if self.paged and self.block_mgr.has_table(req.uid):
+            self.block_mgr.free(req.uid)
+            self._tables_np[slot, :] = self._trash
+            self._len_np[slot] = 0
+        # the ORIGINAL prompt length: after a preemption req.prompt_len
+        # covers the committed tokens too (the resume prompt)
         gen = self._gen[req.uid][self._orig_plen[req.uid]:]
         self.completions[req.uid] = Completion(
             uid=req.uid, tokens=gen,
             latency_s=time.perf_counter() - self._t0[req.uid],
             ttft_s=self._ttft.get(req.uid, 0.0))
+        self.events[req.uid]["finished_iteration"] = self.iterations
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         """Greedy: argmax per row (first index on ties, as jnp.argmax)."""
@@ -234,6 +448,8 @@ class Engine:
                 "measured_tps": self.measured_tps(),
                 "peak_active": self.peak_active,
                 "kv_bits": 8 if self._quant_kv else 32,
+                "block_pool": (self.block_mgr.stats() if self.paged
+                               else None),
                 "iterations": self.iterations,
                 "prefill_iterations": self.prefill_iterations,
                 "decode_iterations": self.decode_iterations,

@@ -222,6 +222,82 @@ def test_decode_attention_deterministic_and_graph_safe(gen, case):
         assert torch.equal(out, first)
 
 
+def _paged(gen, b, kv, g, d, s, bs, quantized):
+    """A block pool of the lanes' blocks, shuffled with gaps, plus a trash
+    block (the last), and [B, mbs] tables (mbs = ceil(S / BS)): the last
+    lane's entries all trash, at a frozen position.  Positions never wrap
+    (paged lanes): 0, one block, the last slot of the lane, then spread."""
+    mbs = -(-s // bs)
+    nb = 2 * b * mbs
+    q, k, v, ks, vs = _attn_inputs(gen, 1, kv, g, d, (nb + 1) * bs,
+                                   quantized)
+    pool = lambda a: None if a is None else a.reshape(
+        (nb + 1, bs) + tuple(a.shape[2:]))
+    perm = torch.randperm(nb, device="cuda", generator=gen)
+    tables = perm[:b * mbs].reshape(b, mbs).to(torch.int32).contiguous()
+    tables[-1] = nb
+    pos = [0, bs, mbs * bs - 1] + [97 * i % (mbs * bs) for i in range(3, b)]
+    pos = torch.tensor(pos[:b - 1] + [5], dtype=torch.int32, device="cuda")
+    q = torch.randn((b, kv * g, d), device="cuda", generator=gen)
+    return q, pool(k), pool(v), pool(ks), pool(vs), tables, pos
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [32, 128])
+@pytest.mark.parametrize("g", [1, 4])
+@pytest.mark.parametrize("s", [512, 4096])
+@pytest.mark.parametrize("bs", [8, 12, 16])
+def test_decode_attention_table_mode_matches_plain_and_ring(gen, quantized,
+                                                            d, g, s, bs):
+    """Table mode against its plain version (the reference's gather, then
+    ring attention) at 2e-5, and bit-equal to ring mode on the same rows
+    laid out contiguously: at the same S the two modes run one plan and
+    one row order, so only ``row_of`` differs.  The trash lane is compared
+    too (dead values, but the same ones)."""
+    b, kv = 4, 2
+    q, k, v, ks, vs, tables, pos = _paged(gen, b, kv, g, d, s, bs, quantized)
+    g_ = lambda a: None if a is None else da_ref.gather_blocks(a, tables)
+    for window in (100, 4096):
+        before = dict(_build.launches)
+        got = decode_attention_cuda(q, k, v, pos, ks, vs, window, ring=True,
+                                    tables=tables)
+        assert _build.launches["decode_attention_table"] == \
+            before["decode_attention_table"] + 1
+        want = da_ref.decode_attention_paged_ref(q, k, v, pos, tables,
+                                                 window, ks, vs)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+        ring = decode_attention_cuda(q, g_(k), g_(v), pos, g_(ks), g_(vs),
+                                     window, ring=True)
+        assert torch.equal(got, ring)
+
+
+@pytest.mark.parametrize("bs", [8, 12, 16])
+def test_decode_attention_table_mode_deterministic_and_graph_safe(gen, bs):
+    """At tinymistral's widths (B 8, KV 8, G 4, D 32, int8) and S 512 and
+    4096: two calls are bit-identical, and a CUDA-graph replay equals the
+    eager call after the tables change in place (the engine's one copy_
+    per step)."""
+    for s in (512, 4096):
+        q, k, v, ks, vs, tables, pos = _paged(gen, 8, 8, 4, 32, s, bs, True)
+        fn = lambda: decode_attention_cuda(q, k, v, pos, ks, vs, 4096,
+                                           ring=True, tables=tables)
+        first = fn()
+        assert torch.equal(fn(), first)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn()
+        tables.copy_(tables.flip(0))
+        flipped = fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, flipped)
+
+
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 16])
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_attention_plan_model_matches_the_card(gen, g, quantized):

@@ -2,7 +2,7 @@
 """Time one tree's CUDA decode attention on the card.
 
     python3 tools/decode_attn_times.py [--src DIR] [--label NAME] [--sweep]
-        [--probe] [--stage-bytes N]
+        [--probe] [--stage-bytes N] [--table BS]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is timed (this
 tree's by default).  The timer, the cases, the random inputs and the bound
@@ -27,6 +27,13 @@ leaving L2 dirty) and read (``Timer.flush_by_read``, leaving L2 clean).
 count up to the cluster's limit in each case, the plan's own marked;
 ``--stage-bytes N`` plans this run's stages with N bytes instead of the
 plan's ``STAGE_BYTES``.
+``--table BS`` (a tree with the table mode) also times the table mode over
+a block pool of BS-token blocks (chip_smoke's ``paged_inputs``: shuffled
+tables with gaps, one lane all trash) at S = 512 and 4096 with every
+lane's slots valid and at the engine's positions (p in [40, 100)), each
+beside ring mode on the same rows laid out contiguously, the plain
+version, SDPA and the bound over the valid slots (chip_smoke's
+``table_row``).
 ``--probe`` (such a tree) times the same sweep at S = 4096, under both
 flushes, on layouts that
 tell bytes, compute and the access pattern apart: the main layout (8
@@ -54,6 +61,7 @@ def main() -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--probe", action="store_true")
     ap.add_argument("--stage-bytes", type=int, default=0)
+    ap.add_argument("--table", type=int, default=0, metavar="BS")
     args = ap.parse_args()
 
     import torch
@@ -146,6 +154,9 @@ def main() -> int:
             cs.log(f"[{args.label}] sweep {name}, splits: us " + "; ".join(
                 f"{c['splits']}{'*' if c['planned'] else ''} {c['us']:.2f}"
                 for c in cells))
+    if args.table:
+        out["table"] = table(cs, torch, timer, kmod, gen, args.label,
+                             args.table)
     if args.probe and hasattr(kmod, "with_splits"):
         out["probe"] = probe(cs, torch, timer, kmod, gen, args.label)
     cs.log(f"[{args.label}] timer floor {out['floor_us']:.2f} us")
@@ -158,6 +169,38 @@ def main() -> int:
         json.dump(out, f, indent=1)
     cs.log(f"[{args.label}] wrote {path}")
     return 0
+
+
+def table(cs, torch, timer, kmod, gen, label, bs):
+    """Table mode at block size ``bs``: S 512 and 4096 with every slot of
+    a lane valid, and S 512 at the engine's positions."""
+    if not hasattr(kmod, "table_row"):
+        cs.log(f"[{label}] this tree has no table mode")
+        return []
+    b, kvh, g, d = cs.ATTN_B, cs.ATTN_KV, cs.ATTN_G, cs.ATTN_D
+    rows = []
+    for name, s, pos in (("table_s512", 512, 511), ("table_s4096", 4096, 4095),
+                         ("table_engine", 512, None)):
+        x = cs.paged_inputs(torch, gen, b, kvh, g, d, s, bs, True, pos)
+        if pos is None:
+            x["pos"][:-1] = torch.randint(40, 100, (b - 1,), device="cuda",
+                                          generator=gen, dtype=torch.int32)
+        row = cs.table_row(torch, timer, x, kmod.decode_attention_cuda)
+        p = kmod.card_plan(b, kvh * g, kvh, d, row["s"], cs.ATTN_WINDOW,
+                           True, True, x["q"].device)
+        row.update(case=name, splits=p.splits, blocks=p.blocks)
+        rows.append(row)
+        cs.log(f"[{label}] {name}: S={row['s']}, BS {bs}, "
+               f"{row['valid_slots']} valid slots, splits {p.splits}: table "
+               f"mode {1e3 * row['ms']:.2f} us, ring mode on the same rows "
+               f"{1e3 * row['ring_ms']:.2f} us "
+               f"({100 * row['indirection']:+.1f}%); plain "
+               f"{1e3 * row['plain_ms']:.2f}, SDPA "
+               f"{1e3 * row['library_ms']:.2f}, eager call "
+               f"{1e3 * row['call_ms']:.2f} us; bound "
+               f"{1e3 * row['bound_ms']:.3f} us "
+               f"({100 * row['bound_share']:.1f}% of it)")
+    return rows
 
 
 def probe(cs, torch, timer, kmod, gen, label):
