@@ -55,7 +55,19 @@ Phases (each passes or the script exits nonzero):
      both runs every decode step's attention must go through the table mode
      (none through ring mode) and its 85 weight matmuls through the LUT-GEMV;
      one full-pool paged step is timed beside the ring step, and a paged and
-     a ring engine at equal KV bytes report how many requests they held.
+     a ring engine at equal KV bytes report how many requests they held;
+  6. plans — mixed-precision plans on phase 4's 16 requests: plan R (rules,
+     one segment: w_gate/w_up 2 bits, w_down 3, wq/wk/wv 6 with 6-bit
+     activations, wo 5 with 4-bit, lm_head 8) on the ring pool with int8
+     KV, every LUT-GEMV launch held against its plain version; plan S (a
+     solved auto plan in three segments, layers 0-3 / 4-9 / 10-11, f32 KV)
+     greedy card against CPU with phase 3's prompts and steps, and ring
+     against paged engine (phase 5 run A's admission); plan S-a (S with
+     4/6/8-bit activations on the MLP), held launch by launch, ring against
+     paged.  Each LUT-GEMV instance (bits, abits) must launch exactly as
+     often as the plan's layers, matrices and passes make it; one
+     full-pool step of each plan is timed, and the LUT-GEMV's 85-call step
+     as one graph at each weight bit width 2-8.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -65,6 +77,7 @@ result as JSON) goes to ``build/chip_smoke/``.
 from __future__ import annotations
 
 import collections
+import contextlib
 import json
 import math
 import os
@@ -957,32 +970,39 @@ def full_model(rt):
     return rt["cfg"], rt["raw"]
 
 
-def run_greedy(torch, lm, params, cfg, toks, lengths, steps, device):
-    logits, cache = lm.prefill(params, toks, cfg, 512, True, lengths,
+def run_greedy(torch, lm, params, cfg, toks, lengths, steps, device,
+               quant_kv=True):
+    logits, cache = lm.prefill(params, toks, cfg, 512, quant_kv, lengths,
                                device=device)
     out_logits, out_toks = [logits.float().cpu()], []
     for _ in range(steps):
         tok = torch.argmax(logits, dim=-1)
         out_toks.append(tok.cpu())
         logits, cache = lm.decode_step(params, tok[:, None], cache, cfg,
-                                       True, device=device)
+                                       quant_kv, device=device)
         out_logits.append(logits.float().cpu())
     out_toks.append(torch.argmax(logits, dim=-1).cpu())
     return torch.stack(out_logits), torch.stack(out_toks)
 
 
-def phase_model(rt):
+def model_prompts(cfg):
+    """Phase 3's two right-padded prompts (40 and 27 tokens of 48)."""
     import numpy as np
-    import torch
-    from repro_torch.models import lm
-    from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
-        quantize_params
-    cfg, raw = full_model(rt)
     rng = np.random.default_rng(0)
     lengths = np.array([40, 27], np.int32)
     toks = np.zeros((2, 48), np.int64)
     for i, n in enumerate(lengths):
         toks[i, :n] = rng.integers(0, cfg.vocab, size=n)
+    return toks, lengths
+
+
+def phase_model(rt):
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
+        quantize_params
+    cfg, raw = full_model(rt)
+    toks, lengths = model_prompts(cfg)
     rt["model_err"] = {}
     for plan, act_bits in (("uniform:4", None), ("uniform:4a8", 8)):
         params, b0, b1 = quantize_params(raw, QuantPolicy(
@@ -992,7 +1012,9 @@ def phase_model(rt):
             gl, gt = run_greedy(torch, lm, params, cfg, toks, lengths, 4,
                                 "cuda")
         else:
-            (gl, gt), held = run_held(torch, lm, params, cfg, toks, lengths)
+            with Held(torch, plan) as held:
+                gl, gt = run_greedy(torch, lm, params, cfg, toks, lengths, 4,
+                                    "cuda")
         torch.cuda.synchronize()
         t_gpu = time.perf_counter() - t0
         cpu_params = map_tensors(params, lambda t: t.cpu())
@@ -1022,16 +1044,17 @@ def phase_model(rt):
             # card is held to its plain version launch by launch, on the
             # card's own inputs, instead of end to end
             # prefill and 4 decode steps, 85 weight matmuls each
-            if held["calls"] < 5 * ((len(MATMULS) - 1) * cfg.n_layers + 1):
-                fail(f"{plan}: only {held['calls']} int LUT-GEMV launches")
-            log(f"[model] {plan}: all {held['calls']} int LUT-GEMV launches "
+            calls = sum(held.calls.values())
+            if calls < 5 * ((len(MATMULS) - 1) * cfg.n_layers + 1):
+                fail(f"{plan}: only {calls} int LUT-GEMV launches")
+            log(f"[model] {plan}: all {calls} int LUT-GEMV launches "
                 f"within rtol {LUT_RTOL} / atol {LUT_ATOL} of their plain "
                 f"version on the same inputs (max abs err "
-                f"{held['err']:.3e}); card vs CPU not compared end to end: "
+                f"{held.err['int']:.3e}); card vs CPU not compared end to end: "
                 f"the CPU against itself with activations scaled by 1 + "
                 f"1e-7 N(0, 1) before each quantization differs by "
                 f"{noise_err:.3e}")
-            rt["model_err"][plan + " per launch"] = held["err"]
+            rt["model_err"][plan + " per launch"] = held.err["int"]
             rt["model_err"][plan + " CPU vs CPU with noise"] = noise_err
             continue
         if not torch.allclose(gl, cl, rtol=MODEL_RTOL, atol=MODEL_ATOL):
@@ -1040,33 +1063,6 @@ def phase_model(rt):
             fail(f"{plan}: greedy tokens differ")
         log(f"[model] {plan}: logits within rtol {MODEL_RTOL} / atol "
             f"{MODEL_ATOL}, greedy tokens identical on card and CPU")
-
-
-def run_held(torch, lm, params, cfg, toks, lengths):
-    """``run_greedy`` on the card with every int LUT-GEMV launch held
-    against its plain version on the same inputs (LUT tolerance)."""
-    from repro_torch.kernels.lut_gemv import ops
-    from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref_int
-    kernel = ops.lut_matmul_int_cuda
-    held = {"calls": 0, "err": 0.0}
-
-    def checked(xq, xs, qt, abits):
-        y = kernel(xq, xs, qt, abits)
-        ref = lut_matmul_ref_int(xq, xs, qt)
-        err = (y - ref).abs()
-        if not bool((err <= LUT_ATOL + LUT_RTOL * ref.abs()).all()):
-            fail(f"int LUT-GEMV in the model, x {tuple(xq.shape)} N={qt.n}:"
-                 f" max err {err.max().item():.3e}")
-        held["calls"] += 1
-        held["err"] = max(held["err"], err.max().item())
-        return y
-
-    ops.lut_matmul_int_cuda = checked
-    try:
-        out = run_greedy(torch, lm, params, cfg, toks, lengths, 4, "cuda")
-    finally:
-        ops.lut_matmul_int_cuda = kernel
-    return out, held
 
 
 def run_perturbed(torch, lm, params, cfg, toks, lengths):
@@ -1342,6 +1338,317 @@ def phase_paged(rt):
     res["peak_active_equal_bytes"] = peaks
 
 
+# ---------------------------------------------------------------------------
+# phase 6: mixed-precision plans
+# ---------------------------------------------------------------------------
+
+# plan R: per-path rules, one segment; lm_head falls to the default 8 bits
+# with f32 activations
+PLAN_R = "rules:w_gate|w_up=2,w_down=3,wq|wk|wv=6a6,wo=5a4,default=8"
+# plan S's three segments of the 12 layers
+SEGMENTS = ((0, 4), (4, 10), (10, 12))
+RING6 = dict(batch_size=8, cache_len=512, quant_kv=True, group_size=128)
+# f32 launches are held at the reference tests' LUT-GEMV tolerance, int
+# launches at phase 2's tolerance for quantized data
+F32_RTOL, F32_ATOL = 1e-5, 1e-4
+LUT_BITS = (2, 3, 4, 5, 6, 8)
+
+
+def plan_s(acts=False):
+    """Plan S: a solved auto plan cutting the stack into SEGMENTS (attention
+    8 / 4 / 6 bits, w_gate and w_up 5 / 3 / 4, w_down 6 / 4 / 8, lm_head 6)
+    with f32 KV; with ``acts``, plan S-a: activations of w_gate, w_up and
+    w_down at 8 / 6 / 4 bits."""
+    def per(*bits):
+        return [b for (lo, hi), b in zip(SEGMENTS, bits) for _ in range(lo,
+                                                                         hi)]
+    unit = lambda blk, m: f"['blocks']['{blk}']['{m}']"
+    w = {unit("attn", m): per(8, 4, 6) for m in ("wq", "wk", "wv", "wo")}
+    w.update({unit("mlp", m): per(5, 3, 4) for m in ("w_gate", "w_up")})
+    w[unit("mlp", "w_down")] = per(6, 4, 8)
+    w["['lm_head']"] = 6
+    spec = {"mode": "auto", "weight_bits": 4, "kv_bits": 32,
+            "weights_per_unit": w}
+    if acts:
+        spec["acts_per_unit"] = {unit("mlp", m): per(8, 6, 4)
+                                 for m in ("w_gate", "w_up", "w_down")}
+    return spec
+
+
+def instance_name(key) -> str:
+    bits, abits = key
+    return f"b{bits}" + (f"a{abits}" if abits else "")
+
+
+def expected_instances(params, lm, decode_steps, prefill_steps) -> dict:
+    """Launches of each LUT-GEMV instance (bits, abits) a run of
+    ``decode_steps`` decode and ``prefill_steps`` prefill passes makes:
+    every layer's 7 matrices and lm_head once per pass, and wk, wv once
+    more per prefill (the prefill cache recomputes K and V)."""
+    out = collections.Counter()
+
+    def add(qt, per_prefill=1):
+        key = (qt.bits, qt.abits or 0)
+        out[key] += decode_steps + per_prefill * prefill_steps
+    for _, layer in lm.iter_layers(params):
+        for mats in layer.values():
+            if isinstance(mats, dict):
+                for m, qt in mats.items():
+                    if m in MATMULS:
+                        add(qt, 2 if m in ("wk", "wv") else 1)
+    add(params["lm_head"])
+    return dict(out)
+
+
+class Held:
+    """Within the block, every LUT-GEMV launch is held against its plain
+    version on the launch's own inputs (the weight dequantized once per
+    tensor): f32 launches at F32_RTOL / F32_ATOL, int launches at LUT_RTOL
+    / LUT_ATOL.  The plain version launches nothing, so the counters
+    still count the kernel's launches only."""
+
+    def __init__(self, torch, name):
+        from repro_torch.kernels.lut_gemv import ops
+        self.ops, self.torch, self.name = ops, torch, name
+        self.calls = collections.Counter()
+        self.err = {"f32": 0.0, "int": 0.0}
+        self._w = {}
+
+    def _weight(self, qt):
+        from repro_torch.core.quant import dequantize
+        key = (qt.packed.data_ptr(), qt.bits)
+        if key not in self._w:
+            self._w[key] = dequantize(qt)
+        return self._w[key]
+
+    def _check(self, kind, y, ref, what):
+        rtol, atol = ((F32_RTOL, F32_ATOL) if kind == "f32"
+                      else (LUT_RTOL, LUT_ATOL))
+        err = (y - ref).abs()
+        if not bool((err <= atol + rtol * ref.abs()).all()):
+            fail(f"{self.name}: {kind} LUT-GEMV {what}: max err "
+                 f"{err.max().item():.3e}")
+        self.err[kind] = max(self.err[kind], err.max().item())
+
+    def __enter__(self):
+        ops, torch = self.ops, self.torch
+        self.f32, self.int = ops.lut_matmul_cuda, ops.lut_matmul_int_cuda
+
+        def f32(x, qt):
+            y = self.f32(x, qt)
+            self._check("f32", y, torch.matmul(x, self._weight(qt)),
+                        f"b{qt.bits} x {tuple(x.shape)} N={qt.n}")
+            self.calls[(qt.bits, 0)] += 1
+            return y
+
+        def int_(xq, xs, qt, abits):
+            y = self.int(xq, xs, qt, abits)
+            ref = torch.matmul(xq.to(torch.float32), self._weight(qt)) * xs
+            self._check("int", y, ref, f"b{qt.bits}a{abits} x "
+                        f"{tuple(xq.shape)} N={qt.n}")
+            self.calls[(qt.bits, abits)] += 1
+            return y
+        ops.lut_matmul_cuda, ops.lut_matmul_int_cuda = f32, int_
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.lut_matmul_cuda = self.f32
+        self.ops.lut_matmul_int_cuda = self.int
+        self._w.clear()
+        return False
+
+
+def serve_plan(torch, lm, Engine, EngineConfig, raw, cfg, name, plan,
+               prompts, held=False, **fields):
+    """Serve ``prompts`` (32 new tokens each) under ``plan``; check that
+    every LUT-GEMV instance launched as often as the plan's layers and
+    passes make it, and that attention went through ring or table mode
+    only.  Returns (engine, {uid: tokens}, record)."""
+    from repro_torch.kernels import _build
+    eng = Engine(raw, cfg, EngineConfig(**{**RING6, **fields}, plan=plan),
+                 device="cuda")
+    with (Held(torch, name) if held else contextlib.nullcontext()) as h:
+        got, counts, dt = serve_counted(torch, eng, prompts)
+        inst = dict(_build.lut_instances)
+    st = eng.stats()
+    steps, pre = st["decode_iterations"], st["prefill_iterations"]
+    want = expected_instances(eng.params, lm, steps, pre)
+    table = counts["decode_attention_table"]
+    need_attn = steps * cfg.n_layers
+    if inst != want:
+        fail(f"{name}: LUT-GEMV launches per instance "
+             f"{ {instance_name(k): v for k, v in inst.items()} }, the plan "
+             f"needs { {instance_name(k): v for k, v in want.items()} }")
+    if (counts["decode_attention"] < need_attn
+            or table != (counts["decode_attention"] if eng.paged else 0)):
+        fail(f"{name}: decode_attention {counts['decode_attention']} (need "
+             f">= {need_attn}), table mode {table}")
+    if len(got) != len(prompts) or any(len(t) != 32 for t in got.values()):
+        fail(f"{name}: expected {len(prompts)} completions of 32 tokens")
+    rec = dict(plan_hash=st["plan_hash"], plan_mode=st["plan_mode"],
+               kv_bits=st["kv_bits"], paged=eng.paged,
+               segments=len(lm.block_segments(eng.params)),
+               tokens=st["generated_tokens"], seconds=dt,
+               decode_tok_per_s=st["measured_tps"], decode_steps=steps,
+               prefill_steps=pre, launches=counts,
+               instances={instance_name(k): v for k, v in sorted(inst.items())},
+               weight_compression=st["weight_compression"],
+               planned_tps_sail_model=st["planned_tps"])
+    if held:
+        if sum(h.calls.values()) != counts["lut_matmul"] + \
+                counts["lut_matmul_int"]:
+            fail(f"{name}: {sum(h.calls.values())} launches held of "
+                 f"{counts['lut_matmul'] + counts['lut_matmul_int']}")
+        rec.update(held=sum(h.calls.values()), held_err=dict(h.err))
+    kv_dtype = eng.cache["layers"]["k"].dtype
+    if kv_dtype != (torch.int8 if st["kv_bits"] == 8 else torch.float32):
+        fail(f"{name}: a {st['kv_bits']}-bit KV pool of {kv_dtype}")
+    log(f"[plans] {name}: plan {st['plan_hash']} ({st['plan_mode']}, "
+        f"{rec['segments']} segment(s), {st['weight_compression']}x smaller "
+        f"weights), {st['kv_bits']}-bit KV, {'paged' if eng.paged else 'ring'}"
+        f": {st['generated_tokens']} tokens in {dt:.3f} s, decode "
+        f"{st['measured_tps']:.1f} tok/s over {steps} decode and {pre} "
+        f"prefill passes; LUT-GEMV launches per instance {rec['instances']} "
+        f"(= the plan's layers x matrices x passes)"
+        + (f"; all {rec['held']} held against the plain version (max abs err"
+           f" f32 {h.err['f32']:.3e}, int {h.err['int']:.3e})" if held
+           else "") + f"; attention {counts['decode_attention']} launches, "
+        f"{table} in table mode")
+    return eng, got, rec
+
+
+def step_device_ms(torch, timer, lm, eng, cfg):
+    """One full-pool decode step of ``eng`` replayed as a CUDA graph."""
+    tok = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    return timer(lambda: lm.decode_step(eng.params, tok, eng.cache, cfg,
+                                        quant_kv=eng.kv_bits == 8,
+                                        device="cuda"))
+
+
+def lut_step_graphs(torch, timer, gen):
+    """The LUT-GEMV's 85 calls of a decode step at M = 8 as one CUDA
+    graph, per weight bit width (f32 activations): each call first held
+    against its plain version, then the step timed beside its bound and
+    torch.matmul on the dequantized weights."""
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda
+    xk = {k: torch.randn((8, k), device="cuda", generator=gen)
+          for k in sorted({k for k, _ in MATMULS.values()})}
+    rows = {}
+    for bits in LUT_BITS:
+        qts = [rand_qtensor(torch, gen, k, n, bits, 128, False)
+               for name, (k, n) in MATMULS.items() if name != "lm_head"
+               for _ in range(12)]
+        qts.append(rand_qtensor(torch, gen, *MATMULS["lm_head"], bits, 128,
+                                False))
+        wds = [dequantize(qt) for qt in qts]
+        err = 0.0
+        for qt, wd in zip(qts, wds):
+            y, ref = lut_matmul_cuda(xk[qt.k], qt), torch.matmul(xk[qt.k], wd)
+            e = (y - ref).abs()
+            if not bool((e <= F32_ATOL + F32_RTOL * ref.abs()).all()):
+                fail(f"lut_matmul b={bits} ({qt.k}, {qt.n}): max err "
+                     f"{e.max().item():.3e}")
+            err = max(err, e.max().item())
+        ms = timer.replay_ms(lambda: [lut_matmul_cuda(xk[qt.k], qt)
+                                      for qt in qts])
+        lib = timer.replay_ms(lambda: [torch.matmul(xk[w.shape[0]], w)
+                                       for w in wds])
+        nbytes = sum(4 * (qt.packed.numel() + qt.scales.numel()
+                          + qt.codebook.numel()) + 4 * 8 * (qt.k + qt.n)
+                     for qt in qts)
+        ops = sum(2 * 8 * qt.k * qt.n for qt in qts)
+        bound, by = bound_ms(nbytes, ops)
+        rows[bits] = dict(step_graph_ms=ms, library_step_graph_ms=lib,
+                          bytes=nbytes, bytes_bound_ms=nbytes
+                          / HBM_BYTES_PER_S * 1e3, bound_ms=bound,
+                          bound_by=by, max_abs_err=err)
+        log(f"[plans] LUT-GEMV decode step, b={bits} (85 calls, M=8, G=128, "
+            f"f32 activations): {ms:.4f} ms as one graph; torch.matmul on "
+            f"the dequantized weights {lib:.4f} ms; bytes "
+            f"{nbytes / 1e6:.1f} MB -> {rows[bits]['bytes_bound_ms']:.4f} ms "
+            f"at 3.35 TB/s, bound {bound:.4f} ms by {by}; each call within "
+            f"rtol {F32_RTOL} / atol {F32_ATOL} of its plain version (max "
+            f"abs err {err:.3e})")
+        del qts, wds
+    return rows
+
+
+def phase_plans(rt):
+    import torch
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
+        quantize_params
+    from repro_torch.planning import as_plan
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw = full_model(rt)
+    timer = Timer(torch)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    res = rt["plans"] = {"runs": {}, "step_device_ms": {}}
+    plans = {"R": PLAN_R, "S": plan_s(), "S-a": plan_s(acts=True)}
+    res["plan_hash"] = {n: as_plan(p).spec_hash for n, p in plans.items()}
+    log("[plans] plan hashes: " + ", ".join(
+        f"{n} {h}" for n, h in res["plan_hash"].items()))
+    prompts = engine_requests(cfg)
+    serve = lambda name, plan, **kw: serve_plan(
+        torch, lm, Engine, EngineConfig, raw, cfg, name, plan, prompts, **kw)
+    paged = dict(kv_block_size=16, kv_pool_blocks=8 * 32, share_prefix=False)
+
+    # plan R: ring pool, int8 KV, every launch held
+    eng, _, res["runs"]["R ring"] = serve("R ring", PLAN_R, held=True)
+    if isinstance(eng.params["blocks"], list) or eng.kv_bits != 8:
+        fail("plan R: expected one segment and int8 KV")
+    res["step_device_ms"]["R"] = step_device_ms(torch, timer, lm, eng, cfg)
+    del eng
+
+    # plan S on the card against the CPU, phase 3's prompts and steps
+    toks, lengths = model_prompts(cfg)
+    policy = as_plan(plans["S"]).to_policy(QuantPolicy(
+        bits=4, group_size=128, min_size=1024))
+    params, _, _ = quantize_params(raw, policy)
+    if len(params["blocks"]) != len(SEGMENTS):
+        fail(f"plan S: {len(params['blocks'])} segments")
+    gl, gt = run_greedy(torch, lm, params, cfg, toks, lengths, 4, "cuda",
+                        quant_kv=False)
+    torch.cuda.synchronize()
+    cl, ct = run_greedy(torch, lm, map_tensors(params, lambda t: t.cpu()),
+                        cfg, toks, lengths, 4, "cpu", quant_kv=False)
+    del params
+    err = (gl - cl).abs().max().item()
+    log(f"[plans] S: prefill [2, 48] + 4 decode steps, f32 KV, card vs CPU: "
+        f"logits max abs err {err:.3e}; greedy tokens card {gt.T.tolist()} "
+        f"CPU {ct.T.tolist()}")
+    if not torch.isfinite(gl).all() or not torch.equal(gt, ct):
+        fail("plan S: card and CPU greedy tokens differ (or logits not "
+             "finite)")
+    if not torch.allclose(gl, cl, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+        fail(f"plan S: card and CPU logits differ by {err:.3e}")
+    res["S card vs cpu logits err"] = err
+
+    # plan S and S-a: ring against paged (run A's admission), f32 KV
+    for name, held in (("S", False), ("S-a", True)):
+        eng, ring, res["runs"][f"{name} ring"] = serve(
+            f"{name} ring", plans[name], held=held)
+        res["step_device_ms"][name] = step_device_ms(torch, timer, lm, eng,
+                                                     cfg)
+        del eng
+        eng, pg, res["runs"][f"{name} paged"] = serve(
+            f"{name} paged", plans[name], held=held, **paged)
+        del eng
+        same = sum(pg[u] == ring[u] for u in ring)
+        log(f"[plans] {name}: {same} of 16 paged completions equal the ring "
+            "engine's (f32 KV)")
+        if pg != ring:
+            fail(f"plan {name}: paged tokens differ from the ring engine's")
+    u4 = rt["engine"]["uniform:4"]["step_device_ms"]
+    log("[plans] one full-pool decode step (8 lanes), device time as a CUDA "
+        "graph: " + ", ".join(f"{n} {ms:.3f} ms"
+                              for n, ms in res["step_device_ms"].items())
+        + f"; uniform:4 {u4:.3f} ms (phase 4)")
+    res["step_device_ms"]["uniform:4 (phase 4)"] = u4
+    res["lut_step_graph"] = lut_step_graphs(torch, timer, gen)
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -1377,6 +1684,14 @@ def kernels_line(rt) -> dict:
             entry["launches_table"] = {
                 run: rt["paged"][run]["launches"]["decode_attention_table"]
                 for run in ("A", "B")}
+        if name.startswith("lut_matmul"):   # phase 6, per instance
+            entry["launches_plans"] = {
+                run: {k: v for k, v in rec["instances"].items()
+                      if ("a" in k) == (name == "lut_matmul_int")}
+                for run, rec in rt["plans"]["runs"].items()}
+            entry["step_graph_ms_per_bits"] = {
+                f"b{b}": row["step_graph_ms"]
+                for b, row in rt["plans"]["lut_step_graph"].items()}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -1406,7 +1721,7 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("model", phase_model), ("engine", phase_engine),
-                     ("paged", phase_paged)):
+                     ("paged", phase_paged), ("plans", phase_plans)):
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
@@ -1415,6 +1730,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"card": card_line(), "kernels": line["kernels"],
                    "engine": rt["engine"], "paged": rt["paged"],
+                   "plans": rt["plans"],
                    "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

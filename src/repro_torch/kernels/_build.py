@@ -10,7 +10,10 @@ runs at import time.
 
 Every wrapper that launches a kernel adds one to ``launches[<kernel>]``
 at the launch and nowhere else, so a run can show that its main path
-went through the kernels (``reset_launches`` before, read after).
+went through the kernels (``reset_launches`` before, read after).  The
+LUT-GEMV also counts each launch under its compiled instance,
+``lut_instances[(bits, abits)]`` (abits 0: f32 activations), so a
+mixed-precision run can show which instances served it.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -34,12 +37,15 @@ launches: Dict[str, int] = {"lut_matmul": 0, "lut_matmul_int": 0,
                             # the table-mode share of decode_attention's
                             "decode_attention_table": 0}
 
+lut_instances: Dict[Tuple[int, int], int] = {}
+
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+    lut_instances.clear()
 
 
 def nvcc_path() -> str:

@@ -226,6 +226,8 @@ def _launch(x, xq, xs, qt: QTensor, p: Plan, abits: int,
     ptr = lambda t: None if t is None else t.data_ptr()
     name = "lut_matmul_int" if abits else "lut_matmul"
     _build.launches[name] += 1
+    key = (qt.bits, abits)
+    _build.lut_instances[key] = _build.lut_instances.get(key, 0) + 1
     _build.check(fn(ptr(x), ptr(xq), ptr(xs), qt.packed.data_ptr(),
                     qt.scales.data_ptr(), qt.codebook.data_ptr(),
                     y.data_ptr(), p.m, p.k, p.n,

@@ -4,9 +4,19 @@
         --smoke --device cpu
 
 Random weights from a seeded ``torch.Generator``, quantized to ``--ql``
-bits (or ``--plan uniform:<b>[a<ab>]``), int8 KV unless ``--no-quant-kv``,
-continuous batching over ``--batch`` KV-pool slots.  ``--device`` defaults
-to ``cuda`` and the run fails rather than fall back when CUDA is missing.
+bits or by a precision ``--plan``, int8 KV unless ``--no-quant-kv`` (or the
+plan's ``kv=8|32``), continuous batching over ``--batch`` KV-pool slots.
+``--device`` defaults to ``cuda`` and the run fails rather than fall back
+when CUDA is missing.
+
+    # a plan: grammar string or a solved plan.json
+    ... --plan 'rules:mlp=3,attn=5a8,default=4' --save-plan plan.json
+    ... --plan plan.json
+    # price the plan against a target decode tokens/s at --batch
+    ... --plan plan.json --slo 80
+
+The modeled tokens/s it prints are the paper's SAIL machine's
+(``planning.DecodeCostModel``), not the card's.
 """
 from __future__ import annotations
 
@@ -29,7 +39,17 @@ def main(argv=None) -> None:
     ap.add_argument("--cache-len", type=int, default=512)
     ap.add_argument("--no-quant-kv", action="store_true")
     ap.add_argument("--plan", default=None,
-                    help="precision plan: uniform:<b>[a<ab>]")
+                    help="precision plan: a grammar string "
+                         "(uniform:<b>[a<ab>][,kv=8|32] | "
+                         "rules:<regex>=<b>[a<ab>],...[,default=<b>]) or a "
+                         "path to a solved plan.json (--save-plan writes "
+                         "one)")
+    ap.add_argument("--slo", type=float, default=None,
+                    help="target decode tokens/s at --batch: prices the "
+                         "plan on the SAIL machine model and warns when it "
+                         "falls short")
+    ap.add_argument("--save-plan", default=None,
+                    help="write the engine's resolved plan JSON here")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda")
@@ -41,23 +61,31 @@ def main(argv=None) -> None:
     import repro_torch.configs as C
     from repro_torch.device import resolve_device
     from repro_torch.models import lm
+    from repro_torch.planning import plan_from_arg
     from repro_torch.serving.engine import Engine, EngineConfig
 
     dev = resolve_device(args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=dev)
+    plan = plan_from_arg(args.plan) if args.plan is not None else None
     eng = Engine(params, cfg, EngineConfig(
         batch_size=args.batch, cache_len=args.cache_len, ql=args.ql,
-        plan=args.plan,
+        plan=plan, slo=args.slo,
         group_size=(args.group_size if args.group_size is not None
                     else min(128, cfg.d_model)),
         quant_kv=not args.no_quant_kv), device=dev)
-    pol = eng.quant_policy
-    print(f"{cfg.name} on {dev}: Q{pol.bits}"
-          f"{'' if pol.act_bits is None else f'a{pol.act_bits}'} weights "
-          f"({eng.compression:.2f}x compression), "
-          f"{'f32' if args.no_quant_kv else 'int8'} KV, continuous scheduling")
+    pol, st = eng.quant_policy, eng.stats()
+    desc = (f"mixed-precision plan {eng.plan.format()}"
+            if st["mixed_precision"] else
+            f"Q{pol.bits}{'' if pol.act_bits is None else f'a{pol.act_bits}'}")
+    print(f"{cfg.name} on {dev}: {desc} weights (plan {st['plan_hash']}, "
+          f"{eng.compression:.2f}x compression), "
+          f"{'int8' if st['kv_bits'] == 8 else 'f32'} KV, continuous "
+          "scheduling")
+    if args.save_plan:
+        eng.plan.save(args.save_plan)
+        print(f"wrote plan {eng.plan.spec_hash} to {args.save_plan}")
 
     on_token = None
     if args.stream:
@@ -82,6 +110,12 @@ def main(argv=None) -> None:
           f"({st['prefill_iterations']} prefill / "
           f"{st['decode_iterations']} decode, "
           f"{st['prefill_tokens']} prompt tokens)")
+    if st["measured_tps"] is not None:
+        print(f"decode: measured {st['measured_tps']:.1f} tok/s on {dev}; "
+              f"the SAIL machine model prices the plan at "
+              f"{st['planned_tps']:.0f} tok/s at the full pool (raw drift "
+              f"{st['drift']:+.3f}: a comparison of two machines, not a "
+              "calibration check)")
 
 
 if __name__ == "__main__":

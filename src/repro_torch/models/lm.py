@@ -3,15 +3,19 @@ dense family, ring and paged KV pools): init, prefill, decode.
 
 A Python loop over layers replaces the reference's ``lax.scan``; the
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
-on a leading layer axis, quantized leaves as ``StackedQTensor``).  The
-KV pool is updated in place where the reference donates its buffers.
+on a leading layer axis, quantized leaves as ``StackedQTensor``).  A
+mixed-precision tree carries ``blocks`` as a list of stacked segments
+(``sail_linear.quantize_params``); ``iter_layers`` walks them back to back
+and gives each layer its absolute index, which is the layer of the KV
+pool it reads and writes.  The KV pool is updated in place where the
+reference donates its buffers.
 
 Entry points take ``device=`` (default ``"cuda"``) and raise when CUDA is
 missing; tests pass ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,20 +46,40 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 
 def layer_params(blocks: Dict[str, Any], i: int):
-    """Layer ``i`` of the stacked block tree (QTensor for quantized
+    """Layer ``i`` of one stacked block tree (QTensor for quantized
     leaves)."""
     if isinstance(blocks, dict):
         return {k: layer_params(v, i) for k, v in blocks.items()}
-    if isinstance(blocks, (list, tuple)):
-        raise NotImplementedError(
-            "segmented block stacks (mixed precision) are not ported yet: "
-            "ROADMAP, the planning slice")
     return blocks[i]
 
 
+def block_segments(params) -> List[Dict[str, Any]]:
+    """params["blocks"] as a list of stacked segment trees."""
+    blocks = params["blocks"]
+    if isinstance(blocks, (list, tuple)):
+        return list(blocks)
+    return [blocks]
+
+
+def _segment_len(segment) -> int:
+    """Number of layers in one stacked segment tree."""
+    return segment["attn_norm"]["scale"].shape[0]
+
+
+def iter_layers(params) -> Iterator[Tuple[int, Dict[str, Any]]]:
+    """(absolute layer index, that layer's params) across the segments,
+    in order: a segment's layer ``i`` is layer ``offset + i`` of the
+    model and of its KV pool."""
+    offset = 0
+    for seg in block_segments(params):
+        n = _segment_len(seg)
+        for i in range(n):
+            yield offset + i, layer_params(seg, i)
+        offset += n
+
+
 def n_layers(params) -> int:
-    leaf = params["blocks"]["attn_norm"]["scale"]
-    return leaf.shape[0]
+    return sum(_segment_len(seg) for seg in block_segments(params))
 
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -122,9 +146,9 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
     x = embed_tokens(params, tokens, cfg)
     positions = torch.arange(t, device=dev).expand(b, t)
     ks, vs = [], []
-    for i in range(n_layers(params)):
-        x, cache = blk.block_apply_seq(layer_params(params["blocks"], i), x,
-                                       cfg, positions, collect_cache=True)
+    for _, p_l in iter_layers(params):
+        x, cache = blk.block_apply_seq(p_l, x, cfg, positions,
+                                       collect_cache=True)
         ks.append(cache["kv"]["k"])
         vs.append(cache["kv"]["v"])
     x = apply_norm(params["final_norm"], x, cfg)
@@ -248,9 +272,9 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
         # shape[2] of a [L, NB, BS, KV, Dh] pool is the block size
         write_at = blk.paged_slot(block_tables, position, cache_len)
         cache_len = block_tables.shape[1] * cache_len
-    for i in range(n_layers(params)):
+    for i, p_l in iter_layers(params):
         layer_cache = {name: a[i] for name, a in cache["layers"].items()}
-        x = blk.block_apply_decode(layer_params(params["blocks"], i), x, cfg,
+        x = blk.block_apply_decode(p_l, x, cfg,
                                    layer_cache, position, cache_len,
                                    quant_kv=quant_kv,
                                    block_tables=block_tables,

@@ -25,44 +25,38 @@ Decode attention reads each lane's rows through its table in place (the
 kernel's table mode); the table goes to the card once per step.
 
 Weights are SAIL-quantized from ``ql``/``group_size``/``min_size``, or
-from a ``plan`` of the form ``uniform:<b>[a<ab>]``; KV is int8 when
-``quant_kv``.  Sampling is greedy.  Not ported yet (ROADMAP): the planner
-and controller (with the paged pool's free-block cap), plan ``kv_bits``,
-taps, speculation (with its paged verify), tensor parallelism (with its
-paged prefill), run-to-completion mode, unquantized serving and
-temperature sampling.
+from a precision ``plan`` (``planning.PlanSpec``, a grammar string or a
+plan JSON dict): ``uniform:``, ``rules:`` or a solved ``auto`` plan, whose
+per-layer allocation serves as a segmented layer stack.  KV is int8 when
+``quant_kv``, unless the plan sets ``kv=8|32``, which overrides it for
+the ring pool, the paged pool and the pool's byte pricing.  ``stats()``
+reports the plan's hash and mode and its ``planned_tps`` / ``drift``:
+those are the paper's SAIL machine's modeled figures
+(``planning.DecodeCostModel``), not the card's.  Sampling is greedy.  Not
+ported yet (ROADMAP): the Planner (unsolved ``auto`` plans, ``kv=auto``)
+and controller (with the paged pool's free-block cap), the deprecated
+``bit_policy`` surface, taps, speculation (with its paged verify), tensor
+parallelism (with its paged prefill), run-to-completion mode, unquantized
+serving and temperature sampling.
 """
 from __future__ import annotations
 
 import dataclasses
-import re
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import planning
 from repro_torch.core.scheduler import DECODE, IterationScheduler, Request
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
     quantize_params
-from repro_torch.planning.cost import kv_pool_blocks
 from repro_torch.serving.block_pool import BlockSpaceManager
-
-_UNIFORM = re.compile(r"^uniform:(\d+)(?:a(\d+))?$")
-
-
-def parse_plan(plan: str) -> Tuple[int, Optional[int]]:
-    """``uniform:<b>[a<ab>]`` -> (weight bits, activation bits or None)."""
-    m = _UNIFORM.match(plan.strip()) if isinstance(plan, str) else None
-    if m is None:
-        raise ValueError(
-            f"plan {plan!r}: only 'uniform:<b>[a<ab>]' is ported; rules/auto "
-            "plans and PlanSpec objects wait for the planning slice "
-            "(ROADMAP)")
-    return int(m.group(1)), None if m.group(2) is None else int(m.group(2))
 
 
 @dataclasses.dataclass
@@ -73,7 +67,14 @@ class EngineConfig:
     group_size: int = 128
     quant_kv: bool = True
     min_size: int = 1024           # quantize tensors >= this many elements
-    plan: Optional[str] = None     # "uniform:<b>[a<ab>]"
+    # Precision plan: a planning.PlanSpec (e.g. loaded from a plan.json),
+    # a grammar string ("uniform:<b>[a<ab>][,kv=8|32]",
+    # "rules:<regex>=<b>[a<ab>],...,default=<b>[a<ab>]"), or a PlanSpec
+    # JSON dict.  Auto plans must arrive solved.
+    plan: Any = None
+    # target decode tokens/s at ``batch_size``: prices a solved plan
+    # against it on the SAIL machine model (a warning when it falls short)
+    slo: Optional[float] = None
     eos_token: int = -1            # -1: never stop early
     prefill_budget: Optional[int] = None  # new prefill tokens per iteration
     prompt_bucket: int = 16        # prompts padded to a multiple
@@ -103,15 +104,24 @@ class Engine:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
-        bits, abits = (parse_plan(ecfg.plan) if ecfg.plan is not None
-                       else (ecfg.ql, None))
-        self.quant_policy = QuantPolicy(bits=bits, group_size=ecfg.group_size,
-                                        min_size=ecfg.min_size, act_bits=abits)
+        self.slo: Optional[planning.Slo] = None
+        self._resolve_plan(params)
         self.params, b0, b1 = quantize_params(
             map_tensors(params, lambda t: t.to(self.device)),
             self.quant_policy)
         self.compression = b0 / max(b1, 1)
-        self._quant_kv = bool(ecfg.quant_kv)
+        # KV precision: a concrete plan kv_bits overrides quant_kv; the
+        # pool's dtype is fixed from here on
+        kvb = self.plan.kv_bits if isinstance(self.plan.kv_bits, int) \
+            else None
+        self.kv_bits = kvb if kvb is not None else (8 if ecfg.quant_kv
+                                                    else 32)
+        self._quant_kv = self.kv_bits == 8
+        # plan pricing on the SAIL machine model: iteration seconds
+        # memoized per occupancy, and the modeled seconds of the decode
+        # steps run (each at its occupancy), the reference side of drift
+        self._iter_cache: Dict[int, float] = {}
+        self.modeled_seconds = 0.0
         self.sched = IterationScheduler(target_batch=ecfg.batch_size,
                                         max_batch=ecfg.batch_size,
                                         prefill_budget=ecfg.prefill_budget)
@@ -140,6 +150,47 @@ class Engine:
         else:
             self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
                                        self._quant_kv, device=self.device)
+
+    def _resolve_plan(self, params) -> None:
+        """The served plan and its policy, priced while the raw tree is in
+        hand (units and fixed bytes behind ``planned_tps``)."""
+        ecfg = self.ecfg
+        base = QuantPolicy(bits=ecfg.ql, group_size=ecfg.group_size,
+                           min_size=ecfg.min_size)
+        plan_in = ecfg.plan
+        if plan_in is None and ecfg.slo is not None:
+            # a bare SLO asks for the reference's joint SLO solve, which
+            # resolve_plan refuses (the Planner is not ported)
+            plan_in = planning.PlanSpec(mode="auto", weight_bits=ecfg.ql,
+                                        act_bits=8, prt="measured",
+                                        quant_kv=ecfg.quant_kv)
+        if plan_in is None:
+            policy = base
+            self.plan = planning.PlanSpec.from_policy(
+                policy, quant_kv=ecfg.quant_kv)
+        else:
+            plan = planning.as_plan(plan_in)
+            # an SLO is quoted at this engine's decode batch
+            target = ecfg.slo if ecfg.slo is not None else plan.target_tps
+            if target is not None:
+                self.slo = planning.Slo(target, batch=ecfg.batch_size)
+            result = planning.resolve_plan(
+                plan, params, self.cfg, base=base, slo=self.slo,
+                compute_cost=self.slo is not None)
+            if (self.slo is not None and result.cost.tokens_per_second
+                    < self.slo.target_tps * (1 - 1e-9)):
+                warnings.warn(
+                    f"plan {plan.spec_hash} models "
+                    f"{result.cost.tokens_per_second:.1f} tok/s on the SAIL "
+                    f"machine at batch {self.slo.batch}, below the requested "
+                    f"SLO of {self.slo.target_tps:.1f}; lower the target, "
+                    "raise the batch, or serve a cheaper plan",
+                    UserWarning, stacklevel=3)
+            policy = result.policy
+            self.plan = result.spec
+        self.quant_policy = policy
+        self._plan_units = planning.policy_units(params, policy)
+        self._plan_fixed_bytes = planning.unquantized_bytes(params, policy)
 
     # --- client API -------------------------------------------------------
     def submit(self, prompt: List[int], max_new_tokens: int,
@@ -224,6 +275,7 @@ class Engine:
             self.decode_iterations += 1
             self.decode_seconds += dt
             self._decode_tokens += len(active)
+            self.modeled_seconds += self._modeled_iter_seconds(len(active))
             if self.paged:
                 self._len_np[mask] += 1
             for req in active:
@@ -274,9 +326,9 @@ class Engine:
         if ecfg.kv_pool_blocks is not None:
             n = int(ecfg.kv_pool_blocks)
         elif ecfg.kv_budget_bytes is not None:
-            n = kv_pool_blocks(ecfg.kv_budget_bytes, bs, cfg.n_layers,
-                               cfg.n_kv, cfg.head_dim,
-                               8 if self._quant_kv else 32)
+            n = planning.kv_pool_blocks(ecfg.kv_budget_bytes, bs,
+                                        cfg.n_layers, cfg.n_kv, cfg.head_dim,
+                                        self.kv_bits)
         else:
             n = ecfg.batch_size * self._mbs
         return max(n, self._mbs)
@@ -439,15 +491,55 @@ class Engine:
             return None
         return self._decode_tokens / self.decode_seconds
 
+    # --- plan pricing (the SAIL machine model, not the card) ----------------
+    def _modeled_iter_seconds(self, occupancy: int) -> float:
+        """Modeled seconds of one decode iteration at ``occupancy`` lanes
+        (lookup cycles scale with the batch), memoized."""
+        got = self._iter_cache.get(occupancy)
+        if got is None:
+            cost = planning.plan_cost_model(self.plan, batch=int(occupancy))
+            total = (cost.qbytes(self._plan_units,
+                                 self.quant_policy.group_size)
+                     + self._plan_fixed_bytes)
+            got = cost.iteration_seconds(cost.cycles(self._plan_units),
+                                         total)
+            self._iter_cache[occupancy] = got
+        return got
+
+    def planned_tps(self, batch: Optional[int] = None) -> float:
+        """Modeled decode tokens/s of the served plan at ``batch``
+        occupancy (default: the full pool) on the SAIL machine model."""
+        b = self.ecfg.batch_size if batch is None else int(batch)
+        return b / max(self._modeled_iter_seconds(b), 1e-30)
+
+    def modeled_run_tps(self) -> Optional[float]:
+        """Modeled tokens/s of the decode steps actually run, each priced
+        at its occupancy: the counterpart of :meth:`measured_tps`."""
+        if self.modeled_seconds <= 0 or self._decode_tokens == 0:
+            return None
+        return self._decode_tokens / self.modeled_seconds
+
     def stats(self) -> Dict[str, Any]:
         lats = [c.latency_s for c in self.completions.values()]
         ttfts = [c.ttft_s for c in self.completions.values()]
+        measured = self.measured_tps()
+        modeled = self.modeled_run_tps()
+        planned = self.planned_tps()
+        # measured (the card) against modeled (the SAIL machine): a raw
+        # ratio, meaningful as a machine comparison only once a plan
+        # carries constants fitted to the card (plan_calibrated)
+        ref = modeled if modeled is not None else planned
+        drift = (measured / ref - 1.0
+                 if measured is not None and ref else None)
         return {"requests": len(self.completions),
                 "generated_tokens": sum(len(c.tokens)
                                         for c in self.completions.values()),
-                "measured_tps": self.measured_tps(),
+                "measured_tps": measured,
+                "planned_tps": planned,
+                "modeled_run_tps": modeled,
+                "drift": drift,
                 "peak_active": self.peak_active,
-                "kv_bits": 8 if self._quant_kv else 32,
+                "kv_bits": self.kv_bits,
                 "block_pool": (self.block_mgr.stats() if self.paged
                                else None),
                 "iterations": self.iterations,
@@ -456,6 +548,10 @@ class Engine:
                 "prefill_tokens": self.prefill_tokens,
                 "decode_seconds": self.decode_seconds,
                 "weight_compression": round(self.compression, 2),
+                "mixed_precision": self.quant_policy.is_mixed(),
+                "plan_hash": self.plan.spec_hash,
+                "plan_mode": self.plan.mode,
+                "plan_calibrated": self.plan.calibration is not None,
                 "mean_latency_s": float(np.mean(lats)) if lats else 0.0,
                 "p99_latency_s": (float(np.percentile(lats, 99))
                                   if lats else 0.0),

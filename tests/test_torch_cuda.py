@@ -368,3 +368,118 @@ def test_kernels_refuse_what_they_do_not_take(gen):
         lut_matmul_cuda(torch.randn((4, 128), device="cuda"), qt)   # K
     with pytest.raises(ValueError):
         int_to_f32_cuda(torch.zeros(4, device="cuda"), 8)           # dtype
+
+
+# --- mixed-precision plans: the instances a plan puts on the path ----------
+
+MODEL_KN = [(1024, 1024), (1024, 256), (4096, 1024), (1024, 4096)]
+
+
+@pytest.mark.parametrize("bits", [5, 6])
+@pytest.mark.parametrize("kn", MODEL_KN)
+def test_lut_matmul_b5_b6_at_the_model_shapes(gen, bits, kn):
+    """The 5- and 6-bit instances (codes straddle words) at tinymistral's
+    decode shapes, group 128, each launch counted under its instance."""
+    k, n = kn
+    qt = _qt(gen, k, n, bits, 128)
+    x = torch.randn((8, k), device="cuda", generator=gen)
+    before = _build.lut_instances.get((bits, 0), 0)
+    y = lut_matmul_cuda(x, qt)
+    assert _build.lut_instances[(bits, 0)] == before + 1
+    torch.testing.assert_close(y, lut_ref.lut_matmul_ref(x, qt), rtol=1e-5,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 8])
+@pytest.mark.parametrize("kn", MODEL_KN)
+def test_int_path_abits6_on_quantized_data(gen, bits, kn):
+    """The 6-bit activation instances (a 64-entry Algorithm-1 table) on
+    activations quantized from f32, as the model feeds them, within
+    chip_smoke's tolerance for quantized data."""
+    k, n = kn
+    qt = _qt(gen, k, n, bits, 128)
+    xq, xs = quantize_activations(
+        torch.randn((8, k), device="cuda", generator=gen), 6)
+    assert int(xq.abs().max()) <= 31
+    y = lut_matmul_int_cuda(xq, xs, qt, 6)
+    torch.testing.assert_close(y, lut_ref.lut_matmul_ref_int(xq, xs, qt),
+                               rtol=1e-4, atol=1e-4)
+
+
+def _plan_s_model():
+    """tinymistral smoke at 4 layers, random weights (seed 0), and plan S
+    of tests/test_torch_plan.py: three segments, f32 KV."""
+    import dataclasses
+    import repro_torch.configs as TC
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(TC.get_smoke("tinymistral_248m"), n_layers=4)
+    raw = lm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    per = lambda a, b, c: [a, b, b, c]
+    attn = [f"['blocks']['attn']['{m}']" for m in ("wq", "wk", "wv", "wo")]
+    mlp = [f"['blocks']['mlp']['{m}']" for m in ("w_gate", "w_up")]
+    w = {p: per(8, 4, 6) for p in attn}
+    w.update({p: per(5, 3, 4) for p in mlp})
+    w["['blocks']['mlp']['w_down']"] = per(6, 4, 8)
+    w["['lm_head']"] = 6
+    plan = {"mode": "auto", "weight_bits": 4, "kv_bits": 32,
+            "weights_per_unit": w}
+    return cfg, raw, plan
+
+
+def test_segmented_decode_on_the_card_matches_the_cpu(gen):
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
+        quantize_params
+    from repro_torch.planning import as_plan
+    cfg, raw, plan = _plan_s_model()
+    policy = as_plan(plan).to_policy(QuantPolicy(bits=4, group_size=32,
+                                                 min_size=1024))
+    cpu, _, _ = quantize_params(raw, policy)
+    assert len(cpu["blocks"]) == 3
+    card = map_tensors(cpu, lambda t: t.cuda())
+    prompt = torch.randint(0, cfg.vocab, (2, 9), generator=torch.Generator()
+                           .manual_seed(1))
+    lengths = [9, 6]
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", card)):
+        logits, cache = lm.prefill(params, prompt, cfg, 32, False, lengths,
+                                   device=dev)
+        steps = [logits.cpu()]
+        tok = torch.argmax(logits, -1)[:, None]
+        _build.reset_launches()
+        for _ in range(3):
+            logits, cache = lm.decode_step(params, tok, cache, cfg, False,
+                                           device=dev)
+            steps.append(logits.cpu())
+            tok = torch.argmax(logits, -1)[:, None]
+        out[dev] = torch.stack(steps)
+    # per step: layer 0 at attn 8 / gate, up 5 / down 6; layers 1-2 at
+    # 4 / 3 / 4; layer 3 at 6 / 4 / 8; lm_head 6: 29 calls, 3 steps
+    assert _build.lut_instances == {(8, 0): 3 * 5, (5, 0): 3 * 2,
+                                    (6, 0): 3 * 6, (4, 0): 3 * 12,
+                                    (3, 0): 3 * 4}
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-4, atol=1e-4)
+    assert torch.equal(out["cuda"].argmax(-1), out["cpu"].argmax(-1))
+
+
+def test_engine_with_f32_kv_ring_equals_paged(gen):
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw, plan = _plan_s_model()
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [3, 1, 4, 1, 5], [2, 7, 1]]
+    tokens = {}
+    for name, extra in (("ring", {}), ("paged", dict(
+            kv_block_size=8, kv_pool_blocks=32, share_prefix=False))):
+        eng = Engine(raw, cfg, EngineConfig(
+            batch_size=4, cache_len=64, group_size=32, plan=plan, **extra),
+            device="cuda")
+        assert eng.kv_bits == 32
+        assert eng.cache["layers"]["k"].dtype == torch.float32
+        uids = [eng.submit(p, 6) for p in prompts]
+        _build.reset_launches()
+        eng.run()
+        tokens[name] = [eng.completions[u].tokens for u in uids]
+        table = _build.launches["decode_attention_table"]
+        assert (table > 0) == (name == "paged")
+        assert _build.launches["decode_attention"] >= 4 * \
+            eng.stats()["decode_iterations"]
+    assert tokens["ring"] == tokens["paged"]

@@ -22,7 +22,7 @@ from repro_torch.models.sail_linear import QuantPolicy
 from repro_torch.models.sail_linear import quantize_params
 from repro_torch.serving.engine import Engine as TEngine
 from repro_torch.serving.engine import EngineConfig as TEngineConfig
-from repro_torch.serving.engine import parse_plan
+from repro_torch.planning import as_plan
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ARCH = "tinymistral_248m"
@@ -92,16 +92,29 @@ def test_engine_streams_and_retires_slots(smoke):
 
 
 def test_plan_grammar_and_unported_options(smoke):
+    """What the planning slice ported serves (uniform, rules and per-path
+    policies); what waits for later slices raises, naming ROADMAP."""
     _, tcfg, _, carried = smoke
-    assert parse_plan("uniform:4") == (4, None)
-    assert parse_plan("uniform:3a6") == (3, 6)
-    for bad in ("rules:mlp=4", "auto:q4a8", "uniform:x"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            parse_plan(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        quantize_params(carried, QuantPolicy(rules=(("mlp", 4),)))
-    with pytest.raises(ValueError, match="ROADMAP"):
-        TEngine(carried, tcfg, TEngineConfig(plan="auto:q4a8"), device="cpu")
+    for spec, bits in (("uniform:4", (4, None)), ("uniform:3a6", (3, 6)),
+                       ("rules:mlp=4,default=3a8", (3, 8))):
+        plan = as_plan(spec)
+        assert (plan.weight_bits, plan.act_bits) == bits
+        assert as_plan(plan.format()) == plan
+    with pytest.raises(ValueError, match="bits token"):
+        as_plan("uniform:x")
+    q, _, _ = quantize_params(carried, QuantPolicy(rules=(("mlp", 3),),
+                                                   group_size=32,
+                                                   min_size=1024))
+    assert q["blocks"]["mlp"]["w_up"].bits == 3
+    assert q["blocks"]["attn"]["wq"].bits == 4
+    eng = TEngine(carried, tcfg, TEngineConfig(
+        batch_size=2, cache_len=32, group_size=32, plan="rules:mlp=3"),
+        device="cpu")
+    assert eng.stats()["mixed_precision"]
+    for plan in ("auto:q4a8", "uniform:4,kv=auto", "uniform:4,draft=q2a8:k4",
+                 "uniform:4,tp=2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TEngine(carried, tcfg, TEngineConfig(plan=plan), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.prefill(carried, [[1, 2]], dataclasses.replace(tcfg, act="gelu"),
                     8, device="cpu")

@@ -549,8 +549,9 @@ def test_equal_kv_memory_admits_more_users(smoke):
 def test_paged_engine_sizes_refuses_and_raises(smoke, monkeypatch):
     """A request longer than a lane's table raises ValueError; the pool is
     sized by a byte budget at the KV precision (clamped to one lane); an
-    exhausted pool with preemption off raises MemoryError; a plan with
-    options of the planning slice points at ROADMAP; without ``device=``
+    exhausted pool with preemption off raises MemoryError; a plan's
+    ``kv=32`` sizes an f32 pool at its own bytes, and ``kv=auto`` (the
+    Planner's) points at ROADMAP; without ``device=``
     the paged engine asks for CUDA and raises when there is none."""
     _, tcfg, _, carried = smoke
     eng = TEngine(carried, tcfg, TEngineConfig(**FIELDS, kv_block_size=8),
@@ -573,9 +574,19 @@ def test_paged_engine_sizes_refuses_and_raises(smoke, monkeypatch):
         dry.submit(list(p), 40)
     with pytest.raises(MemoryError, match="preempt"):
         dry.run()
-    with pytest.raises(ValueError, match="ROADMAP"):
+    # the plan's KV precision overrides quant_kv, for the pool and for
+    # its byte pricing; kv=auto needs the Planner
+    budget32 = 40 * tcost.kv_block_bytes(8, tcfg.n_layers, tcfg.n_kv,
+                                         tcfg.head_dim, 32)
+    f32 = TEngine(carried, tcfg, TEngineConfig(
+        **{**FIELDS, "plan": "uniform:4,kv=32"}, kv_block_size=8,
+        kv_budget_bytes=budget32), device="cpu")
+    assert f32.block_mgr.num_blocks == 40 and f32.kv_bits == 32
+    assert f32.cache["layers"]["k"].dtype == torch.float32
+    assert "k_scale" not in f32.cache["layers"]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         TEngine(carried, tcfg, TEngineConfig(**{**FIELDS,
-                                                "plan": "uniform:4,kv=8"},
+                                                "plan": "uniform:4,kv=auto"},
                                              kv_block_size=8), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
