@@ -67,7 +67,24 @@ Phases (each passes or the script exits nonzero):
      paged.  Each LUT-GEMV instance (bits, abits) must launch exactly as
      often as the plan's layers, matrices and passes make it; one
      full-pool step of each plan is timed, and the LUT-GEMV's 85-call step
-     as one graph at each weight bit width 2-8.
+     as one graph at each weight bit width 2-8;
+  7. planner — the Planner on the card (raw f32 weights, group 128): it
+     probes and solves auto:q4a8,kv=auto (plan A8) and auto:q4 (plan Q4),
+     printing the probe forwards, probe and solve seconds, the KV decision
+     (the KV probe's decode steps over an f32 cache counted) and the solved
+     allocation; both plans serve phase 4's 16 requests, every LUT-GEMV
+     launch held against its plain version and each instance launched
+     exactly as the solved tree implies, A8 on the paged pool too (ring
+     and paged tokens equal); on phase 3's prompts Q4 card against CPU
+     end to end and A8 launch by launch (its 4-bit activation codes turn
+     f32 rounding into logit differences, as the CPU against itself with
+     noise shows);
+     the probes at full width and 2 layers on the card and on the CPU
+     (every score within the CPU tests' tolerance, equal allocations); a
+     live replan (replan(), then a re-solve under the tapped traffic and
+     apply_plan) after 8 decode iterations, token-identical to an engine
+     that served the final plan; the cost model refit to the bit-serial
+     LUT-GEMV's timings on the card, and an SLO solve priced on it.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -1649,6 +1666,381 @@ def phase_plans(rt):
     res["lut_step_graph"] = lut_step_graphs(torch, timer, gen)
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the Planner
+# ---------------------------------------------------------------------------
+
+# the probe scores of the card against the CPU's, at the CPU tests'
+# tolerances (tests/test_torch_planner.py): output scores at rtol 1e-4;
+# activation scores at 1e-3, since their 4-bit activation codes turn f32
+# rounding differences into score differences of ~1e-4; the KV probe's
+# per-layer values at 1e-3
+SCORE_RTOL = {"scores": 1e-4, "act": 1e-3}
+SCORE_ATOL, KV_RTOL = 1e-9, 1e-3
+PLANNER_BASE = dict(bits=4, group_size=128, min_size=1024)
+
+
+def solve_on_card(torch, Planner, base, raw, cfg, plan, res, name):
+    """Probe and solve ``plan`` on the card; the KV probe's launches are
+    counted with the counters set to 0 just before it and read after."""
+    from repro_torch.core import sensitivity as sens
+    from repro_torch.kernels import _build
+    planner = Planner(raw, cfg, plan, base=base)
+    joint = planner.plan.act_bits is not None
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    planner._ensure_scores(joint)
+    torch.cuda.synchronize()
+    t_probe = time.perf_counter() - t0
+    probe_counts = dict(_build.launches)
+    kv = None
+    if planner.plan.kv_bits == "auto":
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        planner._resolve_kv(planner.plan)
+        torch.cuda.synchronize()
+        t_kv = time.perf_counter() - t0
+        kv = dict(seconds=t_kv, launches=dict(_build.launches),
+                  **planner._kv_scores)
+    t0 = time.perf_counter()
+    result = planner.solve()
+    t_solve = time.perf_counter() - t0
+    spec, rep = result.spec, result.report
+    segs = sens.segment_count(rep.bits_by_unit)
+    rec = dict(plan=plan, spec_hash=spec.spec_hash,
+               probe_forwards=planner.probe_stats["forwards"],
+               probe_seconds=t_probe, probe_launches=probe_counts,
+               solve_seconds=t_solve, segments=segs, kv=kv,
+               kv_bits=spec.kv_bits, feasible=rep.feasible,
+               weights_per_unit=spec.to_json()["weights_per_unit"],
+               acts_per_unit=spec.to_json().get("acts_per_unit"),
+               planned_tps_sail_model=result.cost.tokens_per_second)
+    if any(probe_counts.values()):
+        fail(f"{name}: the probes launched kernels {probe_counts}; they run "
+             "lm.forward on f32 weights (plain matmuls)")
+    if not spec.solved or rep is None:
+        fail(f"{name}: the Planner returned an unsolved plan")
+    log(f"[planner] {name} = {plan}: {rec['probe_forwards']} probe forwards "
+        f"in {t_probe:.2f} s on the card, solve {t_solve:.3f} s; plan "
+        f"{spec.spec_hash}, {segs} segment(s), feasible {rep.feasible}, "
+        f"kv_bits {spec.kv_bits}"
+        + ("" if kv is None else
+           f" (KV probe: {len(kv['per_layer'])} layers in {kv['seconds']:.2f}"
+           f" s, relative error {kv['relative']:.3e} against the tolerance "
+           f"{planner.kv_tolerance}; {kv['launches']['decode_attention']} "
+           f"decode-attention launches over an f32 KV cache)"))
+    log(f"[planner] {name} weights_per_unit "
+        f"{json.dumps(rec['weights_per_unit'], sort_keys=True)}")
+    if rec["acts_per_unit"] is not None:
+        log(f"[planner] {name} acts_per_unit "
+            f"{json.dumps(rec['acts_per_unit'], sort_keys=True)}")
+    res["solves"][name] = rec
+    return planner, result
+
+
+def probe_scores(sens, params, cfg, tokens, base):
+    """The three probes of a model on the device its weights live on,
+    timed."""
+    t0 = time.perf_counter()
+    out = dict(scores=sens.output_sensitivity(params, cfg, tokens, base),
+               act=sens.activation_sensitivity(params, cfg, tokens, base),
+               kv=sens.kv_sensitivity(params, cfg, tokens))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def probe_parity(torch, sens, raw, cfg, base, res):
+    """(c): the probes at full width and 2 layers, card against CPU, and
+    the two allocations their scores solve to."""
+    import dataclasses
+    from repro_torch.models.sail_linear import _walk, map_tensors
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    raw2 = dict(raw)
+    raw2["blocks"] = _walk(raw["blocks"], lambda _, x: x[:2].contiguous())
+    tokens = sens.calibration_tokens(cfg.vocab)
+    card = probe_scores(sens, raw2, cfg2, tokens, base)
+    torch.cuda.synchronize()
+    cpu = probe_scores(sens, map_tensors(raw2, lambda t: t.cpu()), cfg2,
+                       tokens, base)
+    worst = {}
+    for kind in ("scores", "act"):
+        worst[kind] = (0.0, None)
+        for key, errs in cpu[kind].items():
+            for b, c in errs.items():
+                g = card[kind][key][b]
+                gap = abs(g - c) / max(abs(c), 1e-30)
+                if gap > worst[kind][0]:
+                    worst[kind] = (gap, (key, b))
+                if abs(g - c) > SCORE_ATOL + SCORE_RTOL[kind] * abs(c):
+                    fail(f"probe parity: {kind} {key} at {b}: card {g!r}, "
+                         f"CPU {c!r}")
+    kv_gap = max(abs(g - c) / max(abs(c), 1e-30) for g, c in
+                 zip(card["kv"]["per_layer"], cpu["kv"]["per_layer"]))
+    if kv_gap > KV_RTOL:
+        fail(f"probe parity: KV per layer card {card['kv']['per_layer']} CPU "
+             f"{cpu['kv']['per_layer']}")
+    solve = dict(match_uniform=4, abits_candidates=(4, 6, 8),
+                 match_uniform_abits=8, tokens=tokens)
+    allocs = {}
+    for side, got in (("card", card), ("cpu", cpu)):
+        _, rep = sens.calibrate_policy(raw2, cfg2, base, scores=got["scores"],
+                                       act_scores=got["act"], **solve)
+        allocs[side] = rep.bits_by_unit
+    if allocs["card"] != allocs["cpu"]:
+        for key in allocs["cpu"]:
+            if allocs["card"][key] != allocs["cpu"][key]:
+                log(f"[planner] flipped unit {key}: card state "
+                    f"{allocs['card'][key]} scores "
+                    f"{card['scores'][key]} / {card['act'][key]}; CPU state "
+                    f"{allocs['cpu'][key]} scores {cpu['scores'][key]} / "
+                    f"{cpu['act'][key]}")
+        fail("probe parity: the card's scores and the CPU's solve to "
+             "different allocations")
+    n = sum(len(e) for e in cpu["scores"].values()) + \
+        sum(len(e) for e in cpu["act"].values())
+    log(f"[planner] probe parity, full width at 2 layers (the only cut): "
+        f"{n} output and activation scores; worst relative gap card vs CPU "
+        f"{worst['scores'][0]:.3e} at {worst['scores'][1]} among output "
+        f"scores (rtol {SCORE_RTOL['scores']}), {worst['act'][0]:.3e} at "
+        f"{worst['act'][1]} among activation scores (rtol "
+        f"{SCORE_RTOL['act']}), atol {SCORE_ATOL}; KV per layer within "
+        f"{kv_gap:.3e} (rtol {KV_RTOL}), "
+        f"relative {card['kv']['relative']:.3e} / {cpu['kv']['relative']:.3e};"
+        f" the joint match-uniform-4a8 allocations are equal "
+        f"({len(allocs['cpu'])} units); probes took {card['seconds']:.2f} s on"
+        f" the card, {cpu['seconds']:.2f} s on the CPU")
+    res["probe_parity"] = dict(
+        worst_rel_gap={k: v[0] for k, v in worst.items()},
+        worst_at={k: str(v[1]) for k, v in worst.items()},
+        kv_worst_rel_gap=kv_gap,
+        scores=n, card_seconds=card["seconds"], cpu_seconds=cpu["seconds"],
+        allocations_equal=True)
+
+
+def live_replan(torch, planning, Engine, EngineConfig, raw, cfg, spec,
+                planner, prompts, res):
+    """(d): replan() and replan(resolve=True) + apply_plan after 8 decode
+    iterations of an engine with a tap; its tokens against an engine that
+    served the final plan from the start (or, when the re-solve changed the
+    allocation, one that swapped to it at the same iteration)."""
+    import dataclasses
+    eng = Engine(raw, cfg, EngineConfig(**RING6, plan=spec, tap_capacity=256),
+                 device="cuda")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=32)
+    while eng.decode_iterations < 8:
+        eng.step()
+    swap_at = eng.iterations
+    cheap = eng.replan()
+    unsolved = dataclasses.replace(eng.plan, weights_per_unit=None,
+                                   acts_per_unit=None)
+    resolver = planning.Planner(raw, cfg, unsolved, base=planner.base,
+                                tokens=planner._tokens,
+                                scores=planner._scores,
+                                act_scores=planner._act_scores)
+    t0 = time.perf_counter()
+    result = resolver.replan(eng.tap, resolve=True)
+    t_resolve = time.perf_counter() - t0
+    changed = result.policy != eng.quant_policy
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.apply_plan(result, force_requantize=True)
+    torch.cuda.synchronize()
+    t_apply = time.perf_counter() - t0
+    eng.run()
+    got = {c.uid: c.tokens for c in eng.completions.values()}
+    st = eng.stats()
+    final = eng.plan
+    ref_run = Engine(raw, cfg, EngineConfig(
+        **RING6, plan=spec if changed else final, retain_raw=changed),
+        device="cuda")
+    for p in prompts:
+        ref_run.submit(p, max_new_tokens=32)
+    if changed:
+        while ref_run.iterations < swap_at:
+            ref_run.step()
+        ref_run.apply_plan(final)
+    ref_run.run()
+    want = {c.uid: c.tokens for c in ref_run.completions.values()}
+    same = sum(got[u] == want[u] for u in want)
+    log(f"[planner] live replan after 8 decode iterations (iteration "
+        f"{swap_at}): replan() measured a PRT hit rate of "
+        f"{cheap.measured_prt_hit_rate:.4f} on {eng.tap.rows_seen} tapped "
+        f"rows; replan(resolve=True) re-solved in {t_resolve:.2f} s to plan "
+        f"{final.spec_hash} ({'a new' if changed else 'the same'} "
+        f"allocation); apply_plan's requantization took {t_apply:.3f} s; "
+        f"replan_count {st['replan_count']}, prt_hit_rate "
+        f"{st['prt_hit_rate']:.4f}; {same} of {len(want)} completions equal "
+        f"an engine that served "
+        + ("the final plan from the start" if not changed else
+           "the first plan and swapped to the final one at the same "
+           "iteration"))
+    if got != want or st["replan_count"] != 2:
+        fail(f"live replan: {same} of {len(want)} completions equal, "
+             f"replan_count {st['replan_count']}")
+    res["live_replan"] = dict(
+        swap_iteration=swap_at, prt_hit_rate=st["prt_hit_rate"],
+        cheap_prt_hit_rate=cheap.measured_prt_hit_rate,
+        replan_count=st["replan_count"], resolve_seconds=t_resolve,
+        apply_plan_seconds=t_apply, allocation_changed=changed,
+        final_plan=final.spec_hash, tapped_rows=st["tapped_rows"],
+        equal=same)
+
+
+def cost_calibration(torch, planning, raw, cfg, base, planner, res):
+    """(e): the cost model refit to the bit-serial LUT-GEMV's timings on
+    the card, and an SLO solve priced on that fitted machine."""
+    import dataclasses
+    t0 = time.perf_counter()
+    cal = planning.run_calibration(device="cuda")
+    t_cal = time.perf_counter() - t0
+    prov = cal.provenance()
+    c = {k: round(v, 6) for k, v in cal.machine_overrides.items()}
+    log(f"[planner] cost calibration on {card_line()} ({cal.backend}): "
+        f"{len(cal.points)} grid points of the bit-serial LUT-GEMV (batch 8, "
+        f"K 512, N 256) in {t_cal:.2f} s; fitted constants of this host's "
+        f"effective SAIL machine (not the H100's LUT-GEMV speed) {c}; "
+        f"{len(cal.dispatch_cycles)} dispatch cells; max_rel_err "
+        f"{cal.max_rel_err:.4f}, mean_rel_err {cal.mean_rel_err:.4f}; stream "
+        f"bandwidth {cal.dram_bw_measured:.4e} bytes/s (64 MiB f32 read + "
+        "write)")
+    vals = list(cal.machine_overrides.values()) + \
+        list(cal.dispatch_cycles.values())
+    if len(cal.points) != 36 or not all(math.isfinite(v) and v >= 0
+                                        for v in vals):
+        fail(f"cost calibration: {len(cal.points)} points, constants {vals}")
+    plan = dataclasses.replace(planning.PlanSpec.parse("auto:q4a8"),
+                               calibration=prov)
+    anchor = dataclasses.replace(base, act_bits=8)
+    target = planning.plan_cost_model(plan, batch=8).evaluate(
+        raw, anchor).tokens_per_second
+    slo_plan = dataclasses.replace(plan, target_tps=target, slo_batch=8)
+    solver = planning.Planner(raw, cfg, slo_plan, base=base,
+                              tokens=planner._tokens, scores=planner._scores,
+                              act_scores=planner._act_scores)
+    t0 = time.perf_counter()
+    result = solver.solve()
+    t_solve = time.perf_counter() - t0
+    if result.spec.calibration != prov or not result.spec.solved:
+        fail("cost calibration: the SLO plan lost its calibration provenance")
+    log(f"[planner] auto:q4a8,slo={target:.1f} priced on the fitted machine "
+        f"(target = uniform 4a8's modeled tok/s on it at batch 8): solved in "
+        f"{t_solve:.3f} s to plan {result.spec.spec_hash}, modeled "
+        f"{result.cost.tokens_per_second:.1f} tok/s on the effective "
+        f"machine, meets_slo {result.meets_slo}, feasible "
+        f"{result.report.feasible}; plan.calibration carries the provenance "
+        f"(backend {prov['backend']!r})")
+    res["calibration"] = dict(
+        seconds=t_cal, backend=cal.backend, constants=cal.machine_overrides,
+        dispatch_cycles={f"{a}:{b}": v for (a, b), v in
+                         sorted(cal.dispatch_cycles.items())},
+        max_rel_err=cal.max_rel_err, mean_rel_err=cal.mean_rel_err,
+        stream_bytes_per_s=cal.dram_bw_measured, card=card_line(),
+        slo_target_effective_machine=target, slo_plan=result.spec.spec_hash,
+        slo_meets=result.meets_slo, slo_solve_seconds=t_solve)
+
+
+def phase_planner(rt):
+    import torch
+    from repro_torch import planning
+    from repro_torch.core import sensitivity as sens
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
+        quantize_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw = full_model(rt)
+    timer = Timer(torch)
+    base = QuantPolicy(**PLANNER_BASE)
+    res = rt["planner"] = {"solves": {}, "runs": {}, "step_device_ms": {}}
+
+    # (a) solve on the card
+    planner, r_a8 = solve_on_card(torch, planning.Planner, base, raw, cfg,
+                                  "auto:q4a8,kv=auto", res, "A8")
+    _, r_q4 = solve_on_card(torch, planning.Planner, base, raw, cfg,
+                            "auto:q4", res, "Q4")
+
+    # (b) serve what was solved, every launch held and counted by instance
+    prompts = engine_requests(cfg)
+    serve = lambda name, plan, **kw: serve_plan(
+        torch, lm, Engine, EngineConfig, raw, cfg, name, plan, prompts,
+        held=True, **kw)
+    paged = dict(kv_block_size=16, kv_pool_blocks=8 * 32, share_prefix=False)
+    for name, result in (("A8", r_a8), ("Q4", r_q4)):
+        eng, ring, res["runs"][f"{name} ring"] = serve(f"{name} ring",
+                                                       result.spec)
+        res["step_device_ms"][name] = step_device_ms(torch, timer, lm, eng,
+                                                     cfg)
+        del eng
+        if name == "A8":
+            eng, pg, res["runs"]["A8 paged"] = serve("A8 paged", result.spec,
+                                                     **paged)
+            del eng
+            same = sum(pg[u] == ring[u] for u in ring)
+            log(f"[planner] A8: {same} of 16 paged completions equal the "
+                "ring engine's")
+            if pg != ring:
+                fail("plan A8: paged tokens differ from the ring engine's")
+    log("[planner] one full-pool decode step (8 lanes), device time as a "
+        "CUDA graph: " + ", ".join(f"{n} {ms:.3f} ms" for n, ms in
+                                   res["step_device_ms"].items()))
+
+    # the solved plans on the card against the CPU, phase 3's prompts and
+    # steps: Q4 (f32 activations) end to end, as phase 6 holds plan S; A8
+    # launch by launch, as phase 3 holds uniform:4a8, beside the CPU
+    # against itself with f32-rounding-sized noise before each activation
+    # quantization (4-bit activation codes turn such noise into logit
+    # differences as large as the card's)
+    toks, lengths = model_prompts(cfg)
+    res["card_vs_cpu"] = {}
+    for name, result in (("Q4", r_q4), ("A8", r_a8)):
+        params, _, _ = quantize_params(raw, result.policy)
+        qkv = result.spec.kv_bits != 32
+        with Held(torch, f"{name} card vs CPU") as held:
+            gl, gt = run_greedy(torch, lm, params, cfg, toks, lengths, 4,
+                                "cuda", quant_kv=qkv)
+        torch.cuda.synchronize()
+        cpu_params = map_tensors(params, lambda t: t.cpu())
+        del params
+        cl, ct = run_greedy(torch, lm, cpu_params, cfg, toks, lengths, 4,
+                            "cpu", quant_kv=qkv)
+        err = (gl - cl).abs().max().item()
+        rec = dict(logits_err=err, tokens_equal=bool(torch.equal(gt, ct)),
+                   held=sum(held.calls.values()), held_err=dict(held.err))
+        noise = ""
+        if name == "A8":
+            pl = run_perturbed(torch, lm, cpu_params, cfg, toks, lengths)
+            rec["cpu_vs_cpu_with_noise_err"] = (pl - cl).abs().max().item()
+            noise = (f"; the CPU against itself with activations scaled by "
+                     f"1 + 1e-7 N(0, 1) before each quantization differs by "
+                     f"{rec['cpu_vs_cpu_with_noise_err']:.3e}")
+        del cpu_params
+        log(f"[planner] {name}: prefill [2, 48] + 4 decode steps, "
+            f"{'int8' if qkv else 'f32'} KV, card vs CPU: logits max abs err "
+            f"{err:.3e}; greedy tokens card {gt.T.tolist()} CPU "
+            f"{ct.T.tolist()}; all {rec['held']} LUT-GEMV launches of the "
+            f"card run within tolerance of their plain version on the same "
+            f"inputs (max abs err f32 {held.err['f32']:.3e}, int "
+            f"{held.err['int']:.3e}){noise}")
+        if not torch.isfinite(gl).all() or rec["held"] < 5 * 85:
+            fail(f"plan {name}: card logits not finite, or only "
+                 f"{rec['held']} LUT-GEMV launches held")
+        if name == "Q4" and not (rec["tokens_equal"] and torch.allclose(
+                gl, cl, rtol=MODEL_RTOL, atol=MODEL_ATOL)):
+            fail(f"plan Q4: card and CPU differ (logits {err:.3e}, tokens "
+                 f"equal {rec['tokens_equal']})")
+        res["card_vs_cpu"][name] = rec
+
+    # (c) probe parity at full width, 2 layers
+    probe_parity(torch, sens, raw, cfg, base, res)
+
+    # (d) live replan
+    live_replan(torch, planning, Engine, EngineConfig, raw, cfg, r_a8.spec,
+                planner, prompts, res)
+
+    # (e) the cost model refit on the card
+    cost_calibration(torch, planning, raw, cfg, base, planner, res)
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -1684,11 +2076,20 @@ def kernels_line(rt) -> dict:
             entry["launches_table"] = {
                 run: rt["paged"][run]["launches"]["decode_attention_table"]
                 for run in ("A", "B")}
-        if name.startswith("lut_matmul"):   # phase 6, per instance
+            # phase 7: the solved plans' engine runs, and the KV probe's
+            # decode steps over an f32 cache
+            entry["launches_planner"] = {
+                run: rec["launches"]["decode_attention"]
+                for run, rec in rt["planner"]["runs"].items()}
+            entry["launches_planner"]["kv probe (f32 KV)"] = \
+                rt["planner"]["solves"]["A8"]["kv"]["launches"][
+                    "decode_attention"]
+        if name.startswith("lut_matmul"):   # phases 6-7, per instance
             entry["launches_plans"] = {
                 run: {k: v for k, v in rec["instances"].items()
                       if ("a" in k) == (name == "lut_matmul_int")}
-                for run, rec in rt["plans"]["runs"].items()}
+                for run, rec in list(rt["plans"]["runs"].items())
+                + list(rt["planner"]["runs"].items())}
             entry["step_graph_ms_per_bits"] = {
                 f"b{b}": row["step_graph_ms"]
                 for b, row in rt["plans"]["lut_step_graph"].items()}
@@ -1721,7 +2122,8 @@ def main() -> int:
     t_all = time.perf_counter()
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("model", phase_model), ("engine", phase_engine),
-                     ("paged", phase_paged), ("plans", phase_plans)):
+                     ("paged", phase_paged), ("plans", phase_plans),
+                     ("planner", phase_planner)):
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
@@ -1730,7 +2132,7 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
         json.dump({"card": card_line(), "kernels": line["kernels"],
                    "engine": rt["engine"], "paged": rt["paged"],
-                   "plans": rt["plans"],
+                   "plans": rt["plans"], "planner": rt["planner"],
                    "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

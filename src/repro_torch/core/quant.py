@@ -151,16 +151,47 @@ def _erfinv(x):
     return np.sign(x) * np.sqrt(np.sqrt(t1 * t1 - ln1mx2 / a) - t1)
 
 
-# Elements of the [K/G, G, n, levels] distance tensor per argmin pass; the
-# columns are cut so scratch stays near 256 MB whatever N is (lm_head has
-# N = 32005).  The argmin is per element, so the cut changes no code.
+# Elements of the [K/G, G, n, levels] distance tensor per argmin pass (an
+# unsorted codebook); the columns are cut so scratch stays near 256 MB
+# whatever N is (lm_head has N = 32005).  The argmin is per element, so the
+# cut changes no code.
 _ARGMIN_CHUNK = 1 << 26
+
+
+def _nearest_codes(normed: torch.Tensor, codebook: torch.Tensor):
+    """Index of the codebook entry nearest each element, the first on ties
+    (the reference's argmin).  For a strictly increasing codebook (the
+    uniform and NF ones) only the two entries around an element's
+    insertion point can be nearest, so a binary search and one comparison
+    of the same f32 distances replace the full argmin; other codebooks
+    take the argmin in column chunks."""
+    levels = codebook.numel()
+    if levels > 1 and bool((codebook[1:] > codebook[:-1]).all()):
+        i = torch.searchsorted(codebook, normed.contiguous()).clamp_(
+            1, levels - 1)
+        lo, hi = codebook[i - 1], codebook[i]
+        return torch.where((normed - lo).abs() <= (normed - hi).abs(),
+                           i - 1, i)
+    k = normed.shape[0] * normed.shape[1]
+    cols = max(1, _ARGMIN_CHUNK // (k * levels))
+    return torch.cat([
+        (normed[:, :, j:j + cols, None] - codebook).abs().argmin(dim=-1)
+        for j in range(0, normed.shape[2], cols)], dim=2)
 
 
 def quantize(w: torch.Tensor, bits: int, group_size: int = 128,
              codebook: Optional[torch.Tensor] = None) -> QTensor:
     """Group-wise quantization of ``w[K, N]`` along K: per-group absmax
     scale, nearest codebook entry (first index on ties)."""
+    codes, scale, codebook = _group_codes(w, bits, group_size, codebook)
+    return QTensor(packed=pack_grouped(codes, bits, group_size),
+                   scales=scale, codebook=codebook, bits=bits,
+                   group_size=group_size, k=w.shape[0])
+
+
+def _group_codes(w: torch.Tensor, bits: int, group_size: int,
+                 codebook: Optional[torch.Tensor]):
+    """(codes [K, N], group scales [K/G, N], codebook) of ``quantize``."""
     if w.ndim != 2:
         raise ValueError(f"expected W[K, N], got shape {tuple(w.shape)}")
     k, n = w.shape
@@ -173,22 +204,30 @@ def quantize(w: torch.Tensor, bits: int, group_size: int = 128,
     scale = wg.abs().amax(dim=1)
     scale = torch.where(scale == 0, torch.ones_like(scale), scale)
     normed = wg / scale[:, None, :]
-    cols = max(1, _ARGMIN_CHUNK // (k * codebook.numel()))
-    codes = torch.cat([
-        (normed[:, :, j:j + cols, None] - codebook).abs().argmin(dim=-1)
-        for j in range(0, n, cols)], dim=2).reshape(k, n)
-    return QTensor(packed=pack_grouped(codes, bits, group_size),
-                   scales=scale, codebook=codebook, bits=bits,
-                   group_size=group_size, k=k)
+    return _nearest_codes(normed, codebook).reshape(k, n), scale, codebook
+
+
+def fake_quantize(w: torch.Tensor, bits: int, group_size: int = 128,
+                  codebook: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dequantize(quantize(w, ...))`` bit for bit, without packing the
+    codes (the Planner's probes run it per unit and candidate)."""
+    codes, scale, codebook = _group_codes(w, bits, group_size, codebook)
+    k, n = codes.shape
+    return _scale_codes(codebook[codes], scale, group_size, k, n)
+
+
+def _scale_codes(vals: torch.Tensor, scales: torch.Tensor, group_size: int,
+                 k: int, n: int) -> torch.Tensor:
+    vals = vals.reshape(k // group_size, group_size, n)
+    return (vals * scales[:, None, :]).reshape(k, n)
 
 
 def dequantize(qt: QTensor) -> torch.Tensor:
     """Reconstruct f32 ``W[K, N]`` — the plain version every kernel is
     held against."""
     codes = unpack_grouped(qt.packed, qt.bits, qt.group_size, qt.k)
-    vals = qt.codebook[codes]
-    vals = vals.reshape(qt.k // qt.group_size, qt.group_size, qt.n)
-    return (vals * qt.scales[:, None, :]).reshape(qt.k, qt.n)
+    return _scale_codes(qt.codebook[codes], qt.scales, qt.group_size, qt.k,
+                        qt.n)
 
 
 def quantize_activations(x: torch.Tensor, bits: int = 8):

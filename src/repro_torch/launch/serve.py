@@ -11,12 +11,15 @@ when CUDA is missing.
 
     # a plan: grammar string or a solved plan.json
     ... --plan 'rules:mlp=3,attn=5a8,default=4' --save-plan plan.json
-    ... --plan plan.json
-    # price the plan against a target decode tokens/s at --batch
-    ... --plan plan.json --slo 80
+    ... --plan plan.json          # reuse: no recalibration at startup
+    # an auto plan: the Planner probes the model and solves it at startup
+    ... --plan 'auto:q4a8,kv=auto' --save-plan plan.json
+    # SLO-driven: derive the cycle+DRAM budgets from a target tokens/s
+    ... --slo 80 --tap 512        # tap live traffic for later replans
 
-The modeled tokens/s it prints are the paper's SAIL machine's
-(``planning.DecodeCostModel``), not the card's.
+``--bit-policy`` remains as a deprecated alias routed through
+``PlanSpec.parse``.  The modeled tokens/s it prints are the paper's SAIL
+machine's (``planning.DecodeCostModel``), not the card's.
 """
 from __future__ import annotations
 
@@ -40,16 +43,26 @@ def main(argv=None) -> None:
     ap.add_argument("--no-quant-kv", action="store_true")
     ap.add_argument("--plan", default=None,
                     help="precision plan: a grammar string "
-                         "(uniform:<b>[a<ab>][,kv=8|32] | "
-                         "rules:<regex>=<b>[a<ab>],...[,default=<b>]) or a "
-                         "path to a solved plan.json (--save-plan writes "
-                         "one)")
+                         "(uniform:<b>[a<ab>] | rules:<regex>=<b>[a<ab>],"
+                         "... | auto:q<b>[a<ab>][,prt=...][,maxseg=<n>]"
+                         "[,slo=<tps>] | auto:<f>bpw) or a path to a "
+                         "plan.json written by --save-plan (solved plans "
+                         "serve without recalibration)")
     ap.add_argument("--slo", type=float, default=None,
-                    help="target decode tokens/s at --batch: prices the "
-                         "plan on the SAIL machine model and warns when it "
-                         "falls short")
+                    help="target decode tokens/s at --batch: auto plans "
+                         "derive their cycle AND DRAM-byte budgets from "
+                         "this instead of a fixed constant (implies "
+                         "auto:q<ql>a8,prt=measured when --plan is "
+                         "omitted)")
     ap.add_argument("--save-plan", default=None,
-                    help="write the engine's resolved plan JSON here")
+                    help="write the engine's (solved) plan JSON here")
+    ap.add_argument("--tap", type=int, default=0, metavar="ROWS",
+                    help="capture per-layer decode activations into an "
+                         "ActivationTap of this capacity (enables online "
+                         "PRT recalibration via Engine.replan)")
+    ap.add_argument("--bit-policy", default=None,
+                    help="DEPRECATED alias for --plan (grammar strings "
+                         "only)")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda")
@@ -71,7 +84,8 @@ def main(argv=None) -> None:
     plan = plan_from_arg(args.plan) if args.plan is not None else None
     eng = Engine(params, cfg, EngineConfig(
         batch_size=args.batch, cache_len=args.cache_len, ql=args.ql,
-        plan=plan, slo=args.slo,
+        plan=plan, slo=args.slo, tap_capacity=args.tap,
+        bit_policy=args.bit_policy,
         group_size=(args.group_size if args.group_size is not None
                     else min(128, cfg.d_model)),
         quant_kv=not args.no_quant_kv), device=dev)
@@ -116,6 +130,10 @@ def main(argv=None) -> None:
               f"{st['planned_tps']:.0f} tok/s at the full pool (raw drift "
               f"{st['drift']:+.3f}: a comparison of two machines, not a "
               "calibration check)")
+    if eng.tap is not None:
+        print(f"tap: {st['tapped_rows']} activation rows captured across "
+              f"{eng.tap.n_layers} layers (Engine.replan() recalibrates "
+              f"measured PRT discounts from them)")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Causal language model serving path (port of ``repro.models.lm``,
-dense family, ring and paged KV pools): init, prefill, decode.
+dense family, ring and paged KV pools): init, the full-sequence forward,
+prefill, decode.
 
 A Python loop over layers replaces the reference's ``lax.scan``; the
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
@@ -89,6 +90,21 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return mm(x, params["lm_head"])
+
+
+def forward(params, tokens, cfg: ModelConfig, device="cuda"):
+    """tokens [B, T] -> (logits [B, T, V], aux): the full-sequence causal
+    forward with no cache (the Planner's probes run it).  Dense family
+    only, so ``aux`` (the reference's MoE loss) is 0."""
+    dev = resolve_device(device)
+    tokens = _tokens(tokens, dev)
+    x = embed_tokens(params, tokens, cfg)
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=dev).expand(b, t)
+    for _, p_l in iter_layers(params):
+        x, _ = blk.block_apply_seq(p_l, x, cfg, positions)
+    x = apply_norm(params["final_norm"], x, cfg)
+    return lm_logits(params, x, cfg), 0.0
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -249,7 +265,8 @@ def prefill_into_blocks(params, tokens, cache, slots, phys, offs,
 
 def decode_step(params, tokens, cache, cfg: ModelConfig,
                 quant_kv: bool = False, active_mask=None, device="cuda",
-                block_tables: Optional[torch.Tensor] = None):
+                block_tables: Optional[torch.Tensor] = None,
+                capture_layer_inputs: bool = False):
     """One decode step: tokens [B, 1] -> (logits [B, V], cache).
 
     The cache is updated in place.  ``active_mask`` [B] bool: retired
@@ -261,7 +278,11 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
     block ``block_tables[i, j]``, and the lane's logical ``cache_len`` is
     ``mbs * block_size``.  Paged lanes never wrap (the engine refuses
     requests longer than that), so the ring validity rule holds; retired
-    lanes' rows point at the trash block."""
+    lanes' rows point at the trash block.
+
+    ``capture_layer_inputs``: also return each layer's block input
+    ([n_layers, B, 1, D], a third result), the vectors the DFM's Pattern
+    Reuse Table would see; the engine feeds them to an ``ActivationTap``."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     position = cache["length"]
@@ -272,7 +293,10 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
         # shape[2] of a [L, NB, BS, KV, Dh] pool is the block size
         write_at = blk.paged_slot(block_tables, position, cache_len)
         cache_len = block_tables.shape[1] * cache_len
+    captured = []
     for i, p_l in iter_layers(params):
+        if capture_layer_inputs:
+            captured.append(x)
         layer_cache = {name: a[i] for name, a in cache["layers"].items()}
         x = blk.block_apply_decode(p_l, x, cfg,
                                    layer_cache, position, cache_len,
@@ -286,6 +310,8 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
     else:
         mask = torch.as_tensor(active_mask, device=dev).to(torch.int32)
         cache["length"] = position + mask
+    if capture_layer_inputs:
+        return logits, cache, torch.stack(captured)
     return logits, cache
 
 

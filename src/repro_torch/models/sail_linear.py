@@ -17,8 +17,11 @@ joint (wbits, abits) assignment: ``params["blocks"]`` becomes a list of
 stacked trees that ``models.lm`` walks back to back.  Each quantized
 leaf carries its own ``bits`` and ``abits``, so ``mm`` needs nothing
 else: every call launches the LUT-GEMV instance of its leaf's pair.
-The reference's sensitivity probes (``ActQuantWeight``,
-``act_fake_quant``) wait for the Planner slice (ROADMAP, Queue 1 item 2).
+
+Fake-quant survives only as the Planner's calibration probe: an
+``ActQuantWeight`` wraps a plain weight whose matmul inputs ``mm``
+quantizes per token (``act_fake_quant``) behind a per-layer gate, so one
+forward probes one layer of a stack.
 """
 from __future__ import annotations
 
@@ -32,13 +35,53 @@ import torch
 from repro_torch.core.quant import (SUPPORTED_ABITS, SUPPORTED_BITS, QTensor,
                                     _uniform_codebook, nf_codebook, quantize)
 
-__all__ = ["BitAllocation", "QTensor", "QuantPolicy", "StackedQTensor", "mm",
-           "nf_codebook", "quantize_params", "map_tensors",
-           "flatten_with_paths"]
+__all__ = ["ActQuantWeight", "BitAllocation", "QTensor", "QuantPolicy",
+           "StackedQTensor", "act_fake_quant", "mm", "nf_codebook",
+           "quantize_params", "map_tensors", "flatten_with_paths"]
+
+
+def act_fake_quant(x: torch.Tensor, abits: int) -> torch.Tensor:
+    """Per-token activation quantize->dequantize at ``abits``: the error a
+    SAIL matmul serving ``abits`` activations sees on its inputs (any
+    leading shape; the last axis is the token's feature vector)."""
+    from repro_torch.core.quant import quantize_activations
+    xq, xs = quantize_activations(x, abits)
+    return (xq.to(torch.float32) * xs).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class ActQuantWeight:
+    """Probe wrapper: a plain weight whose *matmul inputs* are quantized.
+
+    ``activation_sensitivity`` uses it to measure the error of quantizing
+    one unit's activations at ``abits`` while everything else stays at the
+    baseline.  ``gate`` (a scalar tensor, or ``[L]`` for a stacked weight)
+    turns the fake-quant on per layer; indexing a stacked probe slices the
+    weight and the gate together, as the reference's scan does."""
+    w: torch.Tensor
+    gate: torch.Tensor
+    abits: int
+
+    def __getitem__(self, i) -> "ActQuantWeight":
+        return ActQuantWeight(w=self.w[i], gate=self.gate[i],
+                              abits=self.abits)
+
+
+def _apply_act_quant(x: torch.Tensor, w: Any):
+    """Unwrap an ``ActQuantWeight`` probe: the gate-blended fake-quant
+    ``x + gate * (fq - x)`` (the reference's arithmetic, so gate 0 leaves x
+    bit-equal).  Returns the (possibly probed) activations and the plain
+    weight."""
+    if isinstance(w, ActQuantWeight):
+        fq = act_fake_quant(x, w.abits)
+        x = x + w.gate.to(x.dtype) * (fq - x)
+        w = w.w
+    return x, w
 
 
 def mm(x: torch.Tensor, w: Any) -> torch.Tensor:
     """x [..., K] @ w [K, N] with QTensor dispatch."""
+    x, w = _apply_act_quant(x, w)
     if isinstance(w, QTensor):
         from repro_torch.kernels.lut_gemv.ops import lut_matmul
         lead = x.shape[:-1]

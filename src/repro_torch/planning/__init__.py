@@ -1,21 +1,22 @@
 """Precision planning (port of ``repro.planning``): the front door for
 mixed-precision serving.
 
-``PlanSpec`` (the typed plan, ``spec.py``) and ``DecodeCostModel`` (the
-paper's SAIL machine's pricing, ``cost.py``), with ``as_plan`` /
-``plan_from_arg`` / ``resolve_plan`` for every plan that needs no
-calibration: ``uniform:``, ``rules:`` and *solved* ``auto`` plans (a
-``plan.json`` with its per-unit allocation).  The Planner that solves an
-``auto`` plan (sensitivity probes, the joint solve, ``kv=auto``,
-``draft=auto``, ``tp=auto``), the activation tap and the cost model's
-refit to the card wait for the Planner slice (ROADMAP, Queue 1 item 2).
+``PlanSpec`` (the typed plan, ``spec.py``), ``DecodeCostModel`` (the
+paper's SAIL machine's pricing, ``cost.py``), ``Planner`` (sensitivity
+probes, the budgeted solve, SLO budgets, ``kv=auto``, ``tp=auto``, online
+replan; ``planner.py``), ``ActivationTap`` (live-traffic capture,
+``tap.py``) and ``run_calibration`` (the cost model refit to timings on
+this host, ``calibrate_cost.py``), with ``as_plan`` / ``plan_from_arg`` /
+``resolve_plan``.  Not ported yet: ``draft=`` plans (speculative decoding)
+and serving ``tp > 1`` (ROADMAP, Queue 1 item 3).
 """
 from __future__ import annotations
 
-import dataclasses
 import os
 from typing import Any, Mapping, Optional
 
+from repro_torch.planning.calibrate_cost import (CalibrationResult,
+                                                 run_calibration)
 from repro_torch.planning.cost import (
     DEFAULT_LINK_BW,
     Budgets,
@@ -34,10 +35,15 @@ from repro_torch.planning.cost import (
     tp_allreduce_elems,
     unquantized_bytes,
 )
+from repro_torch.planning.planner import (Planner, PlanResult,
+                                         plan_cost_model)
 from repro_torch.planning.spec import DraftSpec, PlanRule, PlanSpec
+from repro_torch.planning.tap import ActivationTap
 
 __all__ = [
+    "ActivationTap",
     "Budgets",
+    "CalibrationResult",
     "DEFAULT_LINK_BW",
     "DecodeCostModel",
     "DraftSpec",
@@ -45,6 +51,7 @@ __all__ = [
     "PlanResult",
     "PlanRule",
     "PlanSpec",
+    "Planner",
     "Slo",
     "as_plan",
     "calib_for_layer",
@@ -58,24 +65,11 @@ __all__ = [
     "plan_cost_model",
     "policy_units",
     "resolve_plan",
+    "run_calibration",
     "speculative_round_seconds",
     "tp_allreduce_elems",
     "unquantized_bytes",
 ]
-
-_PLANNER = ("is not ported yet: it needs the Planner (sensitivity probes and "
-            "the joint solve; ROADMAP, Queue 1 item 2)")
-
-
-@dataclasses.dataclass
-class PlanResult:
-    """One servable plan: the spec (source of truth), its policy, and its
-    modeled cost on the SAIL machine when asked for (the reference's
-    ``planner.PlanResult`` without the solver's diagnostics)."""
-
-    spec: PlanSpec
-    policy: Any
-    cost: Optional[PlanCost] = None
 
 
 def plan_from_arg(value: Any) -> PlanSpec:
@@ -103,19 +97,15 @@ def as_plan(obj: Any) -> PlanSpec:
 
 
 def check_servable(plan: PlanSpec) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP) for a plan the port
-    cannot serve yet: an unsolved one (``auto`` without its allocation,
-    ``kv=auto``, ``draft=auto``, ``tp=auto``) needs the Planner; a
-    concrete ``draft`` needs speculative decoding and ``tp > 1`` tensor
-    parallelism."""
-    for what, unsolved in (("an unsolved auto plan", plan.mode == "auto"
-                            and plan.weights_per_unit is None),
-                           ("kv=auto", plan.kv_bits == "auto"),
-                           ("draft=auto", plan.draft == "auto"),
-                           ("tp=auto", plan.tp == "auto")):
-        if unsolved:
-            raise NotImplementedError(f"plan {plan.format()!r}: {what} "
-                                      f"{_PLANNER}")
+    """Raise ``NotImplementedError`` (naming its ROADMAP item) for a plan
+    the port cannot serve: a ``draft`` (concrete or ``auto``) needs
+    speculative decoding and an integer ``tp > 1`` tensor-parallel
+    serving.  Unsolved plans (``auto`` modes, ``kv=auto``, ``tp=auto``)
+    serve: ``resolve_plan`` runs the Planner on them."""
+    if plan.draft == "auto":
+        raise NotImplementedError(
+            f"plan {plan.format()!r}: draft=auto needs speculative decoding "
+            "(its acceptance probe), not ported yet (ROADMAP, Queue 1 item 3)")
     if plan.draft is not None:
         raise NotImplementedError(
             f"plan {plan.format()!r}: a draft plan needs speculative "
@@ -126,35 +116,29 @@ def check_servable(plan: PlanSpec) -> None:
             "serving, not ported yet (ROADMAP, Queue 1 item 3)")
 
 
-def plan_cost_model(plan: PlanSpec, **kw) -> DecodeCostModel:
-    """The DecodeCostModel a plan is priced with: its PRT mode and NBW,
-    and its fitted machine when it carries calibration provenance."""
-    kw = dict(kw, prt=False if plan.prt == "off" else plan.prt, nbw=plan.nbw)
-    if plan.calibration is not None:
-        kw["machine"] = machine_from_json(plan.calibration)
-        disp = dispatch_from_json(plan.calibration)
-        if disp is not None:
-            kw["dispatch_cycles"] = disp
-    return DecodeCostModel(**kw)
-
-
 def resolve_plan(plan: Any, params, cfg, base=None, slo: Optional[Slo] = None,
+                 cost: Optional[DecodeCostModel] = None, tokens=None,
                  compute_cost: bool = False) -> PlanResult:
-    """Plan -> servable PlanResult, for plans that need no calibration:
-    uniform and rules plans and *solved* auto plans resolve directly.
-    Anything that needs the Planner raises ``NotImplementedError``
-    (``check_servable``).  ``compute_cost`` prices the result on the SAIL
-    machine model, at ``slo.batch`` when an SLO is given."""
-    from repro_torch.models.sail_linear import QuantPolicy
+    """Plan -> servable PlanResult.
+
+    Uniform and rules plans and *solved* auto plans (e.g. a ``plan.json``)
+    resolve directly, with no calibration.  Unsolved plans run a
+    :class:`Planner` on ``params`` (sensitivity probes and the budgeted
+    solve on the device ``params`` live on, honouring ``slo`` /
+    ``plan.target_tps``).  ``compute_cost`` prices a solved plan on the
+    SAIL machine model (an unsolved one is always priced by its solve).
+    Plans the port cannot serve raise ``NotImplementedError``
+    (``check_servable``), before and after the solve (``tp=auto`` under an
+    SLO may price more than one shard)."""
     plan = as_plan(plan)
     check_servable(plan)
-    base = base or QuantPolicy(bits=plan.weight_bits or 4,
-                               group_size=plan.group_size or 128,
-                               min_size=plan.min_size or 65536)
-    policy = plan.to_policy(base)
-    cost = None
-    if compute_cost:
-        model = plan_cost_model(
-            plan, **({"batch": slo.batch} if slo is not None else {}))
-        cost = model.evaluate(params, policy)
-    return PlanResult(spec=plan, policy=policy, cost=cost)
+    planner = Planner(params, cfg, plan, base=base, cost=cost, tokens=tokens)
+    if plan.solved:
+        policy = plan.to_policy(planner.base)
+        return PlanResult(
+            spec=plan, policy=policy,
+            cost=planner._price(policy, plan, None, slo) if compute_cost
+            else None)
+    result = planner.solve(slo=slo)
+    check_servable(result.spec)
+    return result

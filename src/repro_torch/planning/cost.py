@@ -4,10 +4,11 @@
 It prices plans on the paper's SAIL machine (``core.cost_model``: CPU
 plus C-SRAM at 3 GHz over 204.8 GB/s DDR4), not on the H100 the port
 serves on: ``planned_tps`` and ``drift`` in ``Engine.stats()`` are that
-modeled machine's figures.  Refitting the constants to the card is the
-reference's ``planning/calibrate_cost.py``'s job, not ported yet
-(ROADMAP, Queue 1 item 2); ``machine_from_json`` / ``dispatch_from_json``
-read a plan's fitted constants when it carries them.
+modeled machine's figures.  ``planning.calibrate_cost`` refits its
+constants to timings taken on this host (an effective SAIL machine, still
+not the card's LUT-GEMV speed); ``machine_from_json`` /
+``dispatch_from_json`` read a plan's fitted constants when it carries
+them.
 
 Consolidates the cost primitives that used to be wired together ad hoc
 (``mixed_decode_cycles`` / ``resolve_prt_discount`` / ``best_nbw_for_unit``)
@@ -556,8 +557,14 @@ def dispatch_from_json(
     disp = calibration.get("dispatch_cycles")
     if not disp:
         return None
+    return tuple(sorted(parse_dispatch(disp).items()))
+
+
+def parse_dispatch(disp: Mapping[Any, Any]) -> Dict[Tuple[int, int], float]:
+    """JSON ``"nbw:abits" -> cycles`` mapping (or in-memory tuple keys)
+    back to the ``{(nbw, abits): cycles}`` form."""
     out: Dict[Tuple[int, int], float] = {}
     for key, v in disp.items():
         nbw, ab = key.split(":") if isinstance(key, str) else key
         out[(int(nbw), int(ab))] = float(v)
-    return tuple(sorted(out.items()))
+    return out

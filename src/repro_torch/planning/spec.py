@@ -11,8 +11,7 @@ precision configuration:
   * the *solution*: per-unit weight/activation bit assignments filled in
     by a Planner — a solved plan rebuilds its ``QuantPolicy`` (and
     therefore the exact mixed parameter tree) without re-running
-    calibration.  The port serves solved plans; the Planner that solves
-    ``auto`` plans waits (ROADMAP, Queue 1 item 2).
+    calibration (``planning.planner.Planner`` solves an ``auto`` plan).
 
 The string grammar is a thin :meth:`PlanSpec.parse` /
 :meth:`PlanSpec.format` layer over it.
@@ -607,8 +606,8 @@ class PlanSpec:
         if extra:
             raise ValueError(
                 f"unsupported legacy bit_policy keys {sorted(extra)} — these "
-                "solver options belong to the Planner (ROADMAP, Queue 1 "
-                "item 2)"
+                "solver options moved to repro_torch.planning.Planner / "
+                "repro_torch.core.sensitivity.calibrate_policy"
             )
         if mode == "uniform":
             return PlanSpec(
@@ -660,8 +659,8 @@ class PlanSpec:
         base = base or QuantPolicy()
         if not self.solved:
             raise ValueError(
-                "auto plan has no solved allocation; the Planner that "
-                "solves it is not ported yet (ROADMAP, Queue 1 item 2)"
+                "auto plan has no solved allocation — use repro_torch."
+                "planning.Planner.solve (or Engine/resolve_plan, which run it)"
             )
         kw: Dict[str, Any] = {
             "group_size": self.group_size if self.group_size is not None else base.group_size,

@@ -26,18 +26,29 @@ kernel's table mode); the table goes to the card once per step.
 
 Weights are SAIL-quantized from ``ql``/``group_size``/``min_size``, or
 from a precision ``plan`` (``planning.PlanSpec``, a grammar string or a
-plan JSON dict): ``uniform:``, ``rules:`` or a solved ``auto`` plan, whose
-per-layer allocation serves as a segmented layer stack.  KV is int8 when
-``quant_kv``, unless the plan sets ``kv=8|32``, which overrides it for
-the ring pool, the paged pool and the pool's byte pricing.  ``stats()``
-reports the plan's hash and mode and its ``planned_tps`` / ``drift``:
-those are the paper's SAIL machine's modeled figures
-(``planning.DecodeCostModel``), not the card's.  Sampling is greedy.  Not
-ported yet (ROADMAP): the Planner (unsolved ``auto`` plans, ``kv=auto``)
-and controller (with the paged pool's free-block cap), the deprecated
-``bit_policy`` surface, taps, speculation (with its paged verify), tensor
-parallelism (with its paged prefill), run-to-completion mode, unquantized
-serving and temperature sampling.
+plan JSON dict): ``uniform:``, ``rules:``, a solved ``auto`` plan (a
+``plan.json``), or an unsolved one (``auto:q<b>[a<ab>]...``,
+``auto:<f>bpw``, ``kv=auto``, ``tp=auto``), which the Planner solves at
+construction from sensitivity probes run on this engine's device; a bare
+``slo`` solves ``auto:q<ql>a8,prt=measured`` against it.  A per-layer
+allocation serves as a segmented layer stack.  KV is int8 when
+``quant_kv``, unless the plan sets ``kv=8|32`` (or the Planner resolves
+``kv=auto``), which overrides it for the ring pool, the paged pool and
+the pool's byte pricing.  With ``tap_capacity > 0`` an ``ActivationTap``
+captures each decode step's per-layer block inputs (dead lanes dropped),
+and ``replan()`` re-prices the plan under PRT hit rates measured on them
+(``resolve=True`` re-solves it) and ``apply_plan`` swaps the requantized
+weights in between steps, under the running KV pool and requests.
+``stats()`` reports the plan's hash and mode, ``replan_count``,
+``prt_hit_rate`` and its ``planned_tps`` / ``drift``: those are the
+paper's SAIL machine's modeled figures (``planning.DecodeCostModel``), or
+this host's effective SAIL machine when the plan carries a
+``calibrate_cost`` fit (``plan_calibrated``), never the card's.  Sampling
+is greedy.  Not ported yet (ROADMAP, Queue 1 item 3): the controller
+(with the paged pool's free-block cap), speculation and ``draft`` plans
+(with the paged verify), tensor parallelism (``tp > 1``, with its paged
+prefill), run-to-completion mode, unquantized serving and temperature
+sampling.
 """
 from __future__ import annotations
 
@@ -67,14 +78,30 @@ class EngineConfig:
     group_size: int = 128
     quant_kv: bool = True
     min_size: int = 1024           # quantize tensors >= this many elements
-    # Precision plan: a planning.PlanSpec (e.g. loaded from a plan.json),
-    # a grammar string ("uniform:<b>[a<ab>][,kv=8|32]",
-    # "rules:<regex>=<b>[a<ab>],...,default=<b>[a<ab>]"), or a PlanSpec
-    # JSON dict.  Auto plans must arrive solved.
+    # Precision plan: a planning.PlanSpec (possibly solved / loaded from a
+    # plan.json), a grammar string ("uniform:<b>[a<ab>][,kv=8|32|auto]",
+    # "rules:<regex>=<b>[a<ab>],...,default=<b>[a<ab>]",
+    # "auto:q<b>[a<ab>][,prt=...][,maxseg=<n>][,slo=<tps>]",
+    # "auto:<f>bpw"), or a PlanSpec JSON dict.  Unsolved plans run the
+    # Planner at engine construction.
     plan: Any = None
-    # target decode tokens/s at ``batch_size``: prices a solved plan
-    # against it on the SAIL machine model (a warning when it falls short)
+    # target decode tokens/s at ``batch_size`` on the SAIL machine model:
+    # makes an auto ``plan`` an SLO solve (cycle AND byte budgets from the
+    # target) and prices a solved one against it (a warning when it falls
+    # short); set without ``plan`` it implies "auto:q<ql>a8,prt=measured"
     slo: Optional[float] = None
+    # >0 attaches a planning.ActivationTap of that row capacity: every
+    # ``tap_every``-th decode iteration's per-layer block inputs are
+    # captured for online PRT recalibration (Engine.replan)
+    tap_capacity: int = 0
+    tap_every: int = 1
+    # keep the raw f32 weights resident so apply_plan/replan can
+    # requantize mid-serve: None retains them exactly when a tap is
+    # attached; True for tap-less swaps, False to free them (replan raises)
+    retain_raw: Optional[bool] = None
+    # DEPRECATED legacy surface (use ``plan``): None, QuantPolicy, policy
+    # spec dict, or grammar string
+    bit_policy: Any = None
     eos_token: int = -1            # -1: never stop early
     prefill_budget: Optional[int] = None  # new prefill tokens per iteration
     prompt_bucket: int = 16        # prompts padded to a multiple
@@ -105,10 +132,28 @@ class Engine:
         self.cfg = cfg
         self.ecfg = ecfg
         self.slo: Optional[planning.Slo] = None
+        self.plan_report = None
+        self.replan_count = 0
+        self.prt_hit_rate: Optional[float] = None
+        self.tap: Optional[planning.ActivationTap] = None
+        if ecfg.plan is not None and ecfg.bit_policy is not None:
+            raise ValueError("pass plan= OR the deprecated bit_policy=, "
+                             "not both")
+        if ecfg.slo is not None and ecfg.bit_policy is not None:
+            raise ValueError("slo= requires plan= — the deprecated "
+                             "bit_policy surface has no SLO semantics "
+                             "and would silently ignore the target")
+        if ecfg.tap_capacity > 0:
+            self.tap = planning.ActivationTap(ecfg.tap_capacity,
+                                              ecfg.tap_every)
+        # the raw tree on this engine's device: the Planner's probes run
+        # on it, and apply_plan requantizes it
+        params = map_tensors(params, lambda t: t.to(self.device))
         self._resolve_plan(params)
-        self.params, b0, b1 = quantize_params(
-            map_tensors(params, lambda t: t.to(self.device)),
-            self.quant_policy)
+        retain = (ecfg.retain_raw if ecfg.retain_raw is not None
+                  else self.tap is not None)
+        self._raw_params = params if retain else None
+        self.params, b0, b1 = quantize_params(params, self.quant_policy)
         self.compression = b0 / max(b1, 1)
         # KV precision: a concrete plan kv_bits overrides quant_kv; the
         # pool's dtype is fixed from here on
@@ -151,24 +196,24 @@ class Engine:
             self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
                                        self._quant_kv, device=self.device)
 
+    def _base_policy(self) -> QuantPolicy:
+        return QuantPolicy(bits=self.ecfg.ql, group_size=self.ecfg.group_size,
+                           min_size=self.ecfg.min_size)
+
     def _resolve_plan(self, params) -> None:
-        """The served plan and its policy, priced while the raw tree is in
-        hand (units and fixed bytes behind ``planned_tps``)."""
+        """The served plan and its policy (an unsolved plan is solved here,
+        on ``params``), priced while the raw tree is in hand (units and
+        fixed bytes behind ``planned_tps``)."""
         ecfg = self.ecfg
-        base = QuantPolicy(bits=ecfg.ql, group_size=ecfg.group_size,
-                           min_size=ecfg.min_size)
+        base = self._base_policy()
         plan_in = ecfg.plan
-        if plan_in is None and ecfg.slo is not None:
-            # a bare SLO asks for the reference's joint SLO solve, which
-            # resolve_plan refuses (the Planner is not ported)
+        if plan_in is None and ecfg.bit_policy is None \
+                and ecfg.slo is not None:
+            # a bare SLO: the joint SLO solve anchored at the engine's ql
             plan_in = planning.PlanSpec(mode="auto", weight_bits=ecfg.ql,
                                         act_bits=8, prt="measured",
                                         quant_kv=ecfg.quant_kv)
-        if plan_in is None:
-            policy = base
-            self.plan = planning.PlanSpec.from_policy(
-                policy, quant_kv=ecfg.quant_kv)
-        else:
+        if plan_in is not None:
             plan = planning.as_plan(plan_in)
             # an SLO is quoted at this engine's decode batch
             target = ecfg.slo if ecfg.slo is not None else plan.target_tps
@@ -176,18 +221,38 @@ class Engine:
                 self.slo = planning.Slo(target, batch=ecfg.batch_size)
             result = planning.resolve_plan(
                 plan, params, self.cfg, base=base, slo=self.slo,
-                compute_cost=self.slo is not None)
-            if (self.slo is not None and result.cost.tokens_per_second
+                compute_cost=plan.solved and self.slo is not None)
+            if (self.slo is not None and result.cost is not None
+                    and result.cost.tokens_per_second
                     < self.slo.target_tps * (1 - 1e-9)):
+                feas = getattr(result.report, "feasible", True)
                 warnings.warn(
-                    f"plan {plan.spec_hash} models "
+                    f"plan {result.spec.spec_hash} models "
                     f"{result.cost.tokens_per_second:.1f} tok/s on the SAIL "
                     f"machine at batch {self.slo.batch}, below the requested "
-                    f"SLO of {self.slo.target_tps:.1f}; lower the target, "
-                    "raise the batch, or serve a cheaper plan",
-                    UserWarning, stacklevel=3)
+                    f"SLO of {self.slo.target_tps:.1f}"
+                    + ("" if feas else " (solver budgets infeasible even at "
+                       "minimum precision)")
+                    + "; lower the target, raise the batch, or serve a "
+                    "cheaper plan", UserWarning, stacklevel=3)
             policy = result.policy
             self.plan = result.spec
+            self.plan_report = result.report
+        elif ecfg.bit_policy is not None:
+            warnings.warn(
+                "EngineConfig.bit_policy is deprecated; use "
+                "EngineConfig.plan (a repro_torch.planning.PlanSpec, "
+                "grammar string, or plan JSON)", DeprecationWarning,
+                stacklevel=3)
+            from repro_torch.core.sensitivity import _resolve_policy_like
+            policy = _resolve_policy_like(ecfg.bit_policy, params, self.cfg,
+                                          base)
+            self.plan = planning.PlanSpec.from_policy(
+                policy, quant_kv=ecfg.quant_kv)
+        else:
+            policy = base
+            self.plan = planning.PlanSpec.from_policy(
+                policy, quant_kv=ecfg.quant_kv)
         self.quant_policy = policy
         self._plan_units = planning.policy_units(params, policy)
         self._plan_fixed_bytes = planning.unquantized_bytes(params, policy)
@@ -264,12 +329,21 @@ class Engine:
                 # the previous step's copy has finished: _sample synced
                 self._tables_dev.copy_(self._tables_host, non_blocking=True)
                 tables = self._tables_dev
-            logits, self.cache = lm.decode_step(
+            capture = (self.tap is not None
+                       and self.tap.should_capture(self.decode_iterations))
+            out = lm.decode_step(
                 self.params, self._cur[:, None], self.cache, self.cfg,
                 quant_kv=self._quant_kv, active_mask=mask,
-                device=self.device, block_tables=tables)
+                device=self.device, block_tables=tables,
+                capture_layer_inputs=capture)
+            if capture:
+                logits, self.cache, layer_inputs = out
+                self.tap.observe(layer_inputs, mask)
+            else:
+                logits, self.cache = out
             nxt = self._sample(logits)
             # _sample copies to the host, so dt covers the whole iteration
+            # (and any tap capture's copy)
             dt = time.perf_counter() - t0
             self.iterations += 1
             self.decode_iterations += 1
@@ -519,6 +593,109 @@ class Engine:
             return None
         return self._decode_tokens / self.modeled_seconds
 
+    # --- live replanning ----------------------------------------------------
+    def _tapped_hit_rate(self) -> Optional[float]:
+        """PRT hit rate of the tapped traffic at the served plan's
+        operating point (compare with the rate the plan was priced at)."""
+        if self.tap is None:
+            return None
+        calib = self.tap.calib()
+        if calib is None:
+            return None
+        from repro_torch.core import cost_model as cm
+        from repro_torch.core import pattern
+        merged = calib.get(None) if isinstance(calib, dict) else calib
+        wbits = (self.plan.weight_bits if self.plan.weight_bits is not None
+                 else self.ecfg.ql)
+        abits = self.plan.act_bits if self.plan.act_bits is not None else 8
+        nbw = self.plan.nbw
+        if not isinstance(nbw, int):
+            k = int(merged.shape[-1])
+            nbw = cm.best_nbw_for_unit(k, k, wbits, abits,
+                                       batch=self.ecfg.batch_size)
+        return pattern.prt_hit_rate(nbw, abits, merged)
+
+    def apply_plan(self, plan, force_requantize: bool = False) -> None:
+        """Swap the engine onto a new (solved) plan between steps.
+
+        Requantizes the retained raw weights under the plan's policy and
+        swaps the parameter tree; the KV pool, the block tables, the
+        scheduler and every in-flight request stay, so decoding continues
+        without dropping a token.  Accepts a PlanSpec, grammar string /
+        JSON, or a ``Planner`` ``PlanResult``.  A plan whose policy is the
+        one served skips the requantization unless ``force_requantize``.
+        KV precision and shard count are fixed at construction: a plan
+        asking for others warns and serves on.
+        """
+        if self._raw_params is None:
+            raise ValueError("apply_plan needs the raw weights resident — "
+                             "construct the engine with retain_raw=True "
+                             "(or a tap attached)")
+        hit = None
+        report = None
+        if isinstance(plan, planning.PlanResult):
+            hit = plan.measured_prt_hit_rate
+            spec, policy, report = plan.spec, plan.policy, plan.report
+        else:
+            spec = planning.as_plan(plan)
+            planning.check_servable(spec)
+            policy = spec.to_policy(self._base_policy())
+        if isinstance(spec.kv_bits, int) and spec.kv_bits != self.kv_bits:
+            warnings.warn(
+                f"plan requests kv_bits={spec.kv_bits} but the KV pool "
+                f"was allocated {self.kv_bits}-bit at construction — KV "
+                "precision cannot hot-swap under in-flight requests; "
+                "rebuild the engine to change it", UserWarning,
+                stacklevel=2)
+        if isinstance(spec.tp, int) and spec.tp != 1:
+            warnings.warn(
+                f"plan requests tp={spec.tp} but the engine serves tp=1 "
+                "(tensor-parallel serving is not ported: ROADMAP, Queue 1 "
+                "item 3)", UserWarning, stacklevel=2)
+        if force_requantize or policy != self.quant_policy:
+            self.params, b0, b1 = quantize_params(self._raw_params, policy)
+            self.compression = b0 / max(b1, 1)
+        self.quant_policy = policy
+        self.plan = spec
+        # the report tracks the plan actually served
+        self.plan_report = report
+        self.replan_count += 1
+        if hit is not None:
+            self.prt_hit_rate = hit
+        # re-price: the swapped plan has its own units
+        self._plan_units = planning.policy_units(self._raw_params, policy)
+        self._plan_fixed_bytes = planning.unquantized_bytes(
+            self._raw_params, policy)
+        self._iter_cache.clear()
+        if spec.target_tps is not None:
+            self.slo = planning.Slo(spec.target_tps,
+                                    batch=spec.slo_batch
+                                    or self.ecfg.batch_size)
+
+    def replan(self, planner=None, resolve: bool = False):
+        """Online recalibration from live traffic: feed the tap's captured
+        per-layer batches to ``Planner.replan`` (measured PRT discounts;
+        ``resolve=True`` re-solves the allocation, on this engine's device)
+        and swap the result in with :meth:`apply_plan`.  Pass a
+        ``planner`` to reuse its cached probes across replans; otherwise a
+        fresh one wraps the served plan.  Returns the ``PlanResult``."""
+        if self.tap is None:
+            raise ValueError("no ActivationTap attached — set "
+                             "EngineConfig.tap_capacity > 0")
+        if self._raw_params is None:
+            raise ValueError("replan needs the raw weights resident — "
+                             "construct the engine with retain_raw=True "
+                             "(or rely on the tap default)")
+        if planner is None:
+            planner = planning.Planner(self._raw_params, self.cfg, self.plan,
+                                       base=self._base_policy())
+            planner.last = planning.PlanResult(
+                spec=self.plan, policy=self.quant_policy,
+                report=self.plan_report)
+        result = planner.replan(self.tap, resolve=resolve)
+        self.apply_plan(result)
+        return result
+
     def stats(self) -> Dict[str, Any]:
         lats = [c.latency_s for c in self.completions.values()]
         ttfts = [c.ttft_s for c in self.completions.values()]
@@ -552,6 +729,10 @@ class Engine:
                 "plan_hash": self.plan.spec_hash,
                 "plan_mode": self.plan.mode,
                 "plan_calibrated": self.plan.calibration is not None,
+                "replan_count": self.replan_count,
+                "prt_hit_rate": self.prt_hit_rate,
+                "tapped_rows": (self.tap.rows_seen
+                                if self.tap is not None else 0),
                 "mean_latency_s": float(np.mean(lats)) if lats else 0.0,
                 "p99_latency_s": (float(np.percentile(lats, 99))
                                   if lats else 0.0),

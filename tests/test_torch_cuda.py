@@ -483,3 +483,51 @@ def test_engine_with_f32_kv_ring_equals_paged(gen):
         assert _build.launches["decode_attention"] >= 4 * \
             eng.stats()["decode_iterations"]
     assert tokens["ring"] == tokens["paged"]
+
+
+def test_probe_scores_on_the_card_match_the_cpu(gen):
+    """The Planner's output, activation and KV probes on the card against
+    the CPU at the CPU tests' tolerances (output scores rtol 1e-4,
+    activation scores 1e-3, atol 1e-9; KV per layer 1e-3), the same
+    allocation from both sets of scores, and the engine solving an
+    unsolved plan on the card to the CPU's plan."""
+    from repro_torch.core import sensitivity as sens
+    from repro_torch.models.sail_linear import QuantPolicy, map_tensors
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw, _ = _plan_s_model()
+    card_raw = map_tensors(raw, lambda t: t.cuda())
+    base = QuantPolicy(bits=4, group_size=32, min_size=1024)
+    toks = sens.calibration_tokens(cfg.vocab)
+    got = {}
+    for dev, params in (("cpu", raw), ("cuda", card_raw)):
+        _build.reset_launches()
+        got[dev] = (sens.output_sensitivity(params, cfg, toks, base),
+                    sens.activation_sensitivity(params, cfg, toks, base),
+                    sens.kv_sensitivity(params, cfg, toks))
+    # the probes run plain matmuls; only the KV probe's decode steps launch
+    # decode attention (a reference step and one per layer, over an f32
+    # cache, each through every layer)
+    assert _build.launches["lut_matmul"] == 0
+    assert _build.launches["decode_attention"] == \
+        (1 + cfg.n_layers) * cfg.n_layers
+    for kind, rtol in ((0, 1e-4), (1, 1e-3)):
+        for key, errs in got["cpu"][kind].items():
+            for b, c in errs.items():
+                assert got["cuda"][kind][key][b] == pytest.approx(
+                    c, rel=rtol, abs=1e-9), (key, b)
+    torch.testing.assert_close(torch.tensor(got["cuda"][2]["per_layer"]),
+                               torch.tensor(got["cpu"][2]["per_layer"]),
+                               rtol=1e-3, atol=0)
+    reps = [sens.calibrate_policy(raw, cfg, base, scores=s, act_scores=a,
+                                  match_uniform=4, abits_candidates=(4, 6, 8),
+                                  tokens=toks)[1].bits_by_unit
+            for s, a, _ in got.values()]
+    assert reps[0] == reps[1]
+    hashes = {}
+    for dev in ("cpu", "cuda"):
+        eng = Engine(raw, cfg, EngineConfig(batch_size=2, cache_len=32,
+                                            group_size=32,
+                                            plan="auto:q4a8,kv=auto"),
+                     device=dev)
+        hashes[dev] = eng.stats()["plan_hash"]
+    assert hashes["cpu"] == hashes["cuda"]

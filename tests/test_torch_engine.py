@@ -111,8 +111,14 @@ def test_plan_grammar_and_unported_options(smoke):
         batch_size=2, cache_len=32, group_size=32, plan="rules:mlp=3"),
         device="cpu")
     assert eng.stats()["mixed_precision"]
-    for plan in ("auto:q4a8", "uniform:4,kv=auto", "uniform:4,draft=q2a8:k4",
-                 "uniform:4,tp=2"):
+    # unsolved plans now solve at construction (the Planner slice)
+    for plan in ("auto:q4a8", "uniform:4,kv=auto"):
+        eng = TEngine(carried, tcfg, TEngineConfig(
+            batch_size=2, cache_len=32, group_size=32, plan=plan),
+            device="cpu")
+        assert eng.plan.solved and eng.kv_bits in (8, 32)
+        assert eng.plan.kv_bits in (8, 32, None)
+    for plan in ("uniform:4,draft=q2a8:k4", "uniform:4,tp=2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TEngine(carried, tcfg, TEngineConfig(plan=plan), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -575,7 +575,7 @@ def test_paged_engine_sizes_refuses_and_raises(smoke, monkeypatch):
     with pytest.raises(MemoryError, match="preempt"):
         dry.run()
     # the plan's KV precision overrides quant_kv, for the pool and for
-    # its byte pricing; kv=auto needs the Planner
+    # its byte pricing; kv=auto is resolved by the Planner's KV probe
     budget32 = 40 * tcost.kv_block_bytes(8, tcfg.n_layers, tcfg.n_kv,
                                          tcfg.head_dim, 32)
     f32 = TEngine(carried, tcfg, TEngineConfig(
@@ -584,10 +584,14 @@ def test_paged_engine_sizes_refuses_and_raises(smoke, monkeypatch):
     assert f32.block_mgr.num_blocks == 40 and f32.kv_bits == 32
     assert f32.cache["layers"]["k"].dtype == torch.float32
     assert "k_scale" not in f32.cache["layers"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(carried, tcfg, TEngineConfig(**{**FIELDS,
-                                                "plan": "uniform:4,kv=auto"},
-                                             kv_block_size=8), device="cpu")
+    auto = TEngine(carried, tcfg, TEngineConfig(
+        **{**FIELDS, "plan": "uniform:4,kv=auto"}, kv_block_size=8,
+        kv_budget_bytes=budget32), device="cpu")
+    assert auto.kv_bits in (8, 32) and auto.plan.kv_bits == auto.kv_bits
+    assert auto.block_mgr.num_blocks == tcost.kv_pool_blocks(
+        budget32, 8, tcfg.n_layers, tcfg.n_kv, tcfg.head_dim, auto.kv_bits)
+    assert auto.cache["layers"]["k"].dtype == (
+        torch.int8 if auto.kv_bits == 8 else torch.float32)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TEngine(carried, tcfg, TEngineConfig(**FIELDS, kv_block_size=8))

@@ -433,17 +433,29 @@ def test_engine_plan_forms_and_slo(smoke4):
 
 
 def test_unservable_plans_name_the_roadmap(smoke4):
+    """Unsolved plans solve at construction now (the Planner slice): auto
+    modes, kv=auto, tp=auto (one shard without an SLO) and a bare SLO.
+    Drafts and tp > 1 still raise, naming their ROADMAP item."""
     _, tcfg, _, carried = smoke4
-    for plan in ("auto:q4a8", "uniform:4,kv=auto", "uniform:4,draft=auto",
-                 "uniform:4,tp=auto", "uniform:4,draft=q2a8:k4",
-                 "uniform:4,tp=2", {**PLANS["S"], "kv_bits": "auto"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for plan in ("auto:q4a8", "uniform:4,kv=auto", "uniform:4,tp=auto",
+                 {**PLANS["S"], "kv_bits": "auto"}):
+        eng = TEngine(carried, tcfg, TEngineConfig(**ENGINE, plan=plan),
+                      device="cpu")
+        assert eng.plan.solved and eng.plan.kv_bits in (8, 32, None)
+        assert eng.plan.tp in (1, None) and eng.kv_bits in (8, 32)
+    assert TEngine(carried, tcfg, TEngineConfig(**ENGINE,
+                                                plan="uniform:4,tp=auto"),
+                   device="cpu").plan.tp == 1
+    eng = TEngine(carried, tcfg, TEngineConfig(**ENGINE, slo=100.0),
+                  device="cpu")
+    assert eng.plan.solved and eng.plan.mode == "auto"
+    assert eng.plan.target_tps == 100.0 and eng.plan.prt == "measured"
+    for plan in ("uniform:4,draft=auto", "uniform:4,draft=q2a8:k4",
+                 "uniform:4,tp=2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1"):
             TEngine(carried, tcfg, TEngineConfig(**ENGINE, plan=plan),
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(carried, tcfg, TEngineConfig(**ENGINE, slo=100.0),
-                device="cpu")
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="Planner"):
         TPlanSpec.parse("auto:q4").to_policy()
 
 
