@@ -56,6 +56,10 @@ Phases (each passes or the script exits nonzero):
      (none through ring mode) and its 85 weight matmuls through the LUT-GEMV;
      one full-pool paged step is timed beside the ring step, and a paged and
      a ring engine at equal KV bytes report how many requests they held;
+     run C serves two requests of one 37-token prompt (sharing its partly
+     filled third block) at temperature 0.7: the first decode write must
+     copy the shared block (``cow_count`` > 0) and the tokens must equal
+     the CPU's on the same quantized tree;
   6. plans — mixed-precision plans on phase 4's 16 requests: plan R (rules,
      one segment: w_gate/w_up 2 bits, w_down 3, wq/wk/wv 6 with 6-bit
      activations, wo 5 with 4-bit, lm_head 8) on the ring pool with int8
@@ -84,7 +88,20 @@ Phases (each passes or the script exits nonzero):
      live replan (replan(), then a re-solve under the tapped traffic and
      apply_plan) after 8 decode iterations, token-identical to an engine
      that served the final plan; the cost model refit to the bit-serial
-     LUT-GEMV's timings on the card, and an SLO solve priced on it.
+     LUT-GEMV's timings on the card, and an SLO solve priced on it;
+  8. sampling — phase 4's requests at temperature 0.7 (seed 7) on the ring
+     and the paged pool (run A's admission): equal tokens per request,
+     not all greedy's; again on the ring under uniform:4a8; every kernel
+     launch counted as in phases 4-5.  The engine's draw on [8, 32005]
+     logits of one such step on the card and on the CPU (and in numpy):
+     the words and uniforms bit-equal, the Gumbel noise within 4 ulp at
+     max(|g|, 1), the tokens equal; its device time as a graph beside the
+     uniform:4 step's.  mode="batch" (cohorts of 8, one lm.prefill each,
+     unmasked decode in ring mode): greedy tokens equal phase 4's
+     continuous run, the LUT-GEMV's launches counted at each cohort
+     prefill's M.  quantize=False (f32 weights, int8 KV) on phase 3's
+     prompts and steps: tokens equal on card and CPU, decode attention
+     launched and the LUT-GEMV not; one full-pool step timed.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -1249,8 +1266,10 @@ def check_paged_launches(name, st, counts, cfg):
 
 
 def phase_paged(rt):
+    import numpy as np
     import torch
     from repro_torch.models import lm
+    from repro_torch.models.sail_linear import map_tensors
     from repro_torch.serving.engine import Engine, EngineConfig
     cfg, raw = full_model(rt)
     timer = Timer(torch)
@@ -1334,6 +1353,39 @@ def phase_paged(rt):
                     prefill_steps=st["prefill_iterations"],
                     launches=counts, block_pool=pool, equal_to_ring=same)
     del eng, ring_eng
+
+    # run C: copy-on-write.  Two requests with one 37-token prompt share
+    # all three of its blocks, the third partly filled; the first decode
+    # write into it copies it (append_slot returns "cow"), and sampling
+    # (T 0.7) makes the two write different tokens into their own copies.
+    # The CPU serves the card engine's quantized tree as given
+    # (quantize=False) through the plain versions
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, 37).tolist()
+    fields = dict(PAGED, kv_pool_blocks=32, temperature=0.7, seed=7)
+    eng = Engine(raw, cfg, EngineConfig(**fields), device="cuda")
+    got, counts, dt = serve_counted(torch, eng, [prompt, prompt], max_new=8)
+    st = eng.stats()
+    pool = st["block_pool"]
+    check_paged_launches("run C", st, counts, cfg)
+    del fields["plan"]
+    cpu_eng = Engine(map_tensors(eng.params, lambda t: t.cpu()), cfg,
+                     EngineConfig(**fields, quantize=False), device="cpu")
+    del eng
+    cpu_uids = [cpu_eng.submit(p, max_new_tokens=8) for p in (prompt, prompt)]
+    cpu_eng.run()
+    want = {u: cpu_eng.completions[u].tokens for u in cpu_uids}
+    cpu_pool = cpu_eng.stats()["block_pool"]
+    del cpu_eng
+    log(f"[paged] run C (copy-on-write: 2 requests of one 37-token prompt, "
+        f"T 0.7): pool {pool}; tokens card {got}, CPU {want}")
+    if pool["cow_count"] == 0 or cpu_pool["cow_count"] != pool["cow_count"]:
+        fail(f"paged run C: cow_count {pool['cow_count']} on the card, "
+             f"{cpu_pool['cow_count']} on the CPU (need equal and > 0)")
+    if got != want or len(set(map(tuple, got.values()))) != 2:
+        fail("paged run C: card tokens differ from the CPU's, or the two "
+             "requests did not diverge")
+    res["C"] = dict(tokens=got, cpu_tokens=want, launches=counts,
+                    block_pool=pool)
 
     # equal KV bytes: 2 ring lanes of 512 tokens against 64 blocks of 16
     # shared by up to 8 lanes, on 8 requests of run B's prefix groups
@@ -2041,6 +2093,241 @@ def phase_planner(rt):
     cost_calibration(torch, planning, raw, cfg, base, planner, res)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: temperature sampling, run-to-completion, unquantized serving
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.7, seed=7)
+RING = {k: v for k, v in PAGED.items() if k != "kv_block_size"}
+# the sampled noise is held at its own scale: |d| <= 4 ulp of f32 at
+# max(|g|, 1) (where -log(-log u) nears 0, one ulp of the inner log is
+# thousands of ulps of the result)
+GUMBEL_ULP = 4
+
+
+class CountByM:
+    """Within the block, counts the f32 LUT-GEMV's launches by the rows M
+    of their activations (the launch itself is unchanged)."""
+
+    def __init__(self):
+        from repro_torch.kernels.lut_gemv import ops
+        self.ops, self.by_m = ops, collections.Counter()
+
+    def __enter__(self):
+        self.f32 = self.ops.lut_matmul_cuda
+
+        def f32(x, qt):
+            self.by_m[int(x.shape[0])] += 1
+            return self.f32(x, qt)
+        self.ops.lut_matmul_cuda = f32
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.lut_matmul_cuda = self.f32
+        return False
+
+
+def check_ring_launches(name, st, counts, cfg, lut, other):
+    """Every decode step: each layer's attention through ring mode (none
+    through table mode), the 85 weight matmuls through ``lut`` and none
+    through ``other``."""
+    steps = st["decode_iterations"]
+    need_lut = steps * ((len(MATMULS) - 1) * cfg.n_layers + 1)
+    if (counts["decode_attention"] < steps * cfg.n_layers
+            or counts["decode_attention_table"] or counts[lut] < need_lut
+            or counts[other]):
+        fail(f"{name}: decode_attention {counts['decode_attention']} (need "
+             f">= {steps * cfg.n_layers}, table mode "
+             f"{counts['decode_attention_table']} of them), {lut} "
+             f"{counts[lut]} (need >= {need_lut}), {other} {counts[other]} "
+             "(need 0)")
+
+
+def noise_ulps(np, got, want) -> float:
+    scale = np.spacing(np.maximum(np.abs(want), np.float32(1)))
+    return float((np.abs(got.astype(np.float64) - want.astype(np.float64))
+                  / scale).max())
+
+
+def phase_sampling(rt):
+    import numpy as np
+    import torch
+    from repro_torch.core import prng
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import map_tensors
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw = full_model(rt)
+    timer = Timer(torch)
+    res = rt["sampling"] = {"runs": {}}
+    prompts = engine_requests(cfg)
+    greedy = rt["ring_tokens"]["uniform:4"]
+    u4_step = rt["engine"]["uniform:4"]["step_device_ms"]
+
+    def record(name, eng, got, counts, dt):
+        st = eng.stats()
+        if (len(got) != len(prompts) or any(len(t) != 32 for t in got.values())
+                or any(not 0 <= tok < cfg.vocab for t in got.values()
+                       for tok in t)):
+            fail(f"{name}: expected {len(prompts)} completions of 32 tokens "
+                 "in the vocabulary")
+        res["runs"][name] = dict(
+            tokens=st["generated_tokens"], seconds=dt,
+            decode_tok_per_s=st["measured_tps"],
+            decode_steps=st["decode_iterations"],
+            prefill_steps=st["prefill_iterations"], launches=counts)
+        log(f"[sampling] {name}: {st['generated_tokens']} tokens in {dt:.3f} "
+            f"s over {st['decode_iterations']} decode and "
+            f"{st['prefill_iterations']} prefill steps; launches {counts}")
+        return st
+
+    # (a) sampled serving: ring, paged (phase 5 run A's admission), and the
+    # ring under uniform:4a8 (the int LUT-GEMV serves a sampled run)
+    runs = {}
+    for name, fields in (("ring T0.7", RING),
+                         ("paged T0.7", dict(PAGED, kv_pool_blocks=8 * 32,
+                                             share_prefix=False)),
+                         ("ring uniform:4a8 T0.7",
+                          dict(RING, plan="uniform:4a8"))):
+        eng = Engine(raw, cfg, EngineConfig(**fields, **SAMPLED),
+                     device="cuda")
+        got, counts, dt = serve_counted(torch, eng, prompts)
+        st = record(name, eng, got, counts, dt)
+        if eng.paged:
+            check_paged_launches(name, st, counts, cfg)
+        elif "4a8" in name:
+            check_ring_launches(name, st, counts, cfg, "lut_matmul_int",
+                                "lut_matmul")
+        else:
+            check_ring_launches(name, st, counts, cfg, "lut_matmul",
+                                "lut_matmul_int")
+            sampler_eng = eng
+        runs[name] = got
+    ring, paged = runs["ring T0.7"], runs["paged T0.7"]
+    same = sum(paged[u] == ring[u] for u in ring)
+    off_greedy = sum(ring[u] != greedy[u] for u in ring)
+    log(f"[sampling] T 0.7, seed 7: {same} of 16 paged completions equal the "
+        f"ring engine's; {off_greedy} of 16 differ from greedy (phase 4)")
+    if paged != ring:
+        fail(f"sampled paged tokens differ from the ring engine's ({same} of "
+             "16 equal)")
+    if off_greedy == 0:
+        fail("sampled tokens equal greedy for every request")
+    res.update(paged_equal_ring=same, differ_from_greedy=off_greedy)
+
+    # (b) the draw itself: logits of one full-pool step of the sampled ring
+    # engine, the same uids and indices on the card and on the CPU
+    tok = torch.as_tensor(sampler_eng._cur[:, None], device="cuda")
+    logits, _ = lm.decode_step(sampler_eng.params, tok, sampler_eng.cache,
+                               cfg, quant_kv=True, device="cuda")
+    del sampler_eng
+    uids = np.arange(9, 17, dtype=np.int64)
+    index = np.array([32, 5, 0, 70000, 31, 1, 2, 3], np.int64)
+    card = prng.draw_rows(logits, uids, index, 7, 0.7)
+    cpu = prng.draw_rows(logits.cpu(), uids, index, 7, 0.7)
+    plain = prng.draw_rows_np(logits.cpu().numpy(), uids, index, 7, 0.7)
+    bits_equal = (torch.equal(card.bits.cpu(), cpu.bits) and bool(
+        (cpu.bits.numpy().view(np.uint32) == plain.bits).all()))
+    u_equal = (torch.equal(card.uniform.cpu().view(torch.int32),
+                           cpu.uniform.view(torch.int32)) and bool(
+        (cpu.uniform.numpy().view(np.uint32)
+         == plain.uniform.view(np.uint32)).all()))
+    g_ulp = noise_ulps(np, card.gumbel.cpu().numpy(), cpu.gumbel.numpy())
+    g_ulp_plain = noise_ulps(np, card.gumbel.cpu().numpy(), plain.gumbel)
+    toks_equal = (torch.equal(card.tokens.cpu(), cpu.tokens)
+                  and bool((cpu.tokens.numpy() == plain.tokens).all()))
+    k0, k1 = prng.row_keys(7, uids, index)
+    keys = torch.from_numpy(np.stack([k0, k1], 1).view(np.int32)).cuda()
+    draw_ms = timer(lambda: prng.draw_with_keys(logits, keys, 0.7))
+    argmax_ms = timer(lambda: torch.argmax(logits, dim=-1))
+    draw_call_ms = timer.call_ms(
+        lambda: prng.draw_rows(logits, uids, index, 7, 0.7).tokens.cpu())
+    log(f"[sampling] one draw over B 8 x V {cfg.vocab} (uids {uids.tolist()},"
+        f" indices {index.tolist()}): words bit-equal card / CPU / numpy "
+        f"{bits_equal}, uniforms bit-equal {u_equal}, Gumbel noise within "
+        f"{g_ulp:.1f} ulp of the CPU's ({g_ulp_plain:.1f} of numpy's), "
+        f"tokens equal {toks_equal} ({card.tokens.tolist()}); device "
+        f"{draw_ms:.4f} ms as a graph ({100 * draw_ms / u4_step:.1f}% of a "
+        f"full-pool uniform:4 step's {u4_step:.3f} ms; greedy argmax "
+        f"{argmax_ms:.4f} ms), eager call with the host's keys and the copy "
+        f"of the tokens {draw_call_ms:.3f} ms")
+    if not (bits_equal and u_equal and toks_equal and g_ulp <= GUMBEL_ULP
+            and g_ulp_plain <= GUMBEL_ULP):
+        fail("the draw on the card differs from the CPU's")
+    res["draw"] = dict(draw_device_ms=draw_ms, argmax_device_ms=argmax_ms,
+                       draw_call_ms=draw_call_ms,
+                       share_of_uniform4_step=draw_ms / u4_step,
+                       gumbel_ulp_cpu=g_ulp, gumbel_ulp_numpy=g_ulp_plain,
+                       tokens=card.tokens.tolist())
+    del logits, card, cpu
+
+    # (c) run-to-completion: phase 4's requests in cohorts of 8, greedy
+    eng = Engine(raw, cfg, EngineConfig(**RING, mode="batch"), device="cuda")
+    with CountByM() as by:
+        got, counts, dt = serve_counted(torch, eng, prompts)
+    st = record("batch", eng, got, counts, dt)
+    check_ring_launches("batch", st, counts, cfg, "lut_matmul",
+                        "lut_matmul_int")
+    # each cohort prefill: 12 layers x 9 launches (wk, wv twice) at M =
+    # cohort x its longest prompt, lm_head at M = cohort
+    per_prefill = sum(expected_instances(eng.params, lm, 0, 1).values()) - 1
+    want_m = collections.Counter()
+    for c in range(0, len(prompts), 8):
+        cohort = prompts[c:c + 8]
+        want_m[len(cohort) * max(len(p) for p in cohort)] += per_prefill
+    got_m = {m: by.by_m[m] for m in want_m}
+    same = sum(got[u] == greedy[u] for u in greedy)
+    log(f"[sampling] batch mode (2 cohorts of 8, one lm.prefill each, "
+        f"unmasked decode over its ring cache): {same} of 16 completions "
+        f"equal the continuous engine's (phase 4); decode attention "
+        f"{counts['decode_attention']} launches in ring mode over "
+        f"{st['decode_iterations']} steps; f32 LUT-GEMV launches by M "
+        f"{dict(sorted(by.by_m.items()))}, at the cohort prefills' M "
+        f"{got_m} (need {dict(want_m)})")
+    if got != greedy:
+        fail(f"batch mode: tokens differ from the continuous engine's ({same}"
+             " of 16 equal)")
+    if got_m != dict(want_m) or sum(by.by_m.values()) != counts["lut_matmul"]:
+        fail("batch mode: LUT-GEMV launches at the cohort prefills' M "
+             f"{got_m}, need {dict(want_m)}")
+    res["runs"]["batch"].update(lut_launches_by_m=dict(by.by_m),
+                                equal_to_continuous=same)
+    del eng
+
+    # (d) unquantized: the raw f32 tree, int8 KV, phase 3's prompts and
+    # steps (prefill + 4 decode steps), card against CPU
+    toks, lengths = model_prompts(cfg)
+    short = [toks[i, :n].tolist() for i, n in enumerate(lengths)]
+    fields = dict(RING, quantize=False)
+    del fields["plan"]
+    eng = Engine(raw, cfg, EngineConfig(**fields), device="cuda")
+    got, counts, dt = serve_counted(torch, eng, short, max_new=5)
+    st = eng.stats()
+    step_ms = step_device_ms(torch, timer, lm, eng, cfg)
+    del eng
+    cpu_eng = Engine(map_tensors(raw, lambda t: t.cpu()), cfg,
+                     EngineConfig(**fields), device="cpu")
+    cpu_uids = [cpu_eng.submit(p, max_new_tokens=5) for p in short]
+    cpu_eng.run()
+    want = {u: cpu_eng.completions[u].tokens for u in cpu_uids}
+    del cpu_eng
+    log(f"[sampling] quantize=False (f32 weights, plain matmuls), int8 KV, "
+        f"prefill of phase 3's prompts + 4 decode steps: card {got}, CPU "
+        f"{want}; launches {counts}; one full-pool step device "
+        f"{step_ms:.3f} ms = {step_ms / u4_step:.3f} x uniform:4's "
+        f"{u4_step:.3f} ms; weight compression {st['weight_compression']}, "
+        f"plan {st['plan_hash']}")
+    if got != want:
+        fail("quantize=False: card and CPU greedy tokens differ")
+    if (counts["decode_attention"] < st["decode_iterations"] * cfg.n_layers
+            or counts["lut_matmul"] or counts["lut_matmul_int"]):
+        fail(f"quantize=False: launches {counts}: decode attention must "
+             "launch every step and the LUT-GEMV never")
+    res["runs"]["quantize=False"] = dict(
+        tokens=got, cpu_tokens=want, launches=counts,
+        decode_steps=st["decode_iterations"], step_device_ms=step_ms,
+        step_ratio_to_uniform4=step_ms / u4_step)
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -2084,6 +2371,13 @@ def kernels_line(rt) -> dict:
             entry["launches_planner"]["kv probe (f32 KV)"] = \
                 rt["planner"]["solves"]["A8"]["kv"]["launches"][
                     "decode_attention"]
+        # phase 8: the sampled, batch-mode and unquantized runs, and
+        # phase 5's copy-on-write run
+        entry["launches_sampling"] = {
+            run: rec["launches"][name]
+            for run, rec in rt["sampling"]["runs"].items()}
+        entry["launches_sampling"]["paged C (copy-on-write)"] = \
+            rt["paged"]["C"]["launches"][name]
         if name.startswith("lut_matmul"):   # phases 6-7, per instance
             entry["launches_plans"] = {
                 run: {k: v for k, v in rec["instances"].items()
@@ -2123,7 +2417,8 @@ def main() -> int:
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("model", phase_model), ("engine", phase_engine),
                      ("paged", phase_paged), ("plans", phase_plans),
-                     ("planner", phase_planner)):
+                     ("planner", phase_planner),
+                     ("sampling", phase_sampling)):
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
@@ -2133,6 +2428,7 @@ def main() -> int:
         json.dump({"card": card_line(), "kernels": line["kernels"],
                    "engine": rt["engine"], "paged": rt["paged"],
                    "plans": rt["plans"], "planner": rt["planner"],
+                   "sampling": rt["sampling"],
                    "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

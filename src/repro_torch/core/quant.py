@@ -2,6 +2,8 @@
 
 Same storage format as the reference, bit for bit:
 
+  * ``pack_bits`` / ``unpack_bits`` — field packing, ``32 // b`` codes per
+    word (``values_per_word``), K zero-padded to a whole word;
   * ``pack_grouped`` / ``unpack_grouped`` — bit-contiguous group packing,
     ``ceil(b*G/32)`` words per group, codes may straddle word boundaries;
   * ``QTensor`` — packed codes + group scales + codebook, the format the
@@ -39,6 +41,46 @@ def words_per_group(bits: int, group_size: int) -> int:
     if bits not in KERNEL_BITS:
         raise ValueError(f"bits must be one of {KERNEL_BITS}, got {bits}")
     return -(-(bits * group_size) // 32)
+
+
+def values_per_word(bits: int) -> int:
+    """Number of b-bit codes fully contained per uint32 word."""
+    if bits not in KERNEL_BITS:
+        raise ValueError(f"bits must be one of {KERNEL_BITS}, got {bits}")
+    return 32 // bits
+
+
+def pack_bits(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack unsigned b-bit ``codes`` [K, ...] along axis 0: code j of a
+    word sits at bits ``[j*b, (j+1)*b)``, K zero-padded to a multiple of
+    ``values_per_word(bits)``.  Returns int32 bit patterns [ceil(K/vpw),
+    ...]."""
+    vpw = values_per_word(bits)
+    codes = codes.to(torch.int64)
+    k = codes.shape[0]
+    if k % vpw != 0:
+        pad = vpw - k % vpw
+        codes = torch.cat([codes, codes.new_zeros((pad,) + codes.shape[1:])])
+        k = codes.shape[0]
+    grouped = codes.reshape((k // vpw, vpw) + codes.shape[1:]) & _MASK32
+    shifts = (torch.arange(vpw, device=codes.device) * bits).reshape(
+        (1, vpw) + (1,) * (codes.ndim - 1))
+    # the fields are disjoint, so their sum is their bitwise or
+    return _to_int32_bits((grouped << shifts).sum(dim=1) & _MASK32)
+
+
+def unpack_bits(packed: torch.Tensor, bits: int,
+                k: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`pack_bits` -> int32 codes [K, ...]."""
+    vpw = values_per_word(bits)
+    words = packed.to(torch.int64) & _MASK32
+    shifts = (torch.arange(vpw, device=packed.device) * bits).reshape(
+        (1, vpw) + (1,) * (packed.ndim - 1))
+    codes = (words[:, None] >> shifts) & ((1 << bits) - 1)
+    out = codes.reshape((packed.shape[0] * vpw,) + tuple(packed.shape[1:]))
+    if k is not None:
+        out = out[:k]
+    return out.to(torch.int32)
 
 
 def _to_int32_bits(words: torch.Tensor) -> torch.Tensor:
@@ -228,6 +270,20 @@ def dequantize(qt: QTensor) -> torch.Tensor:
     codes = unpack_grouped(qt.packed, qt.bits, qt.group_size, qt.k)
     return _scale_codes(qt.codebook[codes], qt.scales, qt.group_size, qt.k,
                         qt.n)
+
+
+def quantize_int(w: torch.Tensor, bits: int, group_size: int = 128):
+    """Integer-domain group-wise quantization of the bit-serial LUT-GEMV:
+    (w_q int32 [K, N] signed codes in [-2^(b-1), 2^(b-1) - 1], scales f32
+    [K/G, N]) with w ~= scales[g] * w_q."""
+    k, n = w.shape
+    qmax = (1 << (bits - 1)) - 1
+    wg = w.to(torch.float32).reshape(k // group_size, group_size, n)
+    absmax = wg.abs().amax(dim=1)
+    absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+    scale = absmax / qmax
+    wq = torch.clamp(torch.round(wg / scale[:, None, :]), -qmax - 1, qmax)
+    return wq.reshape(k, n).to(torch.int32), scale
 
 
 def quantize_activations(x: torch.Tensor, bits: int = 8):

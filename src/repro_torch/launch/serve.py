@@ -5,7 +5,9 @@
 
 Random weights from a seeded ``torch.Generator``, quantized to ``--ql``
 bits or by a precision ``--plan``, int8 KV unless ``--no-quant-kv`` (or the
-plan's ``kv=8|32``), continuous batching over ``--batch`` KV-pool slots.
+plan's ``kv=8|32``), continuous batching over ``--batch`` KV-pool slots
+(``--mode batch``: run-to-completion cohorts of ``--batch``;
+``--prefill-budget``: new prompt tokens admitted per iteration).
 ``--device`` defaults to ``cuda`` and the run fails rather than fall back
 when CUDA is missing.
 
@@ -63,6 +65,10 @@ def main(argv=None) -> None:
     ap.add_argument("--bit-policy", default=None,
                     help="DEPRECATED alias for --plan (grammar strings "
                          "only)")
+    ap.add_argument("--mode", choices=("continuous", "batch"),
+                    default="continuous")
+    ap.add_argument("--prefill-budget", type=int, default=None,
+                    help="max new prefill tokens admitted per iteration")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
     ap.add_argument("--device", default="cuda")
@@ -85,7 +91,8 @@ def main(argv=None) -> None:
     eng = Engine(params, cfg, EngineConfig(
         batch_size=args.batch, cache_len=args.cache_len, ql=args.ql,
         plan=plan, slo=args.slo, tap_capacity=args.tap,
-        bit_policy=args.bit_policy,
+        bit_policy=args.bit_policy, mode=args.mode,
+        prefill_budget=args.prefill_budget,
         group_size=(args.group_size if args.group_size is not None
                     else min(128, cfg.d_model)),
         quant_kv=not args.no_quant_kv), device=dev)
@@ -95,7 +102,7 @@ def main(argv=None) -> None:
             f"Q{pol.bits}{'' if pol.act_bits is None else f'a{pol.act_bits}'}")
     print(f"{cfg.name} on {dev}: {desc} weights (plan {st['plan_hash']}, "
           f"{eng.compression:.2f}x compression), "
-          f"{'int8' if st['kv_bits'] == 8 else 'f32'} KV, continuous "
+          f"{'int8' if st['kv_bits'] == 8 else 'f32'} KV, {args.mode} "
           "scheduling")
     if args.save_plan:
         eng.plan.save(args.save_plan)

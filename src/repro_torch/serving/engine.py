@@ -1,5 +1,6 @@
 """Continuous-batching serving engine over a pool of KV-cache slots
-(port of ``repro.serving.engine``, continuous mode, ring and paged pools).
+(port of ``repro.serving.engine``: continuous and run-to-completion modes,
+ring and paged pools, greedy and temperature sampling).
 
 One model iteration serves every active user (SAIL Sec. III-A), so each
 layer's weights stream once per iteration for the whole batch:
@@ -9,6 +10,11 @@ layer's weights stream once per iteration for the whole batch:
   * every ``step()`` admits waiting requests (FIFO, optional prefill-token
     budget), commits each active slot's pending token (retiring on
     EOS / max tokens), then runs one masked decode for the rest.
+
+``mode="batch"`` is the run-to-completion loop kept for A/B comparison:
+admit a cohort (``IterationScheduler.admit``), prefill it in one pass
+(``lm.prefill``, its own ring cache), decode it unmasked until every
+member is done, admit again.
 
 ``EngineConfig.kv_block_size`` swaps the slot pool for a *paged* block
 pool (``lm.init_paged_cache`` + ``serving.block_pool``): each request
@@ -43,12 +49,19 @@ weights in between steps, under the running KV pool and requests.
 ``prt_hit_rate`` and its ``planned_tps`` / ``drift``: those are the
 paper's SAIL machine's modeled figures (``planning.DecodeCostModel``), or
 this host's effective SAIL machine when the plan carries a
-``calibrate_cost`` fit (``plan_calibrated``), never the card's.  Sampling
-is greedy.  Not ported yet (ROADMAP, Queue 1 item 3): the controller
-(with the paged pool's free-block cap), speculation and ``draft`` plans
-(with the paged verify), tensor parallelism (``tp > 1``, with its paged
-prefill), run-to-completion mode, unquantized serving and temperature
-sampling.
+``calibrate_cost`` fit (``plan_calibrated``), never the card's.
+``quantize=False`` serves the raw f32 tree (plain ``x @ w`` products; no
+plan, so the plan fields of ``stats()`` are None).
+
+Sampling is greedy at ``temperature`` 0.  Above it each token is
+``categorical(key, row / T)`` under ``key = fold_in(fold_in(PRNGKey(seed),
+uid), index)``, the reference's key stream bit for bit
+(``core.prng.draw_rows``, one draw on the engine's device per step), where
+``index`` counts the request's committed tokens: a request samples the
+same tokens whatever the batch, the pool layout or a preemption.  Not
+ported yet (ROADMAP, Queue 1 item 3): the controller (with the paged
+pool's free-block cap), speculation and ``draft`` plans (with the paged
+verify), and tensor parallelism (``tp > 1``, with its paged prefill).
 """
 from __future__ import annotations
 
@@ -61,6 +74,7 @@ import numpy as np
 import torch
 
 from repro_torch import planning
+from repro_torch.core import prng
 from repro_torch.core.scheduler import DECODE, IterationScheduler, Request
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
@@ -74,6 +88,7 @@ from repro_torch.serving.block_pool import BlockSpaceManager
 class EngineConfig:
     batch_size: int = 8            # KV-pool slots (paper: 8 balances the pipe)
     cache_len: int = 4096
+    quantize: bool = True          # False: serve the raw f32 tree
     ql: int = 4
     group_size: int = 128
     quant_kv: bool = True
@@ -103,11 +118,19 @@ class EngineConfig:
     # spec dict, or grammar string
     bit_policy: Any = None
     eos_token: int = -1            # -1: never stop early
+    temperature: float = 0.0       # 0 = greedy
+    # PRNG root for temperature > 0: each token's key is folded from
+    # (seed, request uid, per-request sample index), so a request's
+    # sampled tokens do not depend on batch composition, preemption or
+    # the pool layout
+    seed: int = 0
+    mode: str = "continuous"       # "continuous" | "batch" (run-to-completion)
     prefill_budget: Optional[int] = None  # new prefill tokens per iteration
     prompt_bucket: int = 16        # prompts padded to a multiple
-    # Paged KV pool: a block size replaces the [batch_size, cache_len] slot
-    # pool with a shared pool of blocks (per-request block tables,
-    # copy-on-write prefix sharing, block-gated admission, preemption).
+    # Paged KV pool (continuous mode): a block size replaces the
+    # [batch_size, cache_len] slot pool with a shared pool of blocks
+    # (per-request block tables, copy-on-write prefix sharing,
+    # block-gated admission, preemption).
     kv_block_size: Optional[int] = None   # tokens per block; None = slots
     # pool size (first match wins): a block count, a byte budget priced by
     # planning.cost.kv_pool_blocks, else batch_size slot-equivalents
@@ -128,14 +151,30 @@ class Completion:
 class Engine:
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
                  device="cuda"):
+        if ecfg.mode not in ("continuous", "batch"):
+            raise ValueError(f"mode={ecfg.mode!r}: 'continuous' or 'batch'")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.ecfg = ecfg
         self.slo: Optional[planning.Slo] = None
+        self.plan: Optional[planning.PlanSpec] = None
+        self.quant_policy: Optional[QuantPolicy] = None
         self.plan_report = None
         self.replan_count = 0
         self.prt_hit_rate: Optional[float] = None
         self.tap: Optional[planning.ActivationTap] = None
+        # plan pricing on the SAIL machine model: the plan's units and
+        # fixed bytes (None without a plan), iteration seconds memoized
+        # per occupancy, and the modeled seconds of the decode steps run
+        # (each at its occupancy), the reference side of drift
+        self._plan_units = None
+        self._plan_fixed_bytes = 0
+        self._iter_cache: Dict[int, float] = {}
+        self.modeled_seconds = 0.0
+        self._raw_params = None
+        if (ecfg.bit_policy is not None or ecfg.plan is not None) \
+                and not ecfg.quantize:
+            raise ValueError("a precision plan requires quantize=True")
         if ecfg.plan is not None and ecfg.bit_policy is not None:
             raise ValueError("pass plan= OR the deprecated bit_policy=, "
                              "not both")
@@ -144,29 +183,33 @@ class Engine:
                              "bit_policy surface has no SLO semantics "
                              "and would silently ignore the target")
         if ecfg.tap_capacity > 0:
-            self.tap = planning.ActivationTap(ecfg.tap_capacity,
-                                              ecfg.tap_every)
+            if ecfg.mode == "continuous":
+                self.tap = planning.ActivationTap(ecfg.tap_capacity,
+                                                  ecfg.tap_every)
+            else:
+                warnings.warn(
+                    "tap_capacity is ignored in mode='batch' — the "
+                    "ActivationTap hooks the continuous engine's masked "
+                    "decode iteration", UserWarning, stacklevel=2)
         # the raw tree on this engine's device: the Planner's probes run
-        # on it, and apply_plan requantizes it
+        # on it, apply_plan requantizes it, quantize=False serves it
         params = map_tensors(params, lambda t: t.to(self.device))
-        self._resolve_plan(params)
-        retain = (ecfg.retain_raw if ecfg.retain_raw is not None
-                  else self.tap is not None)
-        self._raw_params = params if retain else None
-        self.params, b0, b1 = quantize_params(params, self.quant_policy)
-        self.compression = b0 / max(b1, 1)
+        if ecfg.quantize:
+            self._resolve_plan(params)
+            retain = (ecfg.retain_raw if ecfg.retain_raw is not None
+                      else self.tap is not None)
+            self._raw_params = params if retain else None
+            self.params, b0, b1 = quantize_params(params, self.quant_policy)
+            self.compression = b0 / max(b1, 1)
+        else:
+            self.params, self.compression = params, 1.0
         # KV precision: a concrete plan kv_bits overrides quant_kv; the
         # pool's dtype is fixed from here on
-        kvb = self.plan.kv_bits if isinstance(self.plan.kv_bits, int) \
-            else None
+        kvb = (self.plan.kv_bits if self.plan is not None
+               and isinstance(self.plan.kv_bits, int) else None)
         self.kv_bits = kvb if kvb is not None else (8 if ecfg.quant_kv
                                                     else 32)
         self._quant_kv = self.kv_bits == 8
-        # plan pricing on the SAIL machine model: iteration seconds
-        # memoized per occupancy, and the modeled seconds of the decode
-        # steps run (each at its occupancy), the reference side of drift
-        self._iter_cache: Dict[int, float] = {}
-        self.modeled_seconds = 0.0
         self.sched = IterationScheduler(target_batch=ecfg.batch_size,
                                         max_batch=ecfg.batch_size,
                                         prefill_budget=ecfg.prefill_budget)
@@ -187,14 +230,21 @@ class Engine:
         self.events: Dict[int, Dict[str, int]] = {}   # per-uid iterations
         self._clen = (ecfg.cache_len if cfg.window is None
                       else min(ecfg.cache_len, cfg.window))
-        self._cur = np.zeros((ecfg.batch_size,), np.int64)
         self.paged = ecfg.kv_block_size is not None
         self.block_mgr = None
-        if self.paged:
-            self._init_paged_pool(int(ecfg.kv_block_size))
-        else:
-            self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
-                                       self._quant_kv, device=self.device)
+        if self.paged and ecfg.mode != "continuous":
+            raise ValueError("paged KV (kv_block_size) requires "
+                             "mode='continuous'")
+        # the continuous engine's pool; batch mode prefills each cohort
+        # into a cache of its own
+        if ecfg.mode == "continuous":
+            self._cur = np.zeros((ecfg.batch_size,), np.int64)
+            if self.paged:
+                self._init_paged_pool(int(ecfg.kv_block_size))
+            else:
+                self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
+                                           self._quant_kv,
+                                           device=self.device)
 
     def _base_policy(self) -> QuantPolicy:
         return QuantPolicy(bits=self.ecfg.ql, group_size=self.ecfg.group_size,
@@ -287,8 +337,11 @@ class Engine:
     def step(self) -> bool:
         """One engine iteration: admit + prefill into free slots, commit
         each active slot's pending token (retiring on EOS / max tokens),
-        then one masked decode for every remaining slot.  Returns True
-        while work remains."""
+        then one masked decode for every remaining slot (``mode="batch"``:
+        serve one whole cohort).  Returns True while work remains."""
+        if self.ecfg.mode != "continuous":
+            self._serve_batch()
+            return not self.sched.idle()
         admitted = self.sched.schedule(
             can_admit=self._try_allocate if self.paged else None)
         if admitted:
@@ -341,7 +394,12 @@ class Engine:
                 self.tap.observe(layer_inputs, mask)
             else:
                 logits, self.cache = out
-            nxt = self._sample(logits)
+            uids = np.zeros((self.ecfg.batch_size,), np.int64)
+            sidx = np.zeros((self.ecfg.batch_size,), np.int64)
+            for req in active:
+                uids[req.slot] = req.uid
+                sidx[req.slot] = self._sample_index(req.uid)
+            nxt = self._sample(logits, uids, sidx)
             # _sample copies to the host, so dt covers the whole iteration
             # (and any tap capture's copy)
             dt = time.perf_counter() - t0
@@ -349,7 +407,9 @@ class Engine:
             self.decode_iterations += 1
             self.decode_seconds += dt
             self._decode_tokens += len(active)
-            self.modeled_seconds += self._modeled_iter_seconds(len(active))
+            exp = self._modeled_iter_seconds(len(active))
+            if exp is not None:
+                self.modeled_seconds += exp
             if self.paged:
                 self._len_np[mask] += 1
             for req in active:
@@ -526,7 +586,8 @@ class Engine:
         self.iterations += 1
         self.prefill_iterations += 1
         self.prefill_tokens += int(lengths.sum())
-        first = self._sample(logits)
+        first = self._sample(logits, [req.uid for req in reqs],
+                             [self._sample_index(req.uid) for req in reqs])
         now = time.perf_counter()
         for i, req in enumerate(reqs):
             self._cur[req.slot] = int(first[i])
@@ -555,9 +616,88 @@ class Engine:
             ttft_s=self._ttft.get(req.uid, 0.0))
         self.events[req.uid]["finished_iteration"] = self.iterations
 
-    def _sample(self, logits: torch.Tensor) -> np.ndarray:
-        """Greedy: argmax per row (first index on ties, as jnp.argmax)."""
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+    # --- batch-mode (run-to-completion) internals -------------------------
+    def _serve_batch(self) -> None:
+        """Admit a cohort, prefill it in one pass into a ring cache of its
+        own, then run unmasked decode steps until every member is done
+        (EOS or its max tokens); members that finish early ride along."""
+        batch = self.sched.admit()
+        if not batch:
+            return
+        ecfg, cfg = self.ecfg, self.cfg
+        b = len(batch)
+        maxlen = max(r.prompt_len for r in batch)
+        toks = np.zeros((b, maxlen), np.int64)
+        lengths = np.zeros((b,), np.int32)
+        for i, r in enumerate(batch):
+            p = self._gen[r.uid][:r.prompt_len]
+            toks[i, :len(p)] = p
+            lengths[i] = len(p)
+        self.peak_active = max(self.peak_active, b)
+        logits, cache = lm.prefill(
+            self.params, toks, cfg, cache_len=self._clen,
+            quant_kv=self._quant_kv, lengths=lengths, device=self.device)
+        self.iterations += 1
+        self.prefill_iterations += 1
+        self.prefill_tokens += int(lengths.sum())
+        uids = [r.uid for r in batch]
+        cur = self._sample(logits, uids,
+                           [self._sample_index(u) for u in uids])
+        now = time.perf_counter()
+        for r in batch:
+            self._ttft[r.uid] = now - self._t0[r.uid]
+        steps = max(r.max_new_tokens for r in batch)
+        done_at: Dict[int, int] = {}
+        for step in range(steps):
+            for i, r in enumerate(batch):
+                if r.uid in done_at:
+                    continue
+                if r.max_new_tokens <= 0:
+                    done_at[r.uid] = step
+                    continue
+                tok = int(cur[i])
+                self._gen[r.uid].append(tok)
+                cb = self._on_token.get(r.uid)
+                if cb is not None:
+                    cb(r.uid, tok)
+                if tok == ecfg.eos_token or step + 1 >= r.max_new_tokens:
+                    done_at[r.uid] = step
+            if len(done_at) == b or step == steps - 1:
+                break
+            logits, cache = lm.decode_step(
+                self.params, cur[:, None], cache, cfg,
+                quant_kv=self._quant_kv, device=self.device)
+            self.iterations += 1
+            self.decode_iterations += 1
+            cur = self._sample(logits, uids,
+                               [self._sample_index(u) for u in uids])
+        for r in batch:
+            self.completions[r.uid] = Completion(
+                uid=r.uid, tokens=self._gen[r.uid][r.prompt_len:],
+                latency_s=time.perf_counter() - self._t0[r.uid],
+                ttft_s=self._ttft.get(r.uid, 0.0))
+        self.sched.step_complete(uids)
+
+    # --- sampling -----------------------------------------------------------
+    def _sample_index(self, uid: int) -> int:
+        """How many tokens this request has sampled and committed so far
+        (0 at the prefill's sample): committed state only, so a resumed
+        re-prefill re-samples the pending token under its original
+        index."""
+        return len(self._gen[uid]) - self._orig_plen.get(uid, 0)
+
+    def _sample(self, logits: torch.Tensor, uids=None,
+                indices=None) -> np.ndarray:
+        """One token per logits row.  Greedy: argmax (first index on ties,
+        as jnp.argmax).  At temperature T > 0, row b draws under the key of
+        (``uids[b]``, ``indices[b]``); rows without a live request pass uid
+        0 and the caller drops their draws."""
+        if self.ecfg.temperature <= 0:
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        if uids is None:
+            uids = indices = np.zeros((logits.shape[0],), np.int64)
+        return prng.draw_rows(logits, uids, indices, self.ecfg.seed,
+                              self.ecfg.temperature).tokens.cpu().numpy()
 
     def measured_tps(self) -> Optional[float]:
         """Decode-phase tokens per wall second of masked decode steps."""
@@ -566,9 +706,12 @@ class Engine:
         return self._decode_tokens / self.decode_seconds
 
     # --- plan pricing (the SAIL machine model, not the card) ----------------
-    def _modeled_iter_seconds(self, occupancy: int) -> float:
+    def _modeled_iter_seconds(self, occupancy: int) -> Optional[float]:
         """Modeled seconds of one decode iteration at ``occupancy`` lanes
-        (lookup cycles scale with the batch), memoized."""
+        (lookup cycles scale with the batch), memoized; None when serving
+        unquantized (no plan to price)."""
+        if self._plan_units is None:
+            return None
         got = self._iter_cache.get(occupancy)
         if got is None:
             cost = planning.plan_cost_model(self.plan, batch=int(occupancy))
@@ -580,11 +723,15 @@ class Engine:
             self._iter_cache[occupancy] = got
         return got
 
-    def planned_tps(self, batch: Optional[int] = None) -> float:
+    def planned_tps(self, batch: Optional[int] = None) -> Optional[float]:
         """Modeled decode tokens/s of the served plan at ``batch``
-        occupancy (default: the full pool) on the SAIL machine model."""
+        occupancy (default: the full pool) on the SAIL machine model;
+        None when serving unquantized."""
         b = self.ecfg.batch_size if batch is None else int(batch)
-        return b / max(self._modeled_iter_seconds(b), 1e-30)
+        secs = self._modeled_iter_seconds(b)
+        if secs is None:
+            return None
+        return b / max(secs, 1e-30)
 
     def modeled_run_tps(self) -> Optional[float]:
         """Modeled tokens/s of the decode steps actually run, each priced
@@ -605,10 +752,12 @@ class Engine:
         from repro_torch.core import cost_model as cm
         from repro_torch.core import pattern
         merged = calib.get(None) if isinstance(calib, dict) else calib
-        wbits = (self.plan.weight_bits if self.plan.weight_bits is not None
-                 else self.ecfg.ql)
-        abits = self.plan.act_bits if self.plan.act_bits is not None else 8
-        nbw = self.plan.nbw
+        plan = self.plan
+        wbits = (plan.weight_bits if plan is not None
+                 and plan.weight_bits is not None else self.ecfg.ql)
+        abits = (plan.act_bits if plan is not None
+                 and plan.act_bits is not None else 8)
+        nbw = plan.nbw if plan is not None else "auto"
         if not isinstance(nbw, int):
             k = int(merged.shape[-1])
             nbw = cm.best_nbw_for_unit(k, k, wbits, abits,
@@ -628,9 +777,9 @@ class Engine:
         asking for others warns and serves on.
         """
         if self._raw_params is None:
-            raise ValueError("apply_plan needs the raw weights resident — "
-                             "construct the engine with retain_raw=True "
-                             "(or a tap attached)")
+            raise ValueError("apply_plan needs the raw weights resident "
+                             "— construct the engine with quantize=True "
+                             "and retain_raw=True (or a tap attached)")
         hit = None
         report = None
         if isinstance(plan, planning.PlanResult):
@@ -681,11 +830,13 @@ class Engine:
         fresh one wraps the served plan.  Returns the ``PlanResult``."""
         if self.tap is None:
             raise ValueError("no ActivationTap attached — set "
-                             "EngineConfig.tap_capacity > 0")
+                             "EngineConfig.tap_capacity > 0 (taps only "
+                             "attach in mode='continuous')")
         if self._raw_params is None:
             raise ValueError("replan needs the raw weights resident — "
-                             "construct the engine with retain_raw=True "
-                             "(or rely on the tap default)")
+                             "construct the engine with quantize=True "
+                             "and retain_raw=True (or rely on the tap "
+                             "default)")
         if planner is None:
             planner = planning.Planner(self._raw_params, self.cfg, self.plan,
                                        base=self._base_policy())
@@ -725,10 +876,15 @@ class Engine:
                 "prefill_tokens": self.prefill_tokens,
                 "decode_seconds": self.decode_seconds,
                 "weight_compression": round(self.compression, 2),
-                "mixed_precision": self.quant_policy.is_mixed(),
-                "plan_hash": self.plan.spec_hash,
-                "plan_mode": self.plan.mode,
-                "plan_calibrated": self.plan.calibration is not None,
+                "mixed_precision": bool(self.quant_policy is not None
+                                        and self.quant_policy.is_mixed()),
+                "plan_hash": (self.plan.spec_hash if self.plan is not None
+                              else None),
+                "plan_mode": (self.plan.mode if self.plan is not None
+                              else None),
+                "plan_calibrated": bool(self.plan is not None
+                                        and self.plan.calibration
+                                        is not None),
                 "replan_count": self.replan_count,
                 "prt_hit_rate": self.prt_hit_rate,
                 "tapped_rows": (self.tap.rows_seen

@@ -531,3 +531,25 @@ def test_probe_scores_on_the_card_match_the_cpu(gen):
                      device=dev)
         hashes[dev] = eng.stats()["plan_hash"]
     assert hashes["cpu"] == hashes["cuda"]
+
+
+@pytest.mark.parametrize("vocab", [97, 32005])
+def test_sampling_draw_on_the_card_matches_the_cpu(gen, vocab):
+    """The engine's sampler on the card against the CPU on the same logits,
+    uids and indices: the 32-bit words and the uniforms bit-equal, the
+    Gumbel noise within 4 ulp at max(|g|, 1), the tokens equal."""
+    import numpy as np
+    from repro_torch.core import prng
+    logits = torch.randn((8, vocab), device="cuda", generator=gen) * 3
+    uids = np.array([0, 1, 2, 3, 70000, 9, 10, 2**32 - 1], np.int64)
+    indices = np.array([0, 1, 2, 3, 66000, 5, 6, 7], np.int64)
+    card = prng.draw_rows(logits, uids, indices, 7, 0.7)
+    cpu = prng.draw_rows(logits.cpu(), uids, indices, 7, 0.7)
+    assert torch.equal(card.bits.cpu(), cpu.bits)
+    assert torch.equal(card.uniform.cpu().view(torch.int32),
+                       cpu.uniform.view(torch.int32))
+    want = cpu.gumbel.double()
+    scale = torch.from_numpy(np.spacing(np.maximum(
+        cpu.gumbel.abs().numpy(), np.float32(1))).astype(np.float64))
+    assert ((card.gumbel.cpu().double() - want).abs() / scale).max() <= 4
+    assert torch.equal(card.tokens.cpu(), cpu.tokens)
