@@ -101,7 +101,25 @@ Phases (each passes or the script exits nonzero):
      continuous run, the LUT-GEMV's launches counted at each cohort
      prefill's M.  quantize=False (f32 weights, int8 KV) on phase 3's
      prompts and steps: tokens equal on card and CPU, decode attention
-     launched and the LUT-GEMV not; one full-pool step timed.
+     launched and the LUT-GEMV not; one full-pool step timed;
+  9. speculation — self-speculative decoding under uniform:4,draft=q2:k4
+     on phase 4's requests: greedy tokens equal phase 4's on the ring and
+     the paged pool (run A's admission), with rejected drafts and, on the
+     paged pool, rollback truncates that drop blocks; per round the draft's
+     k steps launch the b2 LUT-GEMV instance 85 times each at M 8, verify
+     the b4 instance 85 times at M 40 (its K split as at M 8, so a verified
+     row is the decode step's bit for bit: checked on copies of one pool),
+     and decode attention 12 x (2k + 1) times in ring or table mode;
+     verify's per-token attention held against the chunk-causal composite;
+     uniform:4,draft=q2a8:k4 (the int LUT-GEMV in the draft); T 0.7 ring
+     equal to paged, every ring LUT-GEMV launch held against its plain
+     version; phase 3's prompts card against CPU at full width cut to 2
+     layers; draft=auto solved on the card (the measured
+     acceptance of bits 2-4, the pick held to the pricing grid's argmax);
+     the controller shedding under an SLO the 8-lane pool cannot meet
+     (tokens unchanged) and capped by the free blocks of a 32-block paged
+     pool; the round's draft and verify device time as CUDA graphs beside
+     the plain step, and decode tokens/s with and without the draft.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -121,6 +139,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
@@ -1503,15 +1522,15 @@ class Held:
         ops, torch = self.ops, self.torch
         self.f32, self.int = ops.lut_matmul_cuda, ops.lut_matmul_int_cuda
 
-        def f32(x, qt):
-            y = self.f32(x, qt)
+        def f32(x, qt, plan_rows=None):
+            y = self.f32(x, qt, plan_rows)
             self._check("f32", y, torch.matmul(x, self._weight(qt)),
                         f"b{qt.bits} x {tuple(x.shape)} N={qt.n}")
             self.calls[(qt.bits, 0)] += 1
             return y
 
-        def int_(xq, xs, qt, abits):
-            y = self.int(xq, xs, qt, abits)
+        def int_(xq, xs, qt, abits, plan_rows=None):
+            y = self.int(xq, xs, qt, abits, plan_rows)
             ref = torch.matmul(xq.to(torch.float32), self._weight(qt)) * xs
             self._check("int", y, ref, f"b{qt.bits}a{abits} x "
                         f"{tuple(xq.shape)} N={qt.n}")
@@ -2116,9 +2135,9 @@ class CountByM:
     def __enter__(self):
         self.f32 = self.ops.lut_matmul_cuda
 
-        def f32(x, qt):
+        def f32(x, qt, plan_rows=None):
             self.by_m[int(x.shape[0])] += 1
-            return self.f32(x, qt)
+            return self.f32(x, qt, plan_rows)
         self.ops.lut_matmul_cuda = f32
         return self
 
@@ -2328,6 +2347,422 @@ def phase_sampling(rt):
         step_ratio_to_uniform4=step_ms / u4_step)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: self-speculative decoding and the SLO controller
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+SPEC_PLAN = f"uniform:4,draft=q2:k{SPEC_K}"
+SPEC_INT_PLAN = f"uniform:4,draft=q2a8:k{SPEC_K}"
+RUN_A = dict(PAGED, kv_pool_blocks=8 * 32, share_prefix=False)
+
+
+def spec_launch_check(name, st, counts, by_m, inst, cfg, draft_key, paged):
+    """Every round: the draft's k steps, 85 LUT-GEMV launches each at M 8
+    under the draft's instance; verify's 85 at M = 8 x (k + 1) under the
+    served b4 instance; decode attention 12 x k times for the draft and 12
+    x (k + 1) for verify, all in ring or all in table mode."""
+    rounds = st["speculative"]["rounds"]
+    per_pass = (len(MATMULS) - 1) * cfg.n_layers + 1
+    m_verify = 8 * (SPEC_K + 1)
+    attn = rounds * cfg.n_layers * (2 * SPEC_K + 1)
+    table = counts["decode_attention_table"]
+    want_table = counts["decode_attention"] if paged else 0
+    ok = (inst.get(draft_key, 0) == rounds * SPEC_K * per_pass
+          and by_m.get(m_verify, 0) == rounds * per_pass
+          and counts["decode_attention"] == attn and table == want_table)
+    log(f"[speculation] {name}: {rounds} rounds; LUT-GEMV launches per "
+        f"instance { {instance_name(k): v for k, v in sorted(inst.items())} }"
+        f", f32 flavour by M {dict(sorted(by_m.items()))} (verify at M "
+        f"{m_verify}: {by_m.get(m_verify, 0)}, need {rounds * per_pass}; "
+        f"draft {instance_name(draft_key)}: {inst.get(draft_key, 0)}, need "
+        f"{rounds * SPEC_K * per_pass}); decode attention "
+        f"{counts['decode_attention']} (need {attn} = rounds x 12 x (2k + 1))"
+        f", {table} in table mode")
+    if not ok:
+        fail(f"{name}: launches do not match the rounds run")
+
+
+def serve_spec(torch, Engine, EngineConfig, raw, cfg, name, fields, prompts,
+               max_new=32):
+    """Serve ``prompts`` under ``fields`` with the counters reset just
+    before and LUT-GEMV launches counted by M; returns (engine, tokens,
+    counts, by_m, instances, seconds, truncates that dropped a block)."""
+    from repro_torch.kernels import _build
+    eng = Engine(raw, cfg, EngineConfig(**fields), device="cuda")
+    dropped = []
+    if eng.paged:
+        truncate = eng.block_mgr.truncate
+
+        def spy(uid, n):
+            out = truncate(uid, n)
+            if out:
+                dropped.append(out)
+            return out
+        eng.block_mgr.truncate = spy
+    with CountByM() as by:
+        got, counts, dt = serve_counted(torch, eng, prompts, max_new)
+        inst = dict(_build.lut_instances)
+    if (len(got) != len(prompts)
+            or any(len(t) != max_new for t in got.values())
+            or any(not 0 <= tok < cfg.vocab for t in got.values()
+                   for tok in t)):
+        fail(f"{name}: expected {len(prompts)} completions of {max_new} "
+             "tokens in the vocabulary")
+    return eng, got, counts, dict(by.by_m), inst, dt, dropped
+
+
+def verify_vs_decode(torch, lm, eng, cfg):
+    """Verify's rows against the decode step's on the same cache: five
+    tokens per lane through one verify_step (M 40) and through five
+    decode steps (M 8) from two copies of the engine's pool.  Returns
+    (bit-equal, max abs difference)."""
+    def copy(cache):
+        return {"length": cache["length"].clone(),
+                "layers": {n: a.clone() for n, a in cache["layers"].items()}}
+    base = copy(eng.cache)
+    base["length"] = torch.full((8,), 100, dtype=torch.int32, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (8, SPEC_K + 1), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(9))
+    vl, vcache = lm.verify_step(eng.params, toks, copy(base), cfg,
+                                quant_kv=True, device="cuda")
+    dcache, rows = copy(base), []
+    for t in range(SPEC_K + 1):
+        dl, dcache = lm.decode_step(eng.params, toks[:, t:t + 1], dcache, cfg,
+                                    quant_kv=True, device="cuda")
+        rows.append(dl)
+    dl = torch.stack(rows, 1)
+    same = torch.equal(vl, dl) and all(
+        torch.equal(vcache["layers"][n], dcache["layers"][n])
+        for n in vcache["layers"])
+    return same, (vl - dl).abs().max().item()
+
+
+def verify_attention_err(torch, blk, eng, cfg):
+    """Verify's per-token decode attention (the kernel, ring mode, at
+    position + t) against the reference's chunk-causal composite on the
+    engine's dequantized cache, lanes at positions 40-100: max abs err."""
+    from repro_torch.core.quant import dequantize_kv
+    from repro_torch.kernels.decode_attn.ops import decode_attention_ring
+    layers = eng.cache["layers"]
+    k = dequantize_kv(layers["k"][0], layers["k_scale"][0])
+    v = dequantize_kv(layers["v"][0], layers["v_scale"][0])
+    gen = torch.Generator("cuda").manual_seed(3)
+    q = torch.randn((8, SPEC_K + 1, cfg.n_heads, cfg.head_dim),
+                    device="cuda", generator=gen)
+    pos = torch.arange(40, 104, 8, dtype=torch.int32, device="cuda")
+    got = torch.stack([decode_attention_ring(
+        q[:, t].contiguous(), layers["k"][0], layers["v"][0], pos + t,
+        cfg.window or 512, layers["k_scale"][0], layers["v_scale"][0])
+        for t in range(SPEC_K + 1)], 1)
+    want = blk._verify_attend(q, k, v, pos, cfg, k.shape[1])
+    return (got - want).abs().max().item()
+
+
+def phase_speculation(rt):
+    import dataclasses
+
+    import torch
+    from repro_torch import planning
+    from repro_torch.kernels import _build
+    from repro_torch.models import blocks as blk
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, _walk, \
+        map_tensors
+    from repro_torch.serving.engine import Engine, EngineConfig
+    cfg, raw = full_model(rt)
+    timer = Timer(torch)
+    res = rt["speculation"] = {"runs": {}}
+    prompts = engine_requests(cfg)
+    greedy = rt["ring_tokens"]["uniform:4"]
+
+    def record(name, eng, got, counts, by_m, inst, dt, dropped):
+        st = eng.stats()
+        sp = st["speculative"]
+        res["runs"][name] = dict(
+            tokens=st["generated_tokens"], seconds=dt,
+            decode_tok_per_s=st["measured_tps"],
+            rounds=st["decode_iterations"],
+            prefill_steps=st["prefill_iterations"], launches=counts,
+            lut_launches_by_m=by_m,
+            instances={instance_name(k): v for k, v in sorted(inst.items())},
+            speculative=sp, truncates_dropping_blocks=len(dropped),
+            equal_to_greedy=sum(got[u] == greedy.get(u) for u in got))
+        log(f"[speculation] {name}: {st['generated_tokens']} tokens in "
+            f"{dt:.3f} s, decode {st['measured_tps']:.1f} tok/s over "
+            f"{st['decode_iterations']} rounds; "
+            + (f"{sp['accepted']} of {sp['drafted']} drafts accepted "
+               f"({sp['acceptance_rate']:.3f}); " if sp else "")
+            + f"{res['runs'][name]['equal_to_greedy']} of 16 completions "
+            "equal plain greedy (phase 4)"
+            + (f"; {len(dropped)} truncates dropped "
+               f"{sum(dropped)} blocks" if eng.paged else ""))
+        return st
+
+    # (a) greedy speculation on the ring and the paged pool (run A's
+    # admission)
+    for name, fields in (("ring q2:k4", RING), ("paged q2:k4", RUN_A)):
+        eng, got, counts, by_m, inst, dt, dropped = serve_spec(
+            torch, Engine, EngineConfig, raw, cfg, name,
+            dict(fields, plan=SPEC_PLAN), prompts)
+        st = record(name, eng, got, counts, by_m, inst, dt, dropped)
+        sp = st["speculative"]
+        spec_launch_check(name, st, counts, by_m, inst, cfg, (2, 0),
+                          eng.paged)
+        if got != greedy:
+            bad = [u for u in greedy if got[u] != greedy[u]]
+            fail(f"{name}: tokens differ from plain greedy decoding for "
+                 f"requests {bad}")
+        if not sp["accepted"] < sp["drafted"]:
+            fail(f"{name}: no draft was rejected: no rollback ran")
+        if eng.paged:
+            if not dropped:
+                fail(f"{name}: no rollback truncate dropped a block")
+            eng.block_mgr.check_invariants()
+        else:
+            ring_eng = eng
+        del eng
+
+    # verify's rows are the decode step's, bit for bit: why greedy
+    # speculation commits plain decoding's tokens on the card
+    same, diff = verify_vs_decode(torch, lm, ring_eng, cfg)
+    attn_err = verify_attention_err(torch, blk, ring_eng, cfg)
+    log(f"[speculation] verify_step of 5 tokens x 8 lanes (LUT-GEMV at M 40, "
+        f"K split as at M 8) against 5 decode steps on copies of one pool: "
+        f"logits and KV bit-equal {same} (max abs diff {diff:.3e}); its "
+        f"per-token attention against the chunk-causal composite: max abs "
+        f"err {attn_err:.3e}")
+    if not same:
+        fail("verify rows differ from the decode step's")
+    if attn_err > ATTN_TOL:
+        fail(f"verify attention differs from the composite by {attn_err:.3e}")
+    res.update(verify_bit_equal_decode=same, verify_attention_err=attn_err)
+    del ring_eng
+
+    # (b) an int draft (q2a8) under the f32 b4 verify
+    name = "ring q2a8:k4"
+    eng, got, counts, by_m, inst, dt, dropped = serve_spec(
+        torch, Engine, EngineConfig, raw, cfg, name,
+        dict(RING, plan=SPEC_INT_PLAN), prompts)
+    st = record(name, eng, got, counts, by_m, inst, dt, dropped)
+    spec_launch_check(name, st, counts, by_m, inst, cfg, (2, 8), False)
+    if got != greedy:
+        fail(f"{name}: tokens differ from plain greedy decoding")
+    if counts["lut_matmul_int"] != inst.get((2, 8), 0):
+        fail(f"{name}: int LUT-GEMV launches outside the draft")
+    del eng
+
+    # (c) sampled speculation at T 0.7: ring equal to paged, every ring
+    # LUT-GEMV launch held against its plain version; phase 3's prompts
+    # and steps with greedy speculation, card against CPU
+    runs = {}
+    for name, fields in (("ring q2:k4 T0.7", RING),
+                         ("paged q2:k4 T0.7", RUN_A)):
+        with (Held(torch, name) if not fields.get("kv_block_size")
+              else contextlib.nullcontext()) as held:
+            eng, got, counts, by_m, inst, dt, dropped = serve_spec(
+                torch, Engine, EngineConfig, raw, cfg, name,
+                dict(fields, plan=SPEC_PLAN, **SAMPLED), prompts)
+        st = record(name, eng, got, counts, by_m, inst, dt, dropped)
+        if not eng.paged:
+            if sum(held.calls.values()) != counts["lut_matmul"]:
+                fail(f"{name}: {sum(held.calls.values())} launches held of "
+                     f"{counts['lut_matmul']}")
+            res["runs"][name]["held_err"] = dict(held.err)
+            log(f"[speculation] {name}: all {counts['lut_matmul']} LUT-GEMV "
+                f"launches (verify's at M 40 with decode's K split) within "
+                f"rtol {F32_RTOL} / atol {F32_ATOL} of their plain version "
+                f"(max abs err {held.err['f32']:.3e})")
+        spec_launch_check(name, st, counts, by_m, inst, cfg, (2, 0),
+                          eng.paged)
+        runs[name] = got
+        del eng
+    ring, paged = runs["ring q2:k4 T0.7"], runs["paged q2:k4 T0.7"]
+    same_rp = sum(ring[u] == paged[u] for u in ring)
+    off_greedy = sum(ring[u] != greedy[u] for u in ring)
+    log(f"[speculation] T 0.7, seed 7: {same_rp} of 16 paged completions "
+        f"equal the ring's; {off_greedy} of 16 differ from greedy")
+    if ring != paged or off_greedy == 0:
+        fail("sampled speculation: ring and paged differ, or equal greedy")
+    # at full width cut to 2 layers: the CPU's plain LUT-GEMV dequantizes
+    # each weight per call, and a round is k + 1 passes
+    toks, lengths = model_prompts(cfg)
+    short = [toks[i, :n].tolist() for i, n in enumerate(lengths)]
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    raw2 = dict(raw)
+    raw2["blocks"] = _walk(raw["blocks"], lambda _, x: x[:2].contiguous())
+    card_eng = Engine(raw2, cfg2, EngineConfig(**dict(RING, plan=SPEC_PLAN)),
+                      device="cuda")
+    card_uids = [card_eng.submit(p, max_new_tokens=5) for p in short]
+    card_eng.run()
+    card = {u: card_eng.completions[u].tokens for u in card_uids}
+    del card_eng
+    t0 = time.perf_counter()
+    cpu_eng = Engine(map_tensors(raw2, lambda t: t.cpu()), cfg2,
+                     EngineConfig(**dict(RING, plan=SPEC_PLAN)), device="cpu")
+    cpu_uids = [cpu_eng.submit(p, max_new_tokens=5) for p in short]
+    cpu_eng.run()
+    cpu = {u: cpu_eng.completions[u].tokens for u in cpu_uids}
+    cpu_sp = cpu_eng.stats()["speculative"]
+    cpu_s = time.perf_counter() - t0
+    del cpu_eng
+    log(f"[speculation] phase 3's prompts, 5 tokens, greedy {SPEC_PLAN}, "
+        f"full width at 2 layers: "
+        f"card {card}, CPU {cpu} (CPU {cpu_sp['rounds']} rounds, "
+        f"{cpu_sp['accepted']} of {cpu_sp['drafted']} drafts accepted, "
+        f"{cpu_s:.1f} s with the quantization)")
+    if card != cpu:
+        fail("greedy speculation: card and CPU tokens differ")
+    res.update(sampled_paged_equal_ring=same_rp,
+               sampled_differ_from_greedy=off_greedy,
+               card_vs_cpu=dict(card=card, cpu=cpu))
+
+    # (d) draft=auto solved on the card: the measured acceptance of bits
+    # 2-4 and the pick, held to the port's own pricing grid
+    base = QuantPolicy(bits=4, group_size=128, min_size=1024)
+    t0 = time.perf_counter()
+    planner = planning.Planner(raw, cfg, "uniform:4,draft=auto", base=base)
+    solved = planner.solve().spec
+    solve_s = time.perf_counter() - t0
+    acc = {bits: planner._draft_acceptance[(bits, None)]
+           for bits in planner.DRAFT_BITS_GRID}
+    policy = planning.PlanSpec.parse("uniform:4").to_policy(base)
+    cost = planner.cost
+    fixed = planner.fixed_bytes()
+    units = planning.policy_units(raw, policy)
+    plain_tps = cost.batch / cost.iteration_seconds(
+        cost.cycles(units), cost.qbytes(units, 128) + fixed)
+    grid = {}
+    for bits, alpha in acc.items():
+        d_units = planning.policy_units(raw, QuantPolicy(
+            bits=bits, group_size=128, min_size=1024))
+        for k in planner.DRAFT_K_GRID:
+            secs = planning.speculative_round_seconds(cost, units, d_units,
+                                                      128, fixed, k)
+            grid[(bits, k)] = cost.batch * planning.expected_tokens_per_round(
+                alpha, k) / secs
+    best = max(grid, key=grid.get)
+    want = (None if grid[best] < plain_tps * planner.DRAFT_MIN_GAIN
+            else best)
+    got_pick = (None if solved.draft is None
+                else (solved.draft.weight_bits, solved.draft.k))
+    eng = Engine(raw, cfg, EngineConfig(
+        **dict(RING, plan="uniform:4,draft=auto")), device="cuda")
+    log(f"[speculation] draft=auto on the card ({solve_s:.1f} s): measured "
+        f"acceptance {acc} (teacher-forced, 32 tokens after the 32-token "
+        f"calibration prompt); pick {solved.draft} = the grid's argmax "
+        f"{want} (best modeled {grid[best]:.0f} tok/s at (bits, k) {best} "
+        f"against plain {plain_tps:.0f} tok/s on the SAIL machine model, "
+        f"gain needed {planner.DRAFT_MIN_GAIN}); the engine serves plan "
+        f"{eng.plan.format()}")
+    if got_pick != want or eng.plan != solved:
+        fail(f"draft=auto: pick {got_pick}, the grid's argmax {want}, engine "
+             f"plan {eng.plan.format()}")
+    res["draft_auto"] = dict(acceptance=acc, pick=got_pick,
+                             grid_argmax=list(best),
+                             grid_best_tps_sail_model=grid[best],
+                             plain_tps_sail_model=plain_tps, seconds=solve_s)
+    del eng
+
+    # (e) the controller: an SLO the 8-lane pool cannot meet on the ring,
+    # and the free-block bound on a paged pool of 32 blocks
+    probe = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
+    slo = probe.planned_tps() * 1.5
+    del probe
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")       # the engine warns: SLO not met
+        eng, got, counts, by_m, inst, dt, _ = serve_spec(
+            torch, Engine, EngineConfig, raw, cfg, "controller ring",
+            dict(RING, slo=slo, controller=True), prompts)
+    c = eng.stats()["controller"]
+    log(f"[speculation] controller, ring, SLO {slo:.0f} tok/s (1.5 x the "
+        f"plan's modeled at 8 lanes): batch cap {c['batch_cap']}, shed "
+        f"{c['shed']}, shrink {c['shrink']}, {c['checks']} drift checks "
+        f"(replan {c['replan']}, skipped {c['skipped']}); peak active "
+        f"{eng.peak_active}; {sum(got[u] == greedy[u] for u in greedy)} of 16"
+        f" completions equal the uncontrolled run's")
+    if not (c["batch_cap"] < 8 and c["shed"] > 0 and eng.peak_active
+            <= c["batch_cap"]) or got != greedy:
+        fail("controller: no shedding under an infeasible SLO, or the "
+             "tokens changed")
+    res["controller_ring"] = dict(c, peak_active=eng.peak_active,
+                                  decode_tok_per_s=eng.stats()["measured_tps"],
+                                  launches=counts)
+    del eng
+    eng = Engine(raw, cfg, EngineConfig(**PAGED, kv_pool_blocks=32,
+                                        controller=True), device="cuda")
+    caps = []
+    batch_cap = eng.controller.batch_cap
+
+    def spy(pool, free_cap=None):
+        cap = batch_cap(pool, free_cap=free_cap)
+        caps.append((free_cap, cap))
+        return cap
+    eng.controller.batch_cap = spy
+    got, counts, dt = serve_counted(torch, eng, prompts)
+    st = eng.stats()
+    bound = min(f for f, _ in caps)
+    log(f"[speculation] controller, paged pool of 32 blocks of 16: the free-"
+        f"block bound fell to {bound} lanes (caps applied "
+        f"{sorted(collections.Counter(cap for _, cap in caps).items())}), "
+        f"peak active {eng.peak_active}, preemptions "
+        f"{st['block_pool']['preemptions']}; "
+        f"{sum(got[u] == greedy[u] for u in greedy)} of 16 completions equal"
+        f" the uncontrolled run's")
+    # a preempted request resumes from a re-prefill, whose KV rounds
+    # otherwise than the decode steps' did, so its later tokens may part
+    # from the ring's: reported, not required
+    if bound >= 8 or any(cap > max(min(8, f), 1) for f, cap in caps):
+        fail("controller, paged: the free-block bound did not bind, or a cap"
+             " passed it")
+    res["controller_paged"] = dict(min_free_cap=bound,
+                                   equal_to_greedy=sum(got[u] == greedy[u]
+                                                       for u in greedy),
+                                   peak_active=eng.peak_active,
+                                   block_pool=st["block_pool"],
+                                   controller=st["controller"])
+    del eng
+
+    # (f) the round's device time: the draft's k steps and verify, each as
+    # one CUDA graph, against the plain uniform:4 step, on one pool
+    eng = Engine(raw, cfg, EngineConfig(**dict(RING, plan=SPEC_PLAN)),
+                 device="cuda")
+    eng.cache["length"] = torch.full((8,), 100, dtype=torch.int32,
+                                     device="cuda")
+    tok = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    vt = torch.zeros((8, SPEC_K + 1), dtype=torch.int64, device="cuda")
+    t_draft = timer(lambda: lm.draft_tokens(
+        eng.spec_decoder.draft_params, tok, eng.cache, cfg, SPEC_K,
+        quant_kv=True, device="cuda"))
+    t_verify = timer(lambda: lm.verify_step(eng.params, vt, eng.cache, cfg,
+                                            quant_kv=True, device="cuda"))
+    t_step = timer(lambda: lm.decode_step(eng.params, tok, eng.cache, cfg,
+                                          quant_kv=True, device="cuda"))
+    del eng
+    ring_run = res["runs"]["ring q2:k4"]["speculative"]
+    lane_rounds = ring_run["drafted"] / SPEC_K
+    per_round = (ring_run["accepted"] + lane_rounds) / lane_rounds
+    per_token = (t_draft + t_verify) / per_round
+    spec_tps = res["runs"]["ring q2:k4"]["decode_tok_per_s"]
+    plain_tps_card = rt["engine"]["uniform:4"]["decode_tok_per_s"]
+    log(f"[speculation] {card_line()}: one round's device time (CUDA graphs, "
+        f"8 lanes, positions 100+): draft {SPEC_K} steps under q2 "
+        f"{t_draft:.3f} ms + verify of {SPEC_K + 1} tokens {t_verify:.3f} ms "
+        f"= {t_draft + t_verify:.3f} ms for {per_round:.3f} tokens per lane "
+        f"(measured in the ring run) = {per_token:.3f} ms per token, against "
+        f"the plain uniform:4 step's {t_step:.3f} ms "
+        f"({per_token / t_step:.3f} x); engine decode {spec_tps:.1f} tok/s "
+        f"with the draft against {plain_tps_card:.1f} tok/s without (phase "
+        f"4), same requests")
+    res["round"] = dict(card=card_line(), draft_ms=t_draft,
+                        verify_ms=t_verify, plain_step_ms=t_step,
+                        tokens_per_lane_round=per_round,
+                        ms_per_token=per_token,
+                        ratio_to_plain_step=per_token / t_step,
+                        decode_tok_per_s_draft=spec_tps,
+                        decode_tok_per_s_plain=plain_tps_card)
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -2378,6 +2813,17 @@ def kernels_line(rt) -> dict:
             for run, rec in rt["sampling"]["runs"].items()}
         entry["launches_sampling"]["paged C (copy-on-write)"] = \
             rt["paged"]["C"]["launches"][name]
+        # phase 9: the speculative runs (draft, verify and rollback) and the
+        # controlled ones
+        entry["launches_speculation"] = {
+            run: rec["launches"][name]
+            for run, rec in rt["speculation"]["runs"].items()}
+        entry["launches_speculation"]["controller ring"] = \
+            rt["speculation"]["controller_ring"]["launches"][name]
+        if name == "lut_matmul":
+            entry["launches_speculation_by_m"] = {
+                run: rec["lut_launches_by_m"]
+                for run, rec in rt["speculation"]["runs"].items()}
         if name.startswith("lut_matmul"):   # phases 6-7, per instance
             entry["launches_plans"] = {
                 run: {k: v for k, v in rec["instances"].items()
@@ -2417,8 +2863,8 @@ def main() -> int:
     for name, fn in (("build", phase_build), ("kernels", phase_kernels),
                      ("model", phase_model), ("engine", phase_engine),
                      ("paged", phase_paged), ("plans", phase_plans),
-                     ("planner", phase_planner),
-                     ("sampling", phase_sampling)):
+                     ("planner", phase_planner), ("sampling", phase_sampling),
+                     ("speculation", phase_speculation)):
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
@@ -2429,6 +2875,7 @@ def main() -> int:
                    "engine": rt["engine"], "paged": rt["paged"],
                    "plans": rt["plans"], "planner": rt["planner"],
                    "sampling": rt["sampling"],
+                   "speculation": rt["speculation"],
                    "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

@@ -25,7 +25,7 @@ versions here multiply by that reciprocal.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -139,14 +139,20 @@ def categorical(key: Tuple[int, int], logits: np.ndarray) -> np.ndarray:
     return np.argmax(gumbel(key, logits.shape) + logits, axis=-1)
 
 
-def row_keys(seed: int, uids, indices) -> Tuple[np.ndarray, np.ndarray]:
+def row_keys(seed: int, uids, indices,
+             salt: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Each row's sampling key ``fold_in(fold_in(PRNGKey(seed), uid),
-    index)`` as two uint32 arrays [B]."""
+    index)`` as two uint32 arrays [B]; with ``salt``, folded once more
+    (``fold_in(key, salt)``: the speculative draws' streams)."""
     uids = np.asarray(uids, np.int64).astype(_U32)
     indices = np.asarray(indices, np.int64).astype(_U32)
     zeros = np.zeros_like(uids)
     k0, k1 = threefry2x32(prng_key(seed), zeros, uids)
-    return threefry2x32((k0, k1), zeros, indices)
+    k0, k1 = threefry2x32((k0, k1), zeros, indices)
+    if salt is None:
+        return k0, k1
+    return threefry2x32((k0, k1), zeros,
+                        np.full_like(uids, int(salt) & 0xFFFFFFFF))
 
 
 def reciprocal(temperature: float) -> float:

@@ -195,11 +195,19 @@ def _card(index: int, bits: int, abits: int):
         return sms, occupancy(bits, abits)[0]
 
 
-def _card_plan(m: int, k: int, qt: QTensor, abits: int, device) -> Plan:
+def _card_plan(m: int, k: int, qt: QTensor, abits: int, device,
+               plan_rows: Optional[int] = None) -> Plan:
+    """The call's plan on its card.  ``plan_rows``: split K as a call of
+    that many rows is split, so each row sums its products in the order
+    such a call sums them (a row's sum depends on the splits only)."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return plan(m, k, qt.n, qt.group_size, qt.bits,
-                *_card(index, qt.bits, abits))
+    card = _card(index, qt.bits, abits)
+    p = plan(m, k, qt.n, qt.group_size, qt.bits, *card)
+    if plan_rows is not None and plan_rows != m:
+        p = with_splits(p, plan(plan_rows, k, qt.n, qt.group_size, qt.bits,
+                                *card).splits)
+    return p
 
 
 def _check_weight(qt: QTensor, k: int, device) -> None:
@@ -237,8 +245,11 @@ def _launch(x, xq, xs, qt: QTensor, p: Plan, abits: int,
     return y
 
 
-def lut_matmul_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ dequant(qt) on the card; x f32 contiguous."""
+def lut_matmul_cuda(x: torch.Tensor, qt: QTensor,
+                    plan_rows: Optional[int] = None) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ dequant(qt) on the card; x f32 contiguous.
+    ``plan_rows``: split K as for a call of that many rows
+    (``_card_plan``)."""
     if x.dtype != torch.float32 or x.ndim != 2:
         raise ValueError(f"lut_matmul_cuda takes f32 [M, K], got {x.dtype} "
                          f"{tuple(x.shape)}")
@@ -250,15 +261,16 @@ def lut_matmul_cuda(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
                          f"{x.device}")
     if not x.is_contiguous():
         raise ValueError("lut_matmul_cuda needs a contiguous x")
-    return _launch(x, None, None, qt, _card_plan(m, k, qt, 0, x.device), 0,
-                   x.device)
+    return _launch(x, None, None, qt,
+                   _card_plan(m, k, qt, 0, x.device, plan_rows), 0, x.device)
 
 
 def lut_matmul_int_cuda(x_q: torch.Tensor, x_scale: torch.Tensor,
-                        qt: QTensor, abits: Optional[int]) -> torch.Tensor:
+                        qt: QTensor, abits: Optional[int],
+                        plan_rows: Optional[int] = None) -> torch.Tensor:
     """y = (x_q @ dequant(qt)) * x_scale on the card; x_q int32 [M, K]
     ``abits``-bit codes widened in-kernel by Algorithm 1, x_scale f32
-    [M, 1]."""
+    [M, 1].  ``plan_rows`` as in :func:`lut_matmul_cuda`."""
     if abits not in SUPPORTED_ABITS:
         raise ValueError(f"abits={abits} not in {SUPPORTED_ABITS}")
     if x_q.dtype != torch.int32 or x_q.ndim != 2:
@@ -276,5 +288,5 @@ def lut_matmul_int_cuda(x_q: torch.Tensor, x_scale: torch.Tensor,
     if not (x_q.is_contiguous() and x_scale.is_contiguous()):
         raise ValueError("lut_matmul_int_cuda needs contiguous inputs")
     return _launch(None, x_q, x_scale, qt,
-                   _card_plan(m, k, qt, abits, x_q.device), abits,
+                   _card_plan(m, k, qt, abits, x_q.device, plan_rows), abits,
                    x_q.device)

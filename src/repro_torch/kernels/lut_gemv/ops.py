@@ -4,6 +4,8 @@ the QTensor carries ``abits`` the activations are quantized per token
 and the integer path runs (reference ``lut_gemv/ops.py:96-99``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.quant import QTensor, quantize_activations
@@ -14,21 +16,27 @@ from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref, \
     lut_matmul_ref_int
 
 
-def lut_matmul(x: torch.Tensor, qt: QTensor) -> torch.Tensor:
-    """y[M, N] = x[M, K] @ dequant(qt) in f32, the SAIL serving matmul."""
+def lut_matmul(x: torch.Tensor, qt: QTensor,
+               plan_rows: Optional[int] = None) -> torch.Tensor:
+    """y[M, N] = x[M, K] @ dequant(qt) in f32, the SAIL serving matmul.
+    ``plan_rows``: on the card, split K as for a call of that many rows, so
+    each row's sum is bit-equal to that call's (speculative verify sums its
+    B x (k+1) rows as the decode step's B rows); the plain version has no
+    split."""
     if qt.abits is not None and x.is_floating_point():
         x_q, x_scale = quantize_activations(x, qt.abits)
-        return lut_matmul_quantized(x_q, x_scale, qt)
+        return lut_matmul_quantized(x_q, x_scale, qt, plan_rows)
     if route(x) == "cuda":
-        return lut_matmul_cuda(x, qt)
+        return lut_matmul_cuda(x, qt, plan_rows)
     return lut_matmul_ref(x, qt)
 
 
 def lut_matmul_quantized(x_q: torch.Tensor, x_scale: torch.Tensor,
-                         qt: QTensor) -> torch.Tensor:
+                         qt: QTensor,
+                         plan_rows: Optional[int] = None) -> torch.Tensor:
     """y[M, N] = (x_q @ dequant(qt)) * x_scale — the int-activation path.
     x_q int32 codes and x_scale f32 [M, 1] from ``quantize_activations``."""
     abits = qt.abits if qt.abits is not None else 8
     if route(x_q) == "cuda":
-        return lut_matmul_int_cuda(x_q, x_scale, qt, abits)
+        return lut_matmul_int_cuda(x_q, x_scale, qt, abits, plan_rows)
     return lut_matmul_ref_int(x_q, x_scale, qt)

@@ -18,6 +18,10 @@ when CUDA is missing.
     ... --plan 'auto:q4a8,kv=auto' --save-plan plan.json
     # SLO-driven: derive the cycle+DRAM budgets from a target tokens/s
     ... --slo 80 --tap 512        # tap live traffic for later replans
+    # self-speculative decoding: a q2 draft of the same weights, k = 4
+    ... --plan 'uniform:4,draft=q2:k4'      # or draft=auto
+    # the SLO controller: shed admissions against the SLO, replan on drift
+    ... --slo 2000 --controller --deadband 0.25 --check-every 8
 
 ``--bit-policy`` remains as a deprecated alias routed through
 ``PlanSpec.parse``.  The modeled tokens/s it prints are the paper's SAIL
@@ -62,6 +66,20 @@ def main(argv=None) -> None:
                     help="capture per-layer decode activations into an "
                          "ActivationTap of this capacity (enables online "
                          "PRT recalibration via Engine.replan)")
+    ap.add_argument("--controller", action="store_true",
+                    help="attach the SLO controller "
+                         "(repro_torch.serving.control.SloController): "
+                         "sheds/shrinks occupancy against --slo and gates "
+                         "replans on measured-vs-modeled drift")
+    ap.add_argument("--deadband", type=float, default=None,
+                    help="controller: |anchored drift| tolerated without "
+                         "action (default 0.25)")
+    ap.add_argument("--cooldown", type=int, default=None,
+                    help="controller: decode iterations between actions "
+                         "(default 32)")
+    ap.add_argument("--check-every", type=int, default=None,
+                    help="controller: decode iterations between drift "
+                         "checks (default 8)")
     ap.add_argument("--bit-policy", default=None,
                     help="DEPRECATED alias for --plan (grammar strings "
                          "only)")
@@ -88,10 +106,17 @@ def main(argv=None) -> None:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=dev)
     plan = plan_from_arg(args.plan) if args.plan is not None else None
+    controller = None
+    if args.controller:
+        knobs = {k: v for k, v in (("deadband", args.deadband),
+                                   ("cooldown", args.cooldown),
+                                   ("check_every", args.check_every))
+                 if v is not None}
+        controller = knobs or True
     eng = Engine(params, cfg, EngineConfig(
         batch_size=args.batch, cache_len=args.cache_len, ql=args.ql,
         plan=plan, slo=args.slo, tap_capacity=args.tap,
-        bit_policy=args.bit_policy, mode=args.mode,
+        controller=controller, bit_policy=args.bit_policy, mode=args.mode,
         prefill_budget=args.prefill_budget,
         group_size=(args.group_size if args.group_size is not None
                     else min(128, cfg.d_model)),
@@ -137,6 +162,22 @@ def main(argv=None) -> None:
               f"{st['planned_tps']:.0f} tok/s at the full pool (raw drift "
               f"{st['drift']:+.3f}: a comparison of two machines, not a "
               "calibration check)")
+    if st["speculative"] is not None:
+        sp = st["speculative"]
+        rate = ("n/a" if sp["acceptance_rate"] is None
+                else f"{sp['acceptance_rate']:.3f}")
+        acts = ("" if sp["draft_act_bits"] is None
+                else f"a{sp['draft_act_bits']}")
+        print(f"speculative: draft q{sp['draft_bits']}{acts}, k={sp['k']}: "
+              f"{sp['rounds']} rounds, {sp['accepted']} of {sp['drafted']} "
+              f"drafts accepted ({rate})")
+    if st["controller"] is not None:
+        c = st["controller"]
+        print(f"controller: batch cap {c['batch_cap']}, "
+              f"{c['checks']} drift checks, "
+              f"shed {c['shed']} / shrink {c['shrink']} / "
+              f"replan {c['replan']} / resolve {c['resolve']} / "
+              f"skipped {c['skipped']}")
     if eng.tap is not None:
         print(f"tap: {st['tapped_rows']} activation rows captured across "
               f"{eng.tap.n_layers} layers (Engine.replan() recalibrates "

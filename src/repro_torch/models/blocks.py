@@ -11,6 +11,16 @@ reference's jnp ``_decode_attend`` (``blocks.py:236``): in ring mode, or
 in table mode, which reads each lane's blocks through its table where the
 reference gathers them into a contiguous view first (``blocks.py:191-216``).
 So the f32 K/V view of an int8 cache is never built on the card.
+
+Speculative verify (``block_apply_verify``) feeds T tokens per lane through
+a layer at once: every weight matmul is one LUT-GEMV call over the B x T
+rows, split as the decode step's B-row call is split, and the rest runs as
+the decode step runs it, token by token (the RMSNorm's row reduction and
+decode attention at ``position + t``).  So a verified row equals the decode
+step's on the same cache bit for bit, and greedy speculation commits the
+tokens plain decoding does.  The reference's chunk-causal composite
+(``_verify_attend``) is kept as the plain version that attention is held
+to.
 """
 from __future__ import annotations
 
@@ -183,3 +193,147 @@ def _decode_attend(q, k, v, position, cfg: ModelConfig, cache_len: int):
     out = decode_attention_ring_ref(q.reshape(b, hh, dh), k, v, position,
                                     window)
     return out.reshape(b, 1, hh, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# speculative verify (multi-token decode, cache update)
+# ---------------------------------------------------------------------------
+
+def per_token(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` on each token's [B, 1, ...] slice of x [B, T, ...], as the
+    decode step calls it (a row reduction's result depends on how many
+    rows one call reduces), concatenated back along T."""
+    return torch.cat([fn(x[:, t:t + 1].contiguous())
+                      for t in range(x.shape[1])], dim=1)
+
+
+def block_apply_verify(p, x: torch.Tensor, cfg: ModelConfig,
+                       layer_cache: Dict[str, torch.Tensor],
+                       position: torch.Tensor, cache_len: int,
+                       quant_kv: bool = False,
+                       block_tables: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Multi-token decode for speculative verification.
+
+    x [B, T, D]: the pending token and the drafts, at absolute positions
+    ``position + t`` (position [B] the first one's).  Writes KV for all T
+    positions into ``layer_cache`` in place, over whatever the draft left
+    there, then attends chunk-causally: query t sees every cached position
+    ``<= position + t`` inside the window, the tokens written by this call
+    included, never the later ones.  Query t goes through decode attention
+    at position ``position + t``: the ring (or the lane's table) holds no
+    position past the frontier, because lanes never wrap (the engine's
+    ``submit`` reserves the lookahead), so the later tokens of the chunk
+    are invalid there.  Returns x.
+
+    ``block_tables``: paged mode, as in :func:`block_apply_decode`."""
+    in_dtype = x.dtype
+    b, t, _ = x.shape
+    norm = lambda name, v: per_token(
+        lambda r: apply_norm(p[name], r, cfg), v)
+    h = norm("attn_norm", x)
+    q = mm(h, p["attn"]["wq"], b).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = mm(h, p["attn"]["wk"], b).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    v = mm(h, p["attn"]["wv"], b).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    qpos = position[:, None] + torch.arange(t, device=x.device)[None, :]
+    q = apply_rope(q, qpos, cfg)
+    k = apply_rope(k, qpos, cfg)
+
+    if block_tables is None:
+        slot = torch.remainder(qpos, cache_len)
+        write = lambda cache, val: _ring_write_multi(cache, val, slot)
+    else:
+        bs = layer_cache["k"].shape[1]
+        logical = torch.clamp(torch.div(qpos, bs, rounding_mode="floor"),
+                              0, block_tables.shape[1] - 1)
+        phys = torch.gather(block_tables, 1, logical.to(torch.int64))
+        off = torch.remainder(qpos, bs)
+        write = lambda cache, val: _paged_write_multi(cache, val, phys, off)
+    if quant_kv:
+        kq, ks = quantize_kv(k)
+        vq, vs = quantize_kv(v)
+        write(layer_cache["k"], kq)
+        write(layer_cache["v"], vq)
+        write(layer_cache["k_scale"], ks)
+        write(layer_cache["v_scale"], vs)
+        scales = (layer_cache["k_scale"], layer_cache["v_scale"])
+    else:
+        write(layer_cache["k"], k)
+        write(layer_cache["v"], v)
+        scales = (None, None)
+
+    window = cfg.window if cfg.window is not None else cache_len
+    pos = position.to(torch.int32)
+    outs = []
+    for j in range(t):
+        qj = q[:, j].contiguous()
+        if block_tables is None:
+            outs.append(decode_attention_ring(
+                qj, layer_cache["k"], layer_cache["v"], pos + j, window,
+                *scales))
+        else:
+            outs.append(decode_attention_paged(
+                qj, layer_cache["k"], layer_cache["v"], pos + j,
+                block_tables, window, *scales))
+    attn = torch.stack(outs, dim=1)
+    attn_out = mm(attn.reshape(b, t, cfg.q_dim), p["attn"]["wo"], b)
+    x = (x + attn_out).to(in_dtype)
+    h = norm("mlp_norm", x)
+    return (x + apply_mlp(p["mlp"], h, cfg, plan_rows=b)).to(in_dtype)
+
+
+def _ring_write_multi(cache: torch.Tensor, val: torch.Tensor,
+                      slot: torch.Tensor) -> None:
+    """Write T consecutive tokens per lane into the ring cache, in place.
+
+    cache [B, S, KV, D(or 1)], val [B, T, KV, D], slot [B, T]: distinct
+    within a lane whenever T <= S (speculative lanes never wrap)."""
+    b = cache.shape[0]
+    cache[torch.arange(b, device=cache.device)[:, None], slot] = \
+        val.to(cache.dtype)
+
+
+def _paged_write_multi(pool: torch.Tensor, val: torch.Tensor,
+                       phys: torch.Tensor, off: torch.Tensor) -> None:
+    """Write T tokens per lane through the block tables, in place.
+
+    pool [NB, BS, KV, D(or 1)], val [B, T, KV, D], phys/off [B, T].
+    Masked lanes' tables point at the trash block, so destinations repeat
+    there (which value lands is unspecified on CUDA and never read); a
+    live lane's T rows were granted to it alone."""
+    b, t = phys.shape
+    flat = val.reshape((b * t,) + tuple(val.shape[2:]))
+    pool[phys.reshape(-1), off.reshape(-1)] = flat.to(pool.dtype)
+
+
+def _verify_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   position: torch.Tensor, cfg: ModelConfig,
+                   cache_len: int) -> torch.Tensor:
+    """The reference's chunk-causal attention of T query tokens over the
+    ring cache (``blocks.py:397-428``), in plain PyTorch: the plain
+    version :func:`block_apply_verify`'s per-token attention is held to.
+
+    q [B, T, H, Dh]; k, v [B, S, KV, Dh] f32, all T tokens' KV written, so
+    slot contents correspond to ``final = position + T - 1``; query t at
+    ``qpos = position + t`` admits slots whose held position is in
+    ``(qpos - window, qpos]``."""
+    b, t, hh, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = hh // kv
+    dev = q.device
+    qg = q.reshape(b, t, kv, g, dh).to(torch.float32)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, k.to(torch.float32))
+    scores = scores / torch.sqrt(torch.tensor(float(dh)))
+    slots = torch.arange(s, device=dev)[None, :]
+    final = (position.to(torch.int64) + t - 1)[:, None]
+    age = torch.remainder(torch.remainder(final, s) - slots, s)
+    held = final - age                                   # [B, S] absolute
+    qpos = position.to(torch.int64)[:, None] + torch.arange(t, device=dev)
+    window = cfg.window if cfg.window is not None else cache_len
+    valid = ((held[:, None, :] >= 0)
+             & (held[:, None, :] <= qpos[:, :, None])
+             & (held[:, None, :] > qpos[:, :, None] - window))  # [B, T, S]
+    scores = scores.masked_fill(~valid[:, None, None], float("-inf"))
+    prob = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgts,bskd->btkgd", prob, v.to(torch.float32))
+    return out.reshape(b, t, hh, dh).to(q.dtype)

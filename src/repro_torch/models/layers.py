@@ -112,7 +112,8 @@ def mlp_init(generator, cfg: ModelConfig, lead=(), device=None):
             "w_down": dense_init(generator, lead + (f, d), device=device)}
 
 
-def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """SwiGLU."""
-    h = F.silu(mm(x, p["w_gate"])) * mm(x, p["w_up"])
-    return mm(h, p["w_down"])
+def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
+              plan_rows: Optional[int] = None) -> torch.Tensor:
+    """SwiGLU (``plan_rows``: see ``sail_linear.mm``)."""
+    h = F.silu(mm(x, p["w_gate"], plan_rows)) * mm(x, p["w_up"], plan_rows)
+    return mm(h, p["w_down"], plan_rows)

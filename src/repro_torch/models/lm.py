@@ -1,6 +1,7 @@
 """Causal language model serving path (port of ``repro.models.lm``,
 dense family, ring and paged KV pools): init, the full-sequence forward,
-prefill, decode.
+prefill, decode, and speculative decoding's k-step draft and multi-token
+verify.
 
 A Python loop over layers replaces the reference's ``lax.scan``; the
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
@@ -21,6 +22,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.quant import quantize_kv
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
@@ -88,8 +90,9 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
     return params["embed"][tokens]
 
 
-def lm_logits(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return mm(x, params["lm_head"])
+def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
+              plan_rows: Optional[int] = None) -> torch.Tensor:
+    return mm(x, params["lm_head"], plan_rows)
 
 
 def forward(params, tokens, cfg: ModelConfig, device="cuda"):
@@ -313,6 +316,100 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
     if capture_layer_inputs:
         return logits, cache, torch.stack(captured)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: the k-step draft and the multi-token verify
+# ---------------------------------------------------------------------------
+
+# Stream salts keep the speculative draws (draft sampling, acceptance coin
+# flips, residual resampling, bonus draws) on key streams of their own,
+# apart from the committed-token sampler's, all folded from the same
+# (seed, uid, per-request sample index) triple, so the draws do not depend
+# on the pool layout or on preemption (the reference's values).
+DRAFT_SALT = 0x0D_0A_F7
+ACCEPT_SALT = 0x0A_CC_E7
+RESAMPLE_SALT = 0x0E_55_1D
+BONUS_SALT = 0x0B_00_05
+
+
+def verify_step(params, tokens, cache, cfg: ModelConfig,
+                quant_kv: bool = False, active_mask=None, device="cuda",
+                block_tables: Optional[torch.Tensor] = None):
+    """Multi-token decode for speculative verification.
+
+    tokens [B, T] occupy absolute positions ``cache["length"] + t``.
+    Returns ``(logits [B, T, V], cache)``: row i is the next-token
+    distribution after ``tokens[:, :i+1]`` on top of the cache.  KV is
+    written in place for all T positions (over whatever the draft left
+    there), and ``length`` advances by T on active lanes; the engine then
+    sets it to the accepted frontier, which is the whole rollback on the
+    ring (slots past the frontier are invalid until rewritten in order).
+    Each row's weight matmuls split as the decode step's B-row call does
+    and the rest runs token by token as ``decode_step`` does, so a row's
+    logits are the decode step's on the same cache, bit for bit on the
+    card.  ``block_tables``: paged mode, as in :func:`decode_step`."""
+    dev = resolve_device(device)
+    tokens = _tokens(tokens, dev)
+    b, t = tokens.shape
+    position = cache["length"]
+    x = embed_tokens(params, tokens, cfg)
+    cache_len = cache["layers"]["k"].shape[2]
+    if block_tables is not None:
+        cache_len = block_tables.shape[1] * cache_len
+    for i, p_l in iter_layers(params):
+        layer_cache = {name: a[i] for name, a in cache["layers"].items()}
+        x = blk.block_apply_verify(p_l, x, cfg, layer_cache, position,
+                                   cache_len, quant_kv=quant_kv,
+                                   block_tables=block_tables)
+    x = blk.per_token(lambda r: apply_norm(params["final_norm"], r, cfg), x)
+    logits = lm_logits(params, x, cfg, plan_rows=b)         # [B, T, V]
+    if active_mask is None:
+        cache["length"] = position + t
+    else:
+        mask = torch.as_tensor(active_mask, device=dev).to(torch.int32)
+        cache["length"] = position + t * mask
+    return logits, cache
+
+
+def draft_tokens(params, tokens, cache, cfg: ModelConfig, k: int,
+                 quant_kv: bool = False, active_mask=None, device="cuda",
+                 block_tables: Optional[torch.Tensor] = None,
+                 temperature: float = 0.0, seed: int = 0, uids=None,
+                 indices=None):
+    """Draft ``k`` tokens per lane: k :func:`decode_step` calls under the
+    draft weight tree, sampling between them: argmax at ``temperature``
+    0, else ``categorical(key, row / T)`` under ``key =
+    fold_in(fold_in(fold_in(PRNGKey(seed), uid), index + i), DRAFT_SALT)``
+    (``prng.draw_with_keys``; the keys of all k steps are made on the
+    host at once).
+
+    tokens [B, 1]: the pending token.  Returns ``(draft [B, k] int64,
+    draft_logits [B, k, V], cache)``.  The draft's KV lands at positions
+    ``length .. length + k - 1`` at draft precision; verify overwrites
+    every one of those slots."""
+    dev = resolve_device(device)
+    tok = _tokens(tokens, dev)
+    keys = None
+    if temperature > 0.0:
+        idx = np.asarray(indices, np.int64)
+        keys = torch.from_numpy(np.stack([
+            np.stack(prng.row_keys(seed, uids, idx + i, salt=DRAFT_SALT), 1)
+            for i in range(k)]).view(np.int32)).to(dev)     # [k, B, 2]
+    drafted, qlogits = [], []
+    for i in range(k):
+        logits, cache = decode_step(params, tok, cache, cfg,
+                                    quant_kv=quant_kv,
+                                    active_mask=active_mask, device=dev,
+                                    block_tables=block_tables)
+        if keys is None:
+            nxt = torch.argmax(logits, dim=-1)
+        else:
+            nxt = prng.draw_with_keys(logits, keys[i], temperature).tokens
+        drafted.append(nxt)
+        qlogits.append(logits)
+        tok = nxt[:, None]
+    return torch.stack(drafted, 1), torch.stack(qlogits, 1), cache
 
 
 def greedy_generate(params, prompt, cfg: ModelConfig, max_new: int,

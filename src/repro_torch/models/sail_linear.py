@@ -79,13 +79,16 @@ def _apply_act_quant(x: torch.Tensor, w: Any):
     return x, w
 
 
-def mm(x: torch.Tensor, w: Any) -> torch.Tensor:
-    """x [..., K] @ w [K, N] with QTensor dispatch."""
+def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None
+       ) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with QTensor dispatch (``plan_rows``: see
+    ``kernels.lut_gemv.ops.lut_matmul``)."""
     x, w = _apply_act_quant(x, w)
     if isinstance(w, QTensor):
         from repro_torch.kernels.lut_gemv.ops import lut_matmul
         lead = x.shape[:-1]
-        y = lut_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w)
+        y = lut_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
+                       plan_rows)
         return y.reshape(*lead, w.n)
     return x @ w
 

@@ -7,8 +7,9 @@ probes, the budgeted solve, SLO budgets, ``kv=auto``, ``tp=auto``, online
 replan; ``planner.py``), ``ActivationTap`` (live-traffic capture,
 ``tap.py``) and ``run_calibration`` (the cost model refit to timings on
 this host, ``calibrate_cost.py``), with ``as_plan`` / ``plan_from_arg`` /
-``resolve_plan``.  Not ported yet: ``draft=`` plans (speculative decoding)
-and serving ``tp > 1`` (ROADMAP, Queue 1 item 3).
+``resolve_plan``.  A ``draft=`` plan serves self-speculative decoding and
+``draft=auto`` is grid-solved on measured acceptance; serving ``tp > 1`` is
+not ported yet (ROADMAP, Queue 1 item 3f).
 """
 from __future__ import annotations
 
@@ -98,22 +99,13 @@ def as_plan(obj: Any) -> PlanSpec:
 
 def check_servable(plan: PlanSpec) -> None:
     """Raise ``NotImplementedError`` (naming its ROADMAP item) for a plan
-    the port cannot serve: a ``draft`` (concrete or ``auto``) needs
-    speculative decoding and an integer ``tp > 1`` tensor-parallel
-    serving.  Unsolved plans (``auto`` modes, ``kv=auto``, ``tp=auto``)
-    serve: ``resolve_plan`` runs the Planner on them."""
-    if plan.draft == "auto":
-        raise NotImplementedError(
-            f"plan {plan.format()!r}: draft=auto needs speculative decoding "
-            "(its acceptance probe), not ported yet (ROADMAP, Queue 1 item 3)")
-    if plan.draft is not None:
-        raise NotImplementedError(
-            f"plan {plan.format()!r}: a draft plan needs speculative "
-            "decoding, not ported yet (ROADMAP, Queue 1 item 3)")
+    the port cannot serve: an integer ``tp > 1`` needs tensor-parallel
+    serving.  Unsolved plans (``auto`` modes, ``kv=auto``, ``tp=auto``,
+    ``draft=auto``) serve: ``resolve_plan`` runs the Planner on them."""
     if isinstance(plan.tp, int) and plan.tp > 1:
         raise NotImplementedError(
             f"plan {plan.format()!r}: tp={plan.tp} needs tensor-parallel "
-            "serving, not ported yet (ROADMAP, Queue 1 item 3)")
+            "serving, not ported yet (ROADMAP, Queue 1 item 3f)")
 
 
 def resolve_plan(plan: Any, params, cfg, base=None, slo: Optional[Slo] = None,

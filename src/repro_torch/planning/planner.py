@@ -24,8 +24,9 @@ Invariants:
   ``weights_per_unit`` / ``acts_per_unit``, ``kv_bits="auto"`` resolves to
   8 or 32 (the per-layer KV probe against ``kv_tolerance``) and
   ``tp="auto"`` to the smallest priced shard count meeting the SLO (1
-  without one).  ``draft="auto"`` needs speculative decoding, not ported
-  (ROADMAP, Queue 1 item 3).
+  without one).  ``draft="auto"`` resolves to the (draft bits, k) pair of
+  the best modeled accepted tokens/s, on acceptance measured on this
+  device, or to no draft when speculating would not pay.
 - ``replan`` never changes the served allocation unless ``resolve=True``.
 """
 
@@ -115,6 +116,8 @@ class Planner:
         self.kv_tolerance = kv_tolerance
         self._kv_scores: Optional[dict] = None
         self._fixed_bytes: Optional[int] = None
+        # measured draft acceptance per (draft_bits, act_bits): k-independent
+        self._draft_acceptance: dict = {}
         # probe forwards run so far (output + activation probes)
         self.probe_stats: dict = {}
         self.last: Optional[PlanResult] = None
@@ -186,7 +189,10 @@ class Planner:
             plan = self._resolve_tp(plan, slo)
         if plan.mode != "auto":
             if plan.draft == "auto":
-                plan = self._resolve_draft(plan)
+                # the served policy is already determined: strip the draft
+                # to read it, then price drafts against it
+                conservative = dataclasses.replace(plan, draft=None).to_policy(self.base)
+                plan = self._resolve_draft(plan, conservative, slo)
             policy = plan.to_policy(self.base)
             result = PlanResult(
                 spec=plan,
@@ -238,7 +244,7 @@ class Planner:
         policy, report = sens.calibrate_policy(self.params, self.cfg, self.base, **kwargs)
         solved = self._solved_spec(plan, report, slo)
         if solved.draft == "auto":
-            solved = self._resolve_draft(solved)
+            solved = self._resolve_draft(solved, policy, slo)
         result = PlanResult(
             spec=solved,
             policy=policy,
@@ -299,12 +305,64 @@ class Planner:
             act_bits=plan.act_bits if plan.act_bits is not None else self.base.act_bits,
         )
 
-    def _resolve_draft(self, plan: PlanSpec) -> PlanSpec:
-        """``draft="auto"`` measures draft acceptance by speculative
-        decoding, which is not ported."""
-        raise NotImplementedError(
-            f"plan {plan.format()!r}: draft=auto needs speculative decoding "
-            "(its acceptance probe), not ported yet (ROADMAP, Queue 1 item 3)")
+    #: ``draft="auto"`` search grid — aggressive bit widths the draft tree
+    #: may requantize to, and lookahead depths worth pricing
+    DRAFT_BITS_GRID = (2, 3, 4)
+    DRAFT_K_GRID = (2, 3, 4, 6, 8)
+    #: modeled tokens/s must beat plain decode by this factor before the
+    #: planner commits a draft (draft=None is the honest answer otherwise)
+    DRAFT_MIN_GAIN = 1.02
+
+    def _resolve_draft(self, plan: PlanSpec, policy, slo: Optional[Slo]) -> PlanSpec:
+        """Resolve ``draft="auto"`` to a concrete DraftSpec, or None.
+
+        Grid search over (draft bits, lookahead k) for the most modeled
+        accepted tokens/s, ``batch * E[tokens/round] / round_seconds``:
+        each bit width's per-token acceptance is measured (greedy
+        teacher-forced agreement with the served tree,
+        ``serving.speculative.measure_acceptance`` on the device the raw
+        tree lives on, cached and reused across k) and rounds are priced
+        by ``speculative_round_seconds`` on the SAIL machine model.  A
+        candidate wins only if it beats plain decode by
+        ``DRAFT_MIN_GAIN``; otherwise the plan ships without a draft."""
+        from repro_torch.planning.cost import (expected_tokens_per_round,
+                                               policy_units,
+                                               speculative_round_seconds)
+        from repro_torch.planning.spec import DraftSpec
+        from repro_torch.serving.speculative import (draft_policy,
+                                                     measure_acceptance)
+
+        cost = dataclasses.replace(
+            self.cost, batch=slo.batch if slo is not None else self.cost.batch
+        )
+        fixed = self.fixed_bytes()
+        verify_units = policy_units(self.params, policy)
+        plain_secs = cost.iteration_seconds(
+            cost.cycles(verify_units), cost.qbytes(verify_units, policy.group_size) + fixed
+        )
+        plain_tps = cost.batch / plain_secs
+        abits = plan.act_bits
+        # probe on the corpus the sensitivity probes use
+        prompt = [int(t) for t in self._calib_tokens()[0]]
+        best: Optional[tuple] = None  # (tps, DraftSpec)
+        for bits in self.DRAFT_BITS_GRID:
+            key = (int(bits), abits)
+            if key not in self._draft_acceptance:
+                self._draft_acceptance[key] = measure_acceptance(
+                    self.params, self.cfg, policy, bits, act_bits=abits, prompt=prompt
+                )
+            alpha = self._draft_acceptance[key]
+            d_units = policy_units(self.params, draft_policy(policy, DraftSpec(bits, abits, 1)))
+            for k in self.DRAFT_K_GRID:
+                secs = speculative_round_seconds(
+                    cost, verify_units, d_units, policy.group_size, fixed, k
+                )
+                tps = cost.batch * expected_tokens_per_round(alpha, k) / secs
+                if best is None or tps > best[0]:
+                    best = (tps, DraftSpec(int(bits), abits, k, acceptance=alpha))
+        if best is None or best[0] < plain_tps * self.DRAFT_MIN_GAIN:
+            return dataclasses.replace(plan, draft=None)
+        return dataclasses.replace(plan, draft=best[1])
 
     def _solved_spec(self, plan: PlanSpec, report, slo: Optional[Slo]) -> PlanSpec:
         assign = report.bits_by_unit

@@ -58,10 +58,22 @@ Sampling is greedy at ``temperature`` 0.  Above it each token is
 uid), index)``, the reference's key stream bit for bit
 (``core.prng.draw_rows``, one draw on the engine's device per step), where
 ``index`` counts the request's committed tokens: a request samples the
-same tokens whatever the batch, the pool layout or a preemption.  Not
-ported yet (ROADMAP, Queue 1 item 3): the controller (with the paged
-pool's free-block cap), speculation and ``draft`` plans (with the paged
-verify), and tensor parallelism (``tp > 1``, with its paged prefill).
+same tokens whatever the batch, the pool layout or a preemption.
+
+A plan's ``draft=q<b>[a<ab>]:k<k>`` (or ``draft=auto``, which the Planner
+solves against measured acceptance) serves self-speculative decoding
+(``serving.speculative``): each decode iteration is a round of k draft
+steps under an aggressive requantization of the same raw tree, one
+(k+1)-token verify under the served tree and the acceptance rule; the
+rollback sets each lane's length to its accepted frontier and, on the
+paged pool, truncates its block table.  Greedy rounds commit plain
+decoding's tokens.  ``EngineConfig.controller`` attaches a
+``serving.control.SloController``: admissions are shed (deferred) and
+the decode batch capped at the largest occupancy whose modeled iteration
+(or round) time meets the SLO, bounded on the paged pool by the blocks
+free, and a replan is asked for when measured-vs-modeled drift leaves the
+deadband.  Not ported yet: tensor parallelism (``tp > 1``, ROADMAP,
+Queue 1 item 3f).
 """
 from __future__ import annotations
 
@@ -82,6 +94,9 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
     quantize_params
 from repro_torch.serving.block_pool import BlockSpaceManager
+from repro_torch.serving.control import ControllerConfig, SloController
+from repro_torch.serving.speculative import SpeculativeDecoder, \
+    accept_greedy
 
 
 @dataclasses.dataclass
@@ -114,6 +129,11 @@ class EngineConfig:
     # requantize mid-serve: None retains them exactly when a tap is
     # attached; True for tap-less swaps, False to free them (replan raises)
     retain_raw: Optional[bool] = None
+    # autonomous SLO control loop: True (defaults), a knob dict, or a
+    # serving.control.ControllerConfig.  The controller sheds / shrinks
+    # occupancy against the SLO and gates replans on measured-vs-modeled
+    # drift (continuous mode only).
+    controller: Any = None
     # DEPRECATED legacy surface (use ``plan``): None, QuantPolicy, policy
     # spec dict, or grammar string
     bit_policy: Any = None
@@ -163,6 +183,8 @@ class Engine:
         self.replan_count = 0
         self.prt_hit_rate: Optional[float] = None
         self.tap: Optional[planning.ActivationTap] = None
+        self.controller: Optional[SloController] = None
+        self.spec_decoder: Optional[SpeculativeDecoder] = None
         # plan pricing on the SAIL machine model: the plan's units and
         # fixed bytes (None without a plan), iteration seconds memoized
         # per occupancy, and the modeled seconds of the decode steps run
@@ -245,6 +267,51 @@ class Engine:
                 self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
                                            self._quant_kv,
                                            device=self.device)
+        draft = self.plan.draft if self.plan is not None else None
+        if draft is not None:
+            self._check_speculative(draft)
+            # the draft tree requantizes the SAME raw tree aggressively and
+            # stays resident beside the served one
+            self.spec_decoder = SpeculativeDecoder(params, cfg, draft,
+                                                   self.quant_policy)
+        if ecfg.controller:
+            if ecfg.mode != "continuous":
+                warnings.warn(
+                    "controller is ignored in mode='batch' — the "
+                    "SloController hooks the continuous engine's "
+                    "iteration loop", UserWarning, stacklevel=2)
+            else:
+                self.controller = SloController(
+                    ControllerConfig.coerce(ecfg.controller), slo=self.slo,
+                    iter_seconds=(self._modeled_iter_seconds
+                                  if self._plan_units is not None else None),
+                    planned_tps=self.planned_tps(),
+                    plan_hit_rate=self.prt_hit_rate,
+                    tokens_per_iter=self._tokens_per_iter())
+
+    def _check_speculative(self, draft) -> None:
+        """The reference's gates on a plan's draft (``engine.py:399-431``)."""
+        if not isinstance(draft, planning.DraftSpec):
+            raise ValueError(
+                "plan.draft is unresolved ('auto') — solve the plan "
+                "(Planner / resolve_plan with an SLO) before serving")
+        if self.ecfg.mode != "continuous":
+            raise ValueError("speculative decoding (plan draft=) requires "
+                             "mode='continuous'")
+        if self.cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                "speculative decoding needs a pure-attention family — "
+                "recurrent state cannot roll back to the accepted frontier "
+                f"(family={self.cfg.family!r})")
+        if self.cfg.pos == "sinusoidal":
+            raise ValueError(
+                "speculative decoding does not support sinusoidal positions "
+                "(multi-token verify embeds at pos_offset=0, like "
+                "decode_step)")
+        if self.tap is not None:
+            raise ValueError(
+                "speculative decoding and an ActivationTap cannot coexist — "
+                "the round bypasses the tapped decode step")
 
     def _base_policy(self) -> QuantPolicy:
         return QuantPolicy(bits=self.ecfg.ql, group_size=self.ecfg.group_size,
@@ -312,9 +379,15 @@ class Engine:
                on_token: Optional[Callable[[int, int], None]] = None) -> int:
         """Queue a request; returns its uid.  ``on_token(uid, token)`` is
         called as each generated token is committed.  Paged mode refuses a
-        request longer than a lane's table holds (lanes never wrap)."""
+        request longer than a lane's table holds (lanes never wrap), and
+        a speculating engine one whose draft lookahead (k + 1 positions
+        past the request) would not fit a lane of either pool."""
+        # a round writes k + 1 candidate positions past the committed
+        # frontier; lanes must never wrap over them
+        spec_extra = (self.spec_decoder.k + 1
+                      if self.spec_decoder is not None else 0)
+        need = len(prompt) + max_new_tokens + spec_extra
         if self.paged:
-            need = len(prompt) + max_new_tokens
             room = self._mbs * int(self.ecfg.kv_block_size)
             if need > room:
                 raise ValueError(
@@ -322,6 +395,12 @@ class Engine:
                     f"holds {room} ({self._mbs} blocks x "
                     f"{self.ecfg.kv_block_size}); paged lanes never wrap: "
                     "raise cache_len or shorten the request")
+        elif spec_extra and need > self._clen:
+            raise ValueError(
+                f"request needs {need} KV positions (prompt + max_new + "
+                f"draft lookahead) but the ring holds {self._clen} — "
+                "speculative rollback forbids ring wrap; raise cache_len or "
+                "shorten the request")
         self._uid += 1
         now = time.perf_counter()
         self.sched.submit(Request(uid=self._uid, prompt_len=len(prompt),
@@ -342,8 +421,19 @@ class Engine:
         if self.ecfg.mode != "continuous":
             self._serve_batch()
             return not self.sched.idle()
+        ctl = self.controller
+        cap = None
+        if ctl is not None and ctl.cfg.shed:
+            free_cap = self._block_free_cap() if self.paged else None
+            cap = ctl.batch_cap(self.ecfg.batch_size, free_cap=free_cap)
         admitted = self.sched.schedule(
+            max_active=cap,
             can_admit=self._try_allocate if self.paged else None)
+        if (cap is not None and self.sched.waiting and self.sched.free_slots
+                and self.sched.active >= cap):
+            # free slots exist but the SLO cap binds: these admissions are
+            # shed (deferred in FIFO), not dropped
+            ctl.record_shed()
         if admitted:
             # one prefill pass per padded length: a burst streams each
             # layer's weights once, not once per request
@@ -366,12 +456,18 @@ class Engine:
             if finished:
                 self._finish(req)
         active = list(self.sched.running)
+        spec = self.spec_decoder
         if self.paged and active:
-            # every active lane appends one KV position: grant its block
-            # slot first (copy-on-write off shared blocks, preempting the
-            # newest request when the pool runs dry)
-            active = self._ensure_append_blocks(active)
+            # every active lane appends one KV position (k + 1 in a round:
+            # the k drafts, which verify rewrites, and the bonus slot):
+            # grant its block slots first (copy-on-write off shared blocks,
+            # preempting the newest request when the pool runs dry)
+            active = self._ensure_append_blocks(
+                active, n=spec.k + 1 if spec is not None else 1)
         self.peak_active = max(self.peak_active, len(active))
+        if spec is not None and active:
+            self._speculative_round(active, ctl)
+            return not self.sched.idle()
         if active:
             mask = np.zeros((self.ecfg.batch_size,), bool)
             for req in active:
@@ -416,6 +512,9 @@ class Engine:
                 self._cur[req.slot] = nxt[req.slot]
                 self.events[req.uid].setdefault("first_decode_iteration",
                                                 self.iterations)
+            if ctl is not None and ctl.observe(len(active), dt,
+                                               self.decode_iterations):
+                self._controller_step()
         return not self.sched.idle()
 
     def run(self) -> List[Completion]:
@@ -467,6 +566,15 @@ class Engine:
             n = ecfg.batch_size * self._mbs
         return max(n, self._mbs)
 
+    def _block_free_cap(self) -> int:
+        """How many requests the block pool could hold now: the active set
+        plus a non-mutating estimate of the admissible waiters (prefix
+        sharing included), the memory bound ``SloController.batch_cap``
+        takes."""
+        prompts = [tuple(self._gen[r.uid][:r.prompt_len])
+                   for r in self.sched.waiting]
+        return self.sched.active + self.block_mgr.admission_cap(prompts)
+
     def _try_allocate(self, req: Request) -> bool:
         """The scheduler's admission gate: allocate the request's prefill
         blocks (sharing any registered prefix).  Consulted only when the
@@ -478,13 +586,16 @@ class Engine:
         self.block_mgr.allocate(req.uid, prompt)
         return True
 
-    def _ensure_append_blocks(self, active: List[Request]) -> List[Request]:
-        """Grant every active lane the slot its next KV write lands in:
-        in place in its frontier block, a fresh block at a block boundary,
-        or a copy-on-write split off a shared block.  When the pool runs dry
-        the newest request is preempted and the grant retried.  Returns the
-        requests that still decode this step; the copies run as one batched
-        in-place copy per pool tensor."""
+    def _ensure_append_blocks(self, active: List[Request],
+                              n: int = 1) -> List[Request]:
+        """Grant every active lane the slots its next ``n`` KV writes land
+        in (``n`` = k + 1 in a speculative round: the draft writes k of
+        them and verify all n): in place in its frontier block, a fresh
+        block at a block boundary, or a copy-on-write split off a shared
+        block.  When the pool runs dry the newest request is preempted and
+        the grant retried.  Returns the requests that still decode this
+        step; the copies run as one batched in-place copy per pool
+        tensor."""
         bs = int(self.ecfg.kv_block_size)
         cows: List[Tuple[int, int]] = []
         preempted: set = set()
@@ -492,26 +603,29 @@ class Engine:
         for req in active:
             if req.uid in preempted:
                 continue
-            pos = int(self._len_np[req.slot])
-            while True:
-                res = self.block_mgr.append_slot(req.uid, pos)
-                if res is not None:
-                    kind, src, dst = res
-                    if kind in ("alloc", "cow"):
-                        self._tables_np[req.slot, pos // bs] = dst
-                    if kind == "cow":
-                        cows.append((src, dst))
+            for j in range(n):
+                if req.uid in preempted:
                     break
-                victim = self._pick_victim()
-                if victim is None:
-                    raise MemoryError(
-                        "KV block pool exhausted and preemption is disabled "
-                        "(EngineConfig.preempt=False): grow kv_pool_blocks "
-                        "or kv_budget_bytes")
-                self._preempt(victim)
-                preempted.add(victim.uid)
-                if victim is req:
-                    break
+                pos = int(self._len_np[req.slot]) + j
+                while True:
+                    res = self.block_mgr.append_slot(req.uid, pos)
+                    if res is not None:
+                        kind, src, dst = res
+                        if kind in ("alloc", "cow"):
+                            self._tables_np[req.slot, pos // bs] = dst
+                        if kind == "cow":
+                            cows.append((src, dst))
+                        break
+                    victim = self._pick_victim()
+                    if victim is None:
+                        raise MemoryError(
+                            "KV block pool exhausted and preemption is "
+                            "disabled (EngineConfig.preempt=False): grow "
+                            "kv_pool_blocks or kv_budget_bytes")
+                    self._preempt(victim)
+                    preempted.add(victim.uid)
+                    if victim is req:
+                        break
             if req.uid not in preempted:
                 granted.append(req)
         if cows:
@@ -544,6 +658,115 @@ class Engine:
         ev = self.events.setdefault(uid, {})
         ev["preemptions"] = ev.get("preemptions", 0) + 1
         ev["preempted_iteration"] = self.iterations
+
+    # --- speculative rounds -------------------------------------------------
+    def _speculative_round(self, active: List[Request], ctl) -> None:
+        """One self-speculative round: k draft steps under the aggressive
+        tree, one (k+1)-token verify under the served tree, then commit
+        the accepted prefix and roll back the rest (``serving.speculative``).
+
+        The accepted prefix commits token by token with the top-of-step
+        commit's EOS / max-new checks; the correction (first rejection) or
+        bonus (all accepted) token becomes the new pending ``_cur``.  The
+        cache is updated in place, so the rewind before verify puts back a
+        copy of ``length`` taken before the draft, and the rollback after
+        it writes the accepted frontier; verify already rewrote every
+        draft slot at the served precision, and slots past a lane's
+        frontier stay invalid until rewritten in order.  On
+        the paged pool the lane's table is truncated to its frontier
+        (``BlockSpaceManager.truncate``) and its host length and table row
+        follow, as they follow a preemption."""
+        spec = self.spec_decoder
+        k = spec.k
+        bsz = self.ecfg.batch_size
+        mask = np.zeros((bsz,), bool)
+        uids = np.zeros((bsz,), np.int64)
+        sidx = np.zeros((bsz,), np.int64)
+        for req in active:
+            mask[req.slot] = True
+            uids[req.slot] = req.uid
+            sidx[req.slot] = self._sample_index(req.uid)
+        # the lengths before the draft: the rewind and the rollback's base
+        prev_len = self.cache["length"].clone()
+        new_len = prev_len.cpu().numpy().astype(np.int64)
+        tables = None
+        if self.paged:
+            self._tables_dev.copy_(self._tables_host, non_blocking=True)
+            tables = self._tables_dev
+        temp = self.ecfg.temperature
+        t0 = time.perf_counter()
+        cur = torch.as_tensor(self._cur[:, None], device=self.device)
+        d_toks, d_logits, self.cache = lm.draft_tokens(
+            spec.draft_params, cur, self.cache, self.cfg, k,
+            quant_kv=self._quant_kv, active_mask=mask, device=self.device,
+            block_tables=tables, temperature=temp, seed=self.ecfg.seed,
+            uids=uids, indices=sidx)
+        # rewind: verify feeds the round again from its first position
+        self.cache["length"] = prev_len
+        v_logits, self.cache = lm.verify_step(
+            self.params, torch.cat([cur, d_toks], dim=1), self.cache,
+            self.cfg, quant_kv=self._quant_kv, active_mask=mask,
+            device=self.device, block_tables=tables)
+        draft_np = d_toks.cpu().numpy()
+        if temp > 0:
+            n_acc, nxt = spec.accept(
+                draft_np, v_logits.cpu().numpy(), d_logits.cpu().numpy(),
+                temperature=temp, seed=self.ecfg.seed, uids=uids,
+                indices=sidx)
+        else:
+            # the greedy rule reads only the verify rows' argmax: take it
+            # on the device, not the [B, k+1, V] logits to the host
+            n_acc, nxt = accept_greedy(
+                draft_np, torch.argmax(v_logits, dim=-1).cpu().numpy())
+        # the copies above waited for the device: dt is the whole round
+        dt = time.perf_counter() - t0
+        self.iterations += 1
+        self.decode_iterations += 1
+        produced = 0
+        # the rule's acceptance (draft quality): lanes that hit max_new or
+        # EOS inside the prefix cut the commit, not the statistic
+        accepted_total = int(n_acc[mask].sum())
+        for req in active:
+            s, uid = req.slot, req.uid
+            self.events[uid].setdefault("first_decode_iteration",
+                                        self.iterations)
+            finished = False
+            for j in range(int(n_acc[s])):
+                tok = int(draft_np[s, j])
+                self._gen[uid].append(tok)
+                req.generated += 1
+                produced += 1
+                cb = self._on_token.get(uid)
+                if cb is not None:
+                    cb(uid, tok)
+                if (tok == self.ecfg.eos_token
+                        or req.generated >= req.max_new_tokens):
+                    finished = True
+                    break
+            new_len[s] = len(self._gen[uid])
+            if finished:
+                self._finish(req)
+                continue
+            self._cur[s] = int(nxt[s])
+            produced += 1
+            if self.paged:
+                dropped = self.block_mgr.truncate(uid, int(new_len[s]))
+                if dropped:
+                    keep = len(self.block_mgr.table(uid))
+                    self._tables_np[s, keep:keep + dropped] = self._trash
+                self._len_np[s] = int(new_len[s])
+        # one write rolls every lane back to its accepted frontier
+        self.cache["length"] = torch.as_tensor(new_len.astype(np.int32),
+                                               device=self.device)
+        self.decode_seconds += dt
+        self._decode_tokens += produced
+        exp = self._modeled_iter_seconds(len(active))
+        if exp is not None:
+            self.modeled_seconds += exp
+        spec.note_round(len(active), accepted_total)
+        if ctl is not None and ctl.observe(len(active), dt,
+                                           self.decode_iterations):
+            self._controller_step()
 
     # --- internals ----------------------------------------------------------
     def _padded_len(self, req: Request) -> int:
@@ -707,31 +930,47 @@ class Engine:
 
     # --- plan pricing (the SAIL machine model, not the card) ----------------
     def _modeled_iter_seconds(self, occupancy: int) -> Optional[float]:
-        """Modeled seconds of one decode iteration at ``occupancy`` lanes
-        (lookup cycles scale with the batch), memoized; None when serving
-        unquantized (no plan to price)."""
+        """Modeled seconds of one scheduling quantum at ``occupancy`` lanes
+        (lookup cycles scale with the batch, so it is nondecreasing: the
+        controller's feasibility curve), memoized per plan; None when
+        serving unquantized (no plan to price).  Plain decode: one masked
+        iteration.  Speculative: one round, ``k * t_draft + t_verify``
+        (``planning.speculative_round_seconds``)."""
         if self._plan_units is None:
             return None
         got = self._iter_cache.get(occupancy)
         if got is None:
             cost = planning.plan_cost_model(self.plan, batch=int(occupancy))
-            total = (cost.qbytes(self._plan_units,
-                                 self.quant_policy.group_size)
-                     + self._plan_fixed_bytes)
-            got = cost.iteration_seconds(cost.cycles(self._plan_units),
-                                         total)
+            if self.spec_decoder is not None:
+                got = planning.speculative_round_seconds(
+                    cost, self._plan_units, self.spec_decoder.draft_units,
+                    self.quant_policy.group_size, self._plan_fixed_bytes,
+                    self.spec_decoder.k)
+            else:
+                total = (cost.qbytes(self._plan_units,
+                                     self.quant_policy.group_size)
+                         + self._plan_fixed_bytes)
+                got = cost.iteration_seconds(cost.cycles(self._plan_units),
+                                             total)
             self._iter_cache[occupancy] = got
         return got
+
+    def _tokens_per_iter(self) -> float:
+        """Tokens a lane commits per scheduling quantum: 1 for plain
+        decode, E[accepted + 1] for a speculative round."""
+        return (self.spec_decoder.expected_tokens()
+                if self.spec_decoder is not None else 1.0)
 
     def planned_tps(self, batch: Optional[int] = None) -> Optional[float]:
         """Modeled decode tokens/s of the served plan at ``batch``
         occupancy (default: the full pool) on the SAIL machine model;
-        None when serving unquantized."""
+        None when serving unquantized.  A speculative round commits
+        E[accepted + 1] tokens per lane."""
         b = self.ecfg.batch_size if batch is None else int(batch)
         secs = self._modeled_iter_seconds(b)
         if secs is None:
             return None
-        return b / max(secs, 1e-30)
+        return b * self._tokens_per_iter() / max(secs, 1e-30)
 
     def modeled_run_tps(self) -> Optional[float]:
         """Modeled tokens/s of the decode steps actually run, each priced
@@ -764,6 +1003,22 @@ class Engine:
                                        batch=self.ecfg.batch_size)
         return pattern.prt_hit_rate(nbw, abits, merged)
 
+    def _controller_step(self) -> None:
+        """Apply the drift loop's requested action: replan (re-price on the
+        tapped traffic) or, when the tapped PRT hit rate moved enough to
+        change the allocation, a full re-solve.  Without a tap (or the raw
+        weights) the action is recorded as skipped: the drift stays
+        visible in ``stats()`` but nothing can act on it."""
+        ctl = self.controller
+        it = self.decode_iterations
+        if not (self.tap is not None and self._raw_params is not None
+                and self.tap.rows_seen > 0):
+            ctl.acted("skipped", it)
+            return
+        action = ctl.decide(self._tapped_hit_rate(), self.prt_hit_rate)
+        self.replan(resolve=(action == "resolve"))
+        ctl.acted(action, it)
+
     def apply_plan(self, plan, force_requantize: bool = False) -> None:
         """Swap the engine onto a new (solved) plan between steps.
 
@@ -774,7 +1029,9 @@ class Engine:
         JSON, or a ``Planner`` ``PlanResult``.  A plan whose policy is the
         one served skips the requantization unless ``force_requantize``.
         KV precision and shard count are fixed at construction: a plan
-        asking for others warns and serves on.
+        asking for others warns and serves on.  The plan's draft swaps in
+        too: a different draft requantizes the draft tree, none stops
+        speculating (the pending token carries over either way).
         """
         if self._raw_params is None:
             raise ValueError("apply_plan needs the raw weights resident "
@@ -800,7 +1057,7 @@ class Engine:
             warnings.warn(
                 f"plan requests tp={spec.tp} but the engine serves tp=1 "
                 "(tensor-parallel serving is not ported: ROADMAP, Queue 1 "
-                "item 3)", UserWarning, stacklevel=2)
+                "item 3f)", UserWarning, stacklevel=2)
         if force_requantize or policy != self.quant_policy:
             self.params, b0, b1 = quantize_params(self._raw_params, policy)
             self.compression = b0 / max(b1, 1)
@@ -820,6 +1077,21 @@ class Engine:
             self.slo = planning.Slo(spec.target_tps,
                                     batch=spec.slo_batch
                                     or self.ecfg.batch_size)
+        draft = (spec.draft if isinstance(spec.draft, planning.DraftSpec)
+                 else None)
+        if draft is None:
+            self.spec_decoder = None
+        elif self.spec_decoder is None or self.spec_decoder.spec != draft:
+            self.spec_decoder = SpeculativeDecoder(self._raw_params, self.cfg,
+                                                   draft, policy)
+        if self.controller is not None:
+            # the swapped plan has its own feasibility curve: re-anchor
+            self.controller.slo = self.slo
+            self.controller.plan_changed(
+                iter_seconds=self._modeled_iter_seconds,
+                planned_tps=self.planned_tps(),
+                plan_hit_rate=self.prt_hit_rate,
+                tokens_per_iter=self._tokens_per_iter())
 
     def replan(self, planner=None, resolve: bool = False):
         """Online recalibration from live traffic: feed the tap's captured
@@ -866,6 +1138,10 @@ class Engine:
                 "planned_tps": planned,
                 "modeled_run_tps": modeled,
                 "drift": drift,
+                "controller": (self.controller.stats()
+                               if self.controller is not None else None),
+                "speculative": (self.spec_decoder.stats()
+                                if self.spec_decoder is not None else None),
                 "peak_active": self.peak_active,
                 "kv_bits": self.kv_bits,
                 "block_pool": (self.block_mgr.stats() if self.paged

@@ -179,11 +179,15 @@ def test_mode_and_quantize_errors(smoke):
             eng.replan()
     with pytest.raises(ValueError, match="mode="):
         TEngine(carried, tcfg, TEngineConfig(mode="paged"), device="cpu")
-    # the draft= and tp>1 refusals are unchanged in every mode
-    for plan in ("uniform:4,draft=q2a8:k4", "uniform:4,tp=2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(carried, tcfg, TEngineConfig(plan=plan, mode="batch"),
-                    device="cpu")
+    # a draft plan needs the continuous engine (the reference's gate), and
+    # tp > 1 is refused in every mode
+    with pytest.raises(ValueError, match="requires mode='continuous'"):
+        TEngine(carried, tcfg, TEngineConfig(
+            **ENGINE, plan="uniform:4,draft=q2a8:k4", mode="batch"),
+            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+        TEngine(carried, tcfg, TEngineConfig(plan="uniform:4,tp=2",
+                                             mode="batch"), device="cpu")
 
 
 # --- core/scheduler.py --------------------------------------------------------

@@ -22,7 +22,7 @@ from repro_torch.models.sail_linear import QuantPolicy
 from repro_torch.models.sail_linear import quantize_params
 from repro_torch.serving.engine import Engine as TEngine
 from repro_torch.serving.engine import EngineConfig as TEngineConfig
-from repro_torch.planning import as_plan
+from repro_torch.planning import as_plan, check_servable
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ARCH = "tinymistral_248m"
@@ -118,9 +118,15 @@ def test_plan_grammar_and_unported_options(smoke):
             device="cpu")
         assert eng.plan.solved and eng.kv_bits in (8, 32)
         assert eng.plan.kv_bits in (8, 32, None)
-    for plan in ("uniform:4,draft=q2a8:k4", "uniform:4,tp=2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TEngine(carried, tcfg, TEngineConfig(plan=plan), device="cpu")
+    # a draft plan is servable now (tests/test_torch_speculative.py serves
+    # it); tp > 1 still raises
+    draft = as_plan("uniform:4,draft=q2a8:k4")
+    check_servable(draft)
+    assert (draft.draft.weight_bits, draft.draft.act_bits,
+            draft.draft.k) == (2, 8, 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+        TEngine(carried, tcfg, TEngineConfig(plan="uniform:4,tp=2"),
+                device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tlm.prefill(carried, [[1, 2]], dataclasses.replace(tcfg, act="gelu"),
                     8, device="cpu")
@@ -148,6 +154,9 @@ def _port_files():
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
+    for name in ("control.py", "speculative.py"):
+        assert os.path.join(ROOT, "src", "repro_torch", "serving",
+                            name) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -433,9 +433,10 @@ def test_engine_plan_forms_and_slo(smoke4):
 
 
 def test_unservable_plans_name_the_roadmap(smoke4):
-    """Unsolved plans solve at construction now (the Planner slice): auto
-    modes, kv=auto, tp=auto (one shard without an SLO) and a bare SLO.
-    Drafts and tp > 1 still raise, naming their ROADMAP item."""
+    """Unsolved plans solve at construction (auto modes, kv=auto, tp=auto,
+    one shard without an SLO, and a bare SLO), and draft plans serve
+    speculative decoding: a concrete draft as given, draft=auto as the
+    Planner's own solve.  tp > 1 still raises, naming its ROADMAP item."""
     _, tcfg, _, carried = smoke4
     for plan in ("auto:q4a8", "uniform:4,kv=auto", "uniform:4,tp=auto",
                  {**PLANS["S"], "kv_bits": "auto"}):
@@ -450,11 +451,15 @@ def test_unservable_plans_name_the_roadmap(smoke4):
                   device="cpu")
     assert eng.plan.solved and eng.plan.mode == "auto"
     assert eng.plan.target_tps == 100.0 and eng.plan.prt == "measured"
-    for plan in ("uniform:4,draft=auto", "uniform:4,draft=q2a8:k4",
-                 "uniform:4,tp=2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1"):
-            TEngine(carried, tcfg, TEngineConfig(**ENGINE, plan=plan),
-                    device="cpu")
+    # draft plans are servable, with the reference's spec_hash (the engines
+    # that serve them are held in tests/test_torch_speculative.py)
+    for plan in ("uniform:4,draft=q2a8:k4", "uniform:4,draft=auto"):
+        spec = TPlanSpec.parse(plan)
+        tplanning.check_servable(spec)
+        assert spec.spec_hash == JPlanSpec.parse(plan).spec_hash
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+        TEngine(carried, tcfg, TEngineConfig(**ENGINE, plan="uniform:4,tp=2"),
+                device="cpu")
     with pytest.raises(ValueError, match="Planner"):
         TPlanSpec.parse("auto:q4").to_policy()
 

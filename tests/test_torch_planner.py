@@ -41,6 +41,7 @@ from repro_torch.models.common import ModelConfig as TModelConfig
 from repro_torch.planning import Planner as TPlanner
 from repro_torch.planning import Slo as TSlo
 from repro_torch.planning import calibrate_cost as tcc
+from repro_torch.planning import resolve_plan
 from repro_torch.planning.spec import PlanSpec as TPlanSpec
 
 TINY = dict(name="tiny", family="dense", vocab=64, d_model=32, n_layers=2,
@@ -350,9 +351,21 @@ def test_planner_tp_auto_prices_shards_under_an_slo(tiny, probes):
 
 
 def test_planner_refuses_draft_auto_naming_the_roadmap(tiny, probes):
-    _, t = _planners(tiny, probes, "auto:q4")
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3"):
-        t.solve(plan=TPlanSpec.parse("uniform:4,draft=auto"))
+    """draft=auto solves now, to the reference's pick on the same measured
+    acceptance curve; serving tp > 1 is what resolve_plan still refuses,
+    naming its ROADMAP item."""
+    j, t = _planners(tiny, probes, "auto:q4")
+    for p in (j, t):
+        for bits, acc in ((2, 0.35), (3, 0.6), (4, 0.9)):
+            p._draft_acceptance[(bits, None)] = acc
+    plan = "uniform:4,draft=auto"
+    jr = j.solve(plan=JPlanSpec.parse(plan))
+    tr = t.solve(plan=TPlanSpec.parse(plan))
+    assert tr.spec.solved and tr.spec.spec_hash == jr.spec.spec_hash
+    assert tr.spec.draft == jr.spec.draft is None
+    _, tcfg, _, carried = tiny
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+        resolve_plan("uniform:4,tp=2", carried, tcfg)
 
 
 def test_planner_probe_cache_is_reused(tiny, probes):

@@ -234,8 +234,11 @@ def test_replan_and_apply_plan_refusals(smoke):
     with pytest.warns(UserWarning, match="kv_bits=32"):
         eng.apply_plan("uniform:3,kv=32")
     assert eng.quant_policy.bits == 3 and eng.kv_bits == 8
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3"):
-        eng.apply_plan("uniform:4,draft=q2a8:k4")
+    eng.apply_plan("uniform:4,draft=q2a8:k4")
+    assert eng.spec_decoder.k == 4 and eng.quant_policy.bits == 4
+    assert eng.stats()["speculative"]["draft_act_bits"] == 8
+    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+        eng.apply_plan("uniform:4,tp=2")
     eng = _tengine(smoke, plan="uniform:4", tap_capacity=8, retain_raw=False)
     _serve(eng, max_new=3)
     with pytest.raises(ValueError, match="raw weights"):
