@@ -119,7 +119,21 @@ Phases (each passes or the script exits nonzero):
      the controller shedding under an SLO the 8-lane pool cannot meet
      (tokens unchanged) and capped by the free blocks of a 32-block paged
      pool; the round's draft and verify device time as CUDA graphs beside
-     the plain step, and decode tokens/s with and without the draft.
+     the plain step, and decode tokens/s with and without the draft;
+ 10. tp — tensor-parallel serving: ranks spawned by ``torch.multiprocessing``
+     (gloo, every rank on the one card) each build phase 4's full-width
+     weights and keep their shard.  At tp=2, wire 32, phase 4's 16 requests
+     under uniform:4 on the ring and on the paged pool (run A's admission),
+     and at tp=4 on the ring: greedy tokens equal phase 4's, or a request
+     parts at a near-tie (tp=1's top-2 gap below the two runs' logit
+     difference there, every earlier logits row within the model
+     tolerance).  At tp=2, wire 8, uniform:4a8 on the ring: its agreement
+     with phase 4's uniform:4a8 tokens (the reference parts there too),
+     every int LUT-GEMV launch held against its plain version.  Each rank's
+     launches are counted exactly (85 LUT-GEMV per pass, 12 decode
+     attentions per step) and by shape, and ``allreduce_bytes_per_iter``
+     checked; the eager step's wall time against its 24 all-reduces alone,
+     and a rank's 85-call LUT-GEMV step at the sharded shapes as one graph.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -1127,9 +1141,9 @@ def run_perturbed(torch, lm, params, cfg, toks, lengths):
     quantize = ops.quantize_activations
     gen = torch.Generator().manual_seed(1)
 
-    def noisy(x, bits):
+    def noisy(x, bits, k_sharded=False):
         noise = torch.randn(x.shape, generator=gen, dtype=x.dtype)
-        return quantize(x * (1 + 1e-7 * noise), bits)
+        return quantize(x * (1 + 1e-7 * noise), bits, k_sharded)
 
     ops.quantize_activations = noisy
     try:
@@ -2763,6 +2777,398 @@ def phase_speculation(rt):
                         decode_tok_per_s_plain=plain_tps_card)
 
 
+# ---------------------------------------------------------------------------
+# phase 10: tensor-parallel serving
+# ---------------------------------------------------------------------------
+
+# TP runs: (name, engine fields, wire bits, the phase 4 tokens they are held
+# to; None: agreement printed only)
+TP_RUNS = {2: (("ring", dict(RING), 32, "uniform:4"),
+               ("paged", dict(RUN_A), 32, "uniform:4"),
+               ("ring wire 8", dict(RING, plan="uniform:4a8,tp=2,wire=8"), 8,
+                None)),
+           4: (("ring", dict(RING), 32, "uniform:4"),)}
+TP_BLOCK = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+class Recorder:
+    """Wraps an engine's sampler: keeps every live request's logits row on
+    the host by (uid, sample index), the row that chose that token."""
+
+    def __init__(self, eng):
+        self.rows, self.sample = {}, eng._sample
+        eng._sample = self
+
+    def __call__(self, logits, uids=None, indices=None):
+        host = logits.float().cpu()
+        for i, (uid, idx) in enumerate(zip(uids, indices)):
+            if int(uid):
+                self.rows[(int(uid), int(idx))] = host[i]
+        return self.sample(logits, uids, indices)
+
+
+class CountByShape:
+    """Within the block, counts each kernel's launches by the shapes it was
+    launched at (the launches themselves are unchanged)."""
+
+    def __init__(self):
+        from repro_torch.kernels.decode_attn import ops as attn
+        from repro_torch.kernels.lut_gemv import ops as lut
+        self.lut, self.attn = lut, attn
+        self.counts = collections.Counter()
+
+    def __enter__(self):
+        lut, attn, counts = self.lut, self.attn, self.counts
+        self.f32, self.int = lut.lut_matmul_cuda, lut.lut_matmul_int_cuda
+        self.da = attn.decode_attention_cuda
+
+        def f32(x, qt, plan_rows=None):
+            counts[f"lut_matmul M{x.shape[0]} K{qt.k} N{qt.n}"] += 1
+            return self.f32(x, qt, plan_rows)
+
+        def int_(xq, xs, qt, abits, plan_rows=None):
+            counts[f"lut_matmul_int M{xq.shape[0]} K{qt.k} N{qt.n}"] += 1
+            return self.int(xq, xs, qt, abits, plan_rows)
+
+        def da(q, k, v, lens, k_scale, v_scale, window, ring, tables=None):
+            mode = ("table" if tables is not None else "ring" if ring
+                    else "lengths")
+            counts[f"decode_attention B{q.shape[0]} H{q.shape[1]} "
+                   f"KV{k.shape[-2]} D{q.shape[2]} {mode}"] += 1
+            return self.da(q, k, v, lens, k_scale, v_scale, window,
+                           ring=ring, tables=tables)
+        lut.lut_matmul_cuda, lut.lut_matmul_int_cuda = f32, int_
+        attn.decode_attention_cuda = da
+        return self
+
+    def __exit__(self, *exc):
+        self.lut.lut_matmul_cuda = self.f32
+        self.lut.lut_matmul_int_cuda = self.int
+        self.attn.decode_attention_cuda = self.da
+        return False
+
+
+class HeldAttn:
+    """Within the block, every decode-attention launch is held against its
+    plain version (ring or table mode as launched) on the launch's own
+    inputs at ATTN_TOL; the plain version launches nothing."""
+
+    def __init__(self, torch, name):
+        from repro_torch.kernels.decode_attn import ops
+        self.ops, self.torch, self.name = ops, torch, name
+        self.calls, self.err = 0, 0.0
+
+    def __enter__(self):
+        from repro_torch.kernels.decode_attn.ref import (
+            decode_attention_paged_ref, decode_attention_ref,
+            decode_attention_ring_ref)
+        self.da = self.ops.decode_attention_cuda
+
+        def da(q, k, v, lens, k_scale, v_scale, window, ring, tables=None):
+            out = self.da(q, k, v, lens, k_scale, v_scale, window,
+                          ring=ring, tables=tables)
+            if tables is not None:
+                ref = decode_attention_paged_ref(q, k, v, lens, tables,
+                                                 window, k_scale, v_scale)
+            elif ring:
+                ref = decode_attention_ring_ref(q, k, v, lens, window,
+                                                k_scale, v_scale)
+            else:
+                ref = decode_attention_ref(q, k, v, lens, k_scale, v_scale,
+                                           window)
+            if not self.torch.allclose(out, ref, rtol=ATTN_TOL,
+                                       atol=ATTN_TOL):
+                fail(f"{self.name}: decode attention B{q.shape[0]} "
+                     f"H{q.shape[1]} KV{k.shape[-2]} "
+                     f"{'table' if tables is not None else 'ring'}: max err "
+                     f"{(out - ref).abs().max().item():.3e}")
+            self.err = max(self.err, (out - ref).abs().max().item())
+            self.calls += 1
+            return out
+        self.ops.decode_attention_cuda = da
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.decode_attention_cuda = self.da
+        return False
+
+
+def first_parting(got, want):
+    """{uid: the first sample index where ``got`` parts from ``want``}."""
+    out = {}
+    for uid, toks in got.items():
+        ref = want[uid]
+        j = next((i for i, (a, b) in enumerate(zip(toks, ref)) if a != b),
+                 None)
+        if j is not None or len(toks) != len(ref):
+            out[uid] = j if j is not None else min(len(toks), len(ref))
+    return out
+
+
+def near_tie(torch, rows, ref_rows, uid, step):
+    """The tokens rule of phase 10 for a request that parts from tp=1 at
+    ``step``: every earlier logits row within MODEL_RTOL / MODEL_ATOL of
+    tp=1's, and at ``step`` tp=1's top-2 gap below the two rows' largest
+    difference (a near-tie that summation order may flip)."""
+    err = max(((rows[(uid, j)] - ref_rows[(uid, j)]).abs().max().item()
+               for j in range(step)), default=0.0)
+    before = all(torch.allclose(rows[(uid, j)], ref_rows[(uid, j)],
+                                rtol=MODEL_RTOL, atol=MODEL_ATOL)
+                 for j in range(step))
+    top = ref_rows[(uid, step)].topk(2).values
+    gap = (top[0] - top[1]).item()
+    diff = (rows[(uid, step)] - ref_rows[(uid, step)]).abs().max().item()
+    return dict(uid=uid, step=step, gap=gap, diff=diff, err_before=err,
+                explained=before and gap < diff)
+
+
+def check_tp_launches(name, tp, st, counts, cfg, flavour, paged):
+    """Exact launch counts on this rank: every decode step sends its
+    12 x 7 sharded weight matmuls and lm_head (85) through the plan's
+    LUT-GEMV flavour, every prefill pass those and each layer's wk and wv
+    again (the cache's K/V are recomputed: 109), none through the other
+    flavour; every decode step its 12 attentions through the
+    decode-attention kernel (table mode on the paged pool).  Returns the
+    LUT-GEMV count the passes need."""
+    layers = cfg.n_layers
+    need = ((len(TP_BLOCK) * layers + 1) * st["decode_iterations"]
+            + ((len(TP_BLOCK) + 2) * layers + 1) * st["prefill_iterations"])
+    other = "lut_matmul" if flavour == "lut_matmul_int" else "lut_matmul_int"
+    attn = st["decode_iterations"] * layers
+    table = counts["decode_attention_table"]
+    if (counts[flavour] != need or counts[other]
+            or counts["decode_attention"] != attn
+            or table != (attn if paged else 0)):
+        fail(f"tp={tp} {name}: {flavour} {counts[flavour]} (need {need}), "
+             f"{other} {counts[other]} (need 0), decode_attention "
+             f"{counts['decode_attention']} (need {attn}), table mode "
+             f"{table}")
+
+
+def tp_step_graph(torch, timer, eng, cfg, gen):
+    """One rank's 85 LUT-GEMV calls of a decode step (M 8) at the sharded
+    shapes of ``eng``'s tree as one CUDA graph: each call first held
+    against its plain version, then the step timed beside torch.matmul on
+    the dequantized weights and its bytes bound."""
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda
+    from repro_torch.models import lm
+    qts = [p_l[part][m] for _, p_l in lm.iter_layers(eng.params)
+           for part, names in (("attn", TP_BLOCK[:4]), ("mlp", TP_BLOCK[4:]))
+           for m in names]
+    qts.append(eng.params["lm_head"])
+    xk = {qt.k: torch.randn((8, qt.k), device=qt.packed.device,
+                            generator=gen) for qt in qts}
+    wds = [dequantize(qt) for qt in qts]
+    err = 0.0
+    for qt, wd in zip(qts, wds):
+        y, ref = lut_matmul_cuda(xk[qt.k], qt), torch.matmul(xk[qt.k], wd)
+        e = (y - ref).abs()
+        if not bool((e <= F32_ATOL + F32_RTOL * ref.abs()).all()):
+            fail(f"tp LUT-GEMV ({qt.k}, {qt.n}): max err {e.max().item():.3e}")
+        err = max(err, e.max().item())
+    ms = timer.replay_ms(lambda: [lut_matmul_cuda(xk[qt.k], qt) for qt in qts])
+    lib = timer.replay_ms(lambda: [torch.matmul(xk[w.shape[0]], w)
+                                   for w in wds])
+    nbytes = sum(4 * (qt.packed.numel() + qt.scales.numel()
+                      + qt.codebook.numel()) + 4 * 8 * (qt.k + qt.n)
+                 for qt in qts)
+    bound, by = bound_ms(nbytes, sum(2 * 8 * qt.k * qt.n for qt in qts))
+    return dict(calls=len(qts), step_graph_ms=ms, library_step_graph_ms=lib,
+                bytes=nbytes, bound_ms=bound, bound_by=by, max_abs_err=err,
+                shapes=sorted({(qt.k, qt.n) for qt in qts}))
+
+
+def tp_rank(rank, tp, want, out_dir):
+    """One rank of phase 10 (every rank runs this on the same requests;
+    rank 0 logs and writes ``tp<tp>.json``): full-width tinymistral (seed
+    0, phase 4's weights) served tp ways over gloo, all ranks on the one
+    card."""
+    import torch
+    import torch.distributed as dist
+    import repro_torch.configs as C
+    from repro_torch.dist.sharding import tp_all_reduce, tp_context
+    from repro_torch.launch.mesh import describe, rank_device
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, EngineConfig
+    dev = rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    say = log if rank == 0 else (lambda msg: None)
+    cfg = C.get_config("tinymistral_248m")
+    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    prompts = engine_requests(cfg)
+    res = {"group": describe(), "runs": {}}
+    say(f"[tp] tp={tp}: {res['group']}, every rank on {dev} "
+        f"({torch.cuda.get_device_name(dev)}): the ranks share one card")
+    rows = {}
+    for name, fields, wire, held_to in TP_RUNS[tp]:
+        eng = Engine(raw, cfg, EngineConfig(**fields, tp=tp, wire=wire),
+                     device=dev)
+        rec = Recorder(eng) if rank == 0 else None
+        a8 = eng.quant_policy.act_bits is not None
+        flavour = "lut_matmul_int" if a8 else "lut_matmul"
+        with CountByShape() as shapes, Held(torch, f"tp={tp} {name}") as \
+                held, HeldAttn(torch, f"tp={tp} {name}") as held_attn:
+            got, counts, dt = serve_counted(torch, eng, prompts)
+        st = eng.stats()
+        if len(got) != 16 or any(len(t) != 32 for t in got.values()):
+            fail(f"tp={tp} {name}: expected 16 completions of 32 tokens")
+        check_tp_launches(name, tp, st, counts, cfg, flavour, eng.paged)
+        bytes_want = int(2 * (tp - 1) / tp * 8 * 2 * cfg.n_layers
+                         * cfg.d_model * wire / 8)
+        if st["tp"]["allreduce_bytes_per_iter"] != bytes_want:
+            fail(f"tp={tp} {name}: allreduce_bytes_per_iter "
+                 f"{st['tp']['allreduce_bytes_per_iter']} != {bytes_want}")
+        ref = want[held_to or "uniform:4a8"]
+        parted = first_parting(got, ref)
+        run = dict(paged=eng.paged, wire_bits=wire, plan_hash=st["plan_hash"],
+                   tokens=st["generated_tokens"], seconds=dt,
+                   decode_tok_per_s=st["measured_tps"],
+                   decode_steps=st["decode_iterations"],
+                   prefill_steps=st["prefill_iterations"], launches=counts,
+                   by_shape=dict(sorted(shapes.counts.items())),
+                   tp_stats=st["tp"],
+                   equal_requests=16 - len(parted),
+                   equal_tokens=sum(a == b for u in got
+                                    for a, b in zip(got[u], ref[u])),
+                   parted={str(u): j for u, j in parted.items()})
+        if (sum(held.calls.values()) != counts[flavour]
+                or held_attn.calls != counts["decode_attention"]):
+            fail(f"tp={tp} {name}: {sum(held.calls.values())} LUT-GEMV "
+                 f"launches held of {counts[flavour]}, {held_attn.calls} "
+                 f"decode-attention launches of {counts['decode_attention']}")
+        run.update(held=sum(held.calls.values()),
+                   held_err=held.err["int" if a8 else "f32"],
+                   held_attn=held_attn.calls, held_attn_err=held_attn.err)
+        if rec is not None:
+            rows[name] = rec.rows
+        res["runs"][name] = run
+        # a decode step's launches: its LUT-GEMV calls are the M 8 ones
+        per_step = {k: v / st["decode_iterations"]
+                    for k, v in shapes.counts.items()
+                    if " M8 " in k or k.startswith("decode")}
+        say(f"[tp] tp={tp} {name} (wire {wire}, {st['plan_hash']}): "
+            f"{st['generated_tokens']} tokens in {dt:.3f} s, decode "
+            f"{st['measured_tps']:.1f} tok/s over {st['decode_iterations']} "
+            f"steps; {run['equal_requests']} of 16 requests and "
+            f"{run['equal_tokens']} of 512 tokens equal phase 4's "
+            f"{'uniform:4' if held_to else 'uniform:4a8'}"
+            + (f" (first parting {run['parted']})" if parted else "")
+            + f"; per rank {counts[flavour]} {flavour} launches = 85 x "
+            f"{st['decode_iterations']} decode steps + 109 x "
+            f"{st['prefill_iterations']} prefill passes, "
+            f"{counts['decode_attention']} decode attention = 12 x "
+            f"{st['decode_iterations']} steps"
+            + (f" ({counts['decode_attention_table']} in table mode)"
+               if eng.paged else "")
+            + f"; decode-step launches by shape {per_step}; "
+            f"allreduce_bytes_per_iter {st['tp']['allreduce_bytes_per_iter']}"
+            + f"; all {run['held']} {flavour} launches (prefill and decode) "
+            f"within rtol {LUT_RTOL if a8 else F32_RTOL} / atol "
+            f"{LUT_ATOL if a8 else F32_ATOL} of their plain version (max abs "
+            f"err {run['held_err']:.3e}), all {run['held_attn']} "
+            f"decode-attention launches within {ATTN_TOL} of theirs (max abs"
+            f" err {run['held_attn_err']:.3e})")
+        if name == "ring":
+            ring = eng
+        else:
+            del eng
+
+    # where a tp step's time goes: the eager step (every rank at once, on
+    # the one card) against its 24 all-reduces alone, at the step's shape
+    timer = Timer(torch)
+    tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
+
+    def step():
+        with ring._tp():
+            return lm.decode_step(ring.params, tok, ring.cache, ring._mcfg,
+                                  quant_kv=True, device=dev)
+    part = torch.randn((8, 1, cfg.d_model), device=dev)
+    buf = torch.empty_like(part)
+
+    def reduces():
+        with tp_context(None, 32):
+            for _ in range(2 * cfg.n_layers):
+                buf.copy_(part)
+                tp_all_reduce(buf)
+    step_ms, reduce_ms = timer.call_ms(step), timer.call_ms(reduces)
+    res["step_wall_ms"], res["allreduce_ms"] = step_ms, reduce_ms
+    say(f"[tp] tp={tp}: one decode step (8 lanes) eager wall {step_ms:.3f} "
+        f"ms per rank; its {2 * cfg.n_layers} all-reduces of [8, 1, "
+        f"{cfg.d_model}] f32 alone {reduce_ms:.3f} ms "
+        f"({100 * reduce_ms / step_ms:.1f}% of the step; gloo through the "
+        "host, the ranks sharing one card)")
+    dist.barrier()
+    if rank == 0:
+        # the LUT-GEMV step graph alone on the card (the other ranks are
+        # done: their shapes are rank 0's)
+        res["lut_step_graph"] = tp_step_graph(
+            torch, timer, ring, cfg, torch.Generator(device=dev).manual_seed(1))
+        g = res["lut_step_graph"]
+        say(f"[tp] tp={tp}: one rank's LUT-GEMV decode step ({g['calls']} "
+            f"calls, M 8, b 4, shapes (K, N) {g['shapes']}) as one graph "
+            f"{g['step_graph_ms']:.4f} ms; torch.matmul on the dequantized "
+            f"weights {g['library_step_graph_ms']:.4f} ms; bound "
+            f"{g['bound_ms']:.4f} ms by {g['bound_by']}; each call within "
+            f"rtol {F32_RTOL} / atol {F32_ATOL} of its plain version (max "
+            f"abs err {g['max_abs_err']:.3e})")
+        # a request that parted from tp=1: its logits against a tp=1
+        # engine's on the same requests (the near-tie rule)
+        if any(r["parted"] for n, r in res["runs"].items()
+               if n != "ring wire 8"):
+            del ring
+            eng = Engine(raw, cfg, EngineConfig(**RING), device=dev)
+            rec = Recorder(eng)
+            got, _, _ = serve_counted(torch, eng, prompts)
+            if got != want["uniform:4"]:
+                fail("tp=1 rerun: tokens differ from phase 4's")
+            res["near_ties"] = {}
+            for name, run in res["runs"].items():
+                if name == "ring wire 8":
+                    continue
+                for uid, step_j in run["parted"].items():
+                    tie = near_tie(torch, rows[name], rec.rows, int(uid),
+                                   step_j)
+                    res["near_ties"][f"{name} uid {uid}"] = tie
+                    say(f"[tp] tp={tp} {name}: request {uid} parts at "
+                        f"token {step_j}: tp=1's top-2 gap {tie['gap']:.3e}"
+                        f", tp={tp} vs tp=1 logits differ by "
+                        f"{tie['diff']:.3e} there and by "
+                        f"{tie['err_before']:.3e} before")
+                    if not tie["explained"]:
+                        fail(f"tp={tp} {name}: request {uid} parts at "
+                             f"token {step_j} and no near-tie explains it")
+        with open(os.path.join(out_dir, f"tp{tp}.json"), "w") as f:
+            json.dump(res, f, indent=1)
+
+
+def phase_tp(rt):
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    want = {plan: rt["ring_tokens"][plan] for plan in ("uniform:4",
+                                                      "uniform:4a8")}
+    res = rt["tp"] = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    for tp in TP_RUNS:
+        path = os.path.join(OUT_DIR, f"tp{tp}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        t0 = time.perf_counter()
+        run_ranks(tp_rank, tp, args=(tp, want, OUT_DIR))
+        with open(path) as f:
+            res[f"tp={tp}"] = json.load(f)
+        res[f"tp={tp}"]["seconds"] = time.perf_counter() - t0
+    one = rt["engine"]["uniform:4"]["step_wall_ms"]
+    log(f"[tp] {card_line()}: eager wall ms per decode step (8 lanes) tp=1 "
+        f"{one:.3f} (phase 4), "
+        + ", ".join(f"{k} {r['step_wall_ms']:.3f} ({100 * r['allreduce_ms'] / r['step_wall_ms']:.1f}% in its all-reduces)"
+                    for k, r in res.items())
+        + "; no whole-step graph under TP: collectives are not captured; "
+        f"{torch.cuda.device_count()} card(s) visible, all ranks on cuda:0")
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -2833,6 +3239,19 @@ def kernels_line(rt) -> dict:
             entry["step_graph_ms_per_bits"] = {
                 f"b{b}": row["step_graph_ms"]
                 for b, row in rt["plans"]["lut_step_graph"].items()}
+        # phase 10: one rank's launches by shape in each tensor-parallel run
+        entry["launches_tp"] = {
+            f"{tp} {run}": {k: v for k, v in rec["by_shape"].items()
+                            if k.split(" ")[0] == name}
+            for tp, r in rt["tp"].items() for run, rec in r["runs"].items()}
+        if name == "decode_attention" or name.startswith("lut_matmul"):
+            # every launch of those runs held against its plain version
+            entry["max_abs_err_tp"] = {
+                f"{tp} {run}": rec["held_attn_err" if name ==
+                                   "decode_attention" else "held_err"]
+                for tp, r in rt["tp"].items()
+                for run, rec in r["runs"].items()
+                if rec["launches"].get(name)}
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -2864,7 +3283,7 @@ def main() -> int:
                      ("model", phase_model), ("engine", phase_engine),
                      ("paged", phase_paged), ("plans", phase_plans),
                      ("planner", phase_planner), ("sampling", phase_sampling),
-                     ("speculation", phase_speculation)):
+                     ("speculation", phase_speculation), ("tp", phase_tp)):
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
@@ -2875,7 +3294,7 @@ def main() -> int:
                    "engine": rt["engine"], "paged": rt["paged"],
                    "plans": rt["plans"], "planner": rt["planner"],
                    "sampling": rt["sampling"],
-                   "speculation": rt["speculation"],
+                   "speculation": rt["speculation"], "tp": rt["tp"],
                    "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")

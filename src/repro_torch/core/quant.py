@@ -24,6 +24,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import tp_axis_max
+
 SUPPORTED_BITS = (2, 3, 4, 5, 6, 8)
 
 # 1-bit (sign) weights are a kernel-level capability; the policy grammar
@@ -286,14 +288,22 @@ def quantize_int(w: torch.Tensor, bits: int, group_size: int = 128):
     return wq.reshape(k, n).to(torch.int32), scale
 
 
-def quantize_activations(x: torch.Tensor, bits: int = 8):
+def quantize_activations(x: torch.Tensor, bits: int = 8,
+                         k_sharded: bool = False):
     """Per-token (row) symmetric activation quantization.
 
     x[B, K] -> (x_q int32 in [-2^(b-1)+1, 2^(b-1)-1], scale f32 [B, 1]).
-    Single-device: the reference's tensor-parallel absmax hook is the
-    identity here."""
+
+    ``k_sharded``: ``x`` is this rank's K-slice of a row-parallel matmul's
+    input, so under a tensor-parallel ``tp_context`` the absmax is maxed
+    over the group (``dist.sharding.tp_axis_max``) and the codes and scale
+    are the unsharded computation's bit for bit.  The reference maxes
+    every input under TP; on a replicated input that max changes no bit,
+    so the port skips its collective there."""
     qmax = (1 << (bits - 1)) - 1
     absmax = x.abs().amax(dim=-1, keepdim=True)
+    if k_sharded:
+        absmax = tp_axis_max(absmax)
     absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
     scale = absmax / qmax
     xq = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)

@@ -17,14 +17,16 @@ from repro_torch.kernels.lut_gemv.ref import lut_matmul_ref, \
 
 
 def lut_matmul(x: torch.Tensor, qt: QTensor,
-               plan_rows: Optional[int] = None) -> torch.Tensor:
+               plan_rows: Optional[int] = None,
+               k_sharded: bool = False) -> torch.Tensor:
     """y[M, N] = x[M, K] @ dequant(qt) in f32, the SAIL serving matmul.
     ``plan_rows``: on the card, split K as for a call of that many rows, so
     each row's sum is bit-equal to that call's (speculative verify sums its
     B x (k+1) rows as the decode step's B rows); the plain version has no
-    split."""
+    split.  ``k_sharded``: x is a rank's K-slice of a row-parallel input
+    (its activation scale is the group's, ``quantize_activations``)."""
     if qt.abits is not None and x.is_floating_point():
-        x_q, x_scale = quantize_activations(x, qt.abits)
+        x_q, x_scale = quantize_activations(x, qt.abits, k_sharded)
         return lut_matmul_quantized(x_q, x_scale, qt, plan_rows)
     if route(x) == "cuda":
         return lut_matmul_cuda(x, qt, plan_rows)

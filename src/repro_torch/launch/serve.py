@@ -22,7 +22,13 @@ when CUDA is missing.
     ... --plan 'uniform:4,draft=q2:k4'      # or draft=auto
     # the SLO controller: shed admissions against the SLO, replan on drift
     ... --slo 2000 --controller --deadband 0.25 --check-every 8
+    # tensor-parallel: the quantized tree sharded over 2 spawned ranks
+    ... --tp 2 --wire 8            # or a plan's tp=2,wire=8
 
+``--tp M`` (or a plan's ``tp=M``) spawns M ranks of one gloo process group
+(``launch.mesh.run_ranks``); each builds the same engine on the same
+requests and keeps its shard, rank r on ``cuda:(r % device_count)`` (or
+the CPU with ``--device cpu``), and rank 0 prints the report.
 ``--bit-policy`` remains as a deprecated alias routed through
 ``PlanSpec.parse``.  The modeled tokens/s it prints are the paper's SAIL
 machine's (``planning.DecodeCostModel``), not the card's.
@@ -89,23 +95,45 @@ def main(argv=None) -> None:
                     help="max new prefill tokens admitted per iteration")
     ap.add_argument("--stream", action="store_true",
                     help="print tokens as they are generated")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards: spawn this many ranks, "
+                         "each serving its slice of the quantized tree "
+                         "(a plan carrying tp= overrides this knob)")
+    ap.add_argument("--wire", type=int, default=32, choices=(8, 32),
+                    help="all-reduce precision under --tp: 32 exact f32 "
+                         "partial sums, 8 int8 + one scale per tensor")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.planning import plan_from_arg
+
+    resolve_device(args.device)
+    plan = plan_from_arg(args.plan) if args.plan is not None else None
+    world = (plan.tp if plan is not None and isinstance(plan.tp, int)
+             else args.tp)
+    if world > 1:
+        run_ranks(_serve, world, args=(args, plan))
+    else:
+        _serve(0, args, plan)
+
+
+def _serve(rank: int, args, plan) -> None:
+    """Build the engine on this rank's device, serve the seeded requests,
+    and (rank 0) print the report."""
     import torch
 
     import repro_torch.configs as C
-    from repro_torch.device import resolve_device
+    from repro_torch.launch.mesh import rank_device
     from repro_torch.models import lm
-    from repro_torch.planning import plan_from_arg
     from repro_torch.serving.engine import Engine, EngineConfig
 
-    dev = resolve_device(args.device)
+    dev = rank_device(rank, args.device)
     cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = lm.init_params(cfg, gen, device=dev)
-    plan = plan_from_arg(args.plan) if args.plan is not None else None
     controller = None
     if args.controller:
         knobs = {k: v for k, v in (("deadband", args.deadband),
@@ -120,21 +148,25 @@ def main(argv=None) -> None:
         prefill_budget=args.prefill_budget,
         group_size=(args.group_size if args.group_size is not None
                     else min(128, cfg.d_model)),
-        quant_kv=not args.no_quant_kv), device=dev)
+        quant_kv=not args.no_quant_kv, tp=args.tp, wire=args.wire),
+        device=dev)
     pol, st = eng.quant_policy, eng.stats()
     desc = (f"mixed-precision plan {eng.plan.format()}"
             if st["mixed_precision"] else
             f"Q{pol.bits}{'' if pol.act_bits is None else f'a{pol.act_bits}'}")
-    print(f"{cfg.name} on {dev}: {desc} weights (plan {st['plan_hash']}, "
-          f"{eng.compression:.2f}x compression), "
-          f"{'int8' if st['kv_bits'] == 8 else 'f32'} KV, {args.mode} "
-          "scheduling")
-    if args.save_plan:
+    tp_desc = ("" if st["tp"] is None else
+               f", tp={st['tp']['shards']} (wire={st['tp']['wire_bits']})")
+    if rank == 0:
+        print(f"{cfg.name} on {dev}: {desc} weights (plan "
+              f"{st['plan_hash']}, {eng.compression:.2f}x compression), "
+              f"{'int8' if st['kv_bits'] == 8 else 'f32'} KV, {args.mode} "
+              f"scheduling{tp_desc}")
+    if args.save_plan and rank == 0:
         eng.plan.save(args.save_plan)
         print(f"wrote plan {eng.plan.spec_hash} to {args.save_plan}")
 
     on_token = None
-    if args.stream:
+    if args.stream and rank == 0:
         on_token = lambda uid, tok: print(f"  [uid {uid}] {tok}")
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
@@ -146,6 +178,8 @@ def main(argv=None) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.perf_counter() - t0
+    if rank != 0:
+        return
     st = eng.stats()
     print(f"{st['requests']} requests, {st['generated_tokens']} tokens, "
           f"{st['generated_tokens'] / dt:.2f} tok/s, "

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.quant import quantize_kv
+from repro_torch.dist.sharding import tp_all_reduce
 from repro_torch.kernels.decode_attn.ops import decode_attention_paged, \
     decode_attention_ring
 from repro_torch.kernels.decode_attn.ref import decode_attention_ring_ref
@@ -144,7 +145,8 @@ def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
         attn = decode_attention_paged(qh, layer_cache["k"], layer_cache["v"],
                                       position.to(torch.int32), block_tables,
                                       window, *scales)
-    attn_out = mm(attn.reshape(b, 1, cfg.q_dim), p["attn"]["wo"])
+    attn_out = tp_all_reduce(mm(attn.reshape(b, 1, cfg.q_dim),
+                                p["attn"]["wo"], k_sharded=True))
     x = (x + attn_out).to(in_dtype)
     h = apply_norm(p["mlp_norm"], x, cfg)
     return (x + apply_mlp(p["mlp"], h, cfg)).to(in_dtype)
@@ -276,7 +278,8 @@ def block_apply_verify(p, x: torch.Tensor, cfg: ModelConfig,
                 qj, layer_cache["k"], layer_cache["v"], pos + j,
                 block_tables, window, *scales))
     attn = torch.stack(outs, dim=1)
-    attn_out = mm(attn.reshape(b, t, cfg.q_dim), p["attn"]["wo"], b)
+    attn_out = tp_all_reduce(mm(attn.reshape(b, t, cfg.q_dim),
+                                p["attn"]["wo"], b, k_sharded=True))
     x = (x + attn_out).to(in_dtype)
     h = norm("mlp_norm", x)
     return (x + apply_mlp(p["mlp"], h, cfg, plan_rows=b)).to(in_dtype)

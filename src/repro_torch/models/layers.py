@@ -11,6 +11,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import tp_all_reduce
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.sail_linear import mm
 
@@ -102,7 +103,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     out = flash_attention(q, k, v, window=cfg.window)
-    return mm(out.reshape(b, t, cfg.q_dim), p["wo"])
+    return tp_all_reduce(mm(out.reshape(b, t, cfg.q_dim), p["wo"],
+                            k_sharded=True))
 
 
 def mlp_init(generator, cfg: ModelConfig, lead=(), device=None):
@@ -114,6 +116,8 @@ def mlp_init(generator, cfg: ModelConfig, lead=(), device=None):
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
               plan_rows: Optional[int] = None) -> torch.Tensor:
-    """SwiGLU (``plan_rows``: see ``sail_linear.mm``)."""
+    """SwiGLU (``plan_rows``: see ``sail_linear.mm``).  ``w_down`` is
+    row-parallel under tensor parallelism: its partial sums are summed over
+    the group (``dist.sharding.tp_all_reduce``), as ``wo``'s are."""
     h = F.silu(mm(x, p["w_gate"], plan_rows)) * mm(x, p["w_up"], plan_rows)
-    return mm(h, p["w_down"], plan_rows)
+    return tp_all_reduce(mm(h, p["w_down"], plan_rows, k_sharded=True))

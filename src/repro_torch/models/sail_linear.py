@@ -79,16 +79,16 @@ def _apply_act_quant(x: torch.Tensor, w: Any):
     return x, w
 
 
-def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None
-       ) -> torch.Tensor:
-    """x [..., K] @ w [K, N] with QTensor dispatch (``plan_rows``: see
-    ``kernels.lut_gemv.ops.lut_matmul``)."""
+def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None,
+       k_sharded: bool = False) -> torch.Tensor:
+    """x [..., K] @ w [K, N] with QTensor dispatch (``plan_rows`` and
+    ``k_sharded``: see ``kernels.lut_gemv.ops.lut_matmul``)."""
     x, w = _apply_act_quant(x, w)
     if isinstance(w, QTensor):
         from repro_torch.kernels.lut_gemv.ops import lut_matmul
         lead = x.shape[:-1]
         y = lut_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
-                       plan_rows)
+                       plan_rows, k_sharded)
         return y.reshape(*lead, w.n)
     return x @ w
 

@@ -8,8 +8,8 @@ replan; ``planner.py``), ``ActivationTap`` (live-traffic capture,
 ``tap.py``) and ``run_calibration`` (the cost model refit to timings on
 this host, ``calibrate_cost.py``), with ``as_plan`` / ``plan_from_arg`` /
 ``resolve_plan``.  A ``draft=`` plan serves self-speculative decoding and
-``draft=auto`` is grid-solved on measured acceptance; serving ``tp > 1`` is
-not ported yet (ROADMAP, Queue 1 item 3f).
+``draft=auto`` is grid-solved on measured acceptance; a ``tp=<M>`` plan
+serves tensor-parallel over M ranks (``serving.distributed``).
 """
 from __future__ import annotations
 
@@ -97,17 +97,6 @@ def as_plan(obj: Any) -> PlanSpec:
     raise TypeError(f"cannot interpret {type(obj).__name__!r} as a PlanSpec")
 
 
-def check_servable(plan: PlanSpec) -> None:
-    """Raise ``NotImplementedError`` (naming its ROADMAP item) for a plan
-    the port cannot serve: an integer ``tp > 1`` needs tensor-parallel
-    serving.  Unsolved plans (``auto`` modes, ``kv=auto``, ``tp=auto``,
-    ``draft=auto``) serve: ``resolve_plan`` runs the Planner on them."""
-    if isinstance(plan.tp, int) and plan.tp > 1:
-        raise NotImplementedError(
-            f"plan {plan.format()!r}: tp={plan.tp} needs tensor-parallel "
-            "serving, not ported yet (ROADMAP, Queue 1 item 3f)")
-
-
 def resolve_plan(plan: Any, params, cfg, base=None, slo: Optional[Slo] = None,
                  cost: Optional[DecodeCostModel] = None, tokens=None,
                  compute_cost: bool = False) -> PlanResult:
@@ -118,12 +107,8 @@ def resolve_plan(plan: Any, params, cfg, base=None, slo: Optional[Slo] = None,
     :class:`Planner` on ``params`` (sensitivity probes and the budgeted
     solve on the device ``params`` live on, honouring ``slo`` /
     ``plan.target_tps``).  ``compute_cost`` prices a solved plan on the
-    SAIL machine model (an unsolved one is always priced by its solve).
-    Plans the port cannot serve raise ``NotImplementedError``
-    (``check_servable``), before and after the solve (``tp=auto`` under an
-    SLO may price more than one shard)."""
+    SAIL machine model (an unsolved one is always priced by its solve)."""
     plan = as_plan(plan)
-    check_servable(plan)
     planner = Planner(params, cfg, plan, base=base, cost=cost, tokens=tokens)
     if plan.solved:
         policy = plan.to_policy(planner.base)
@@ -131,6 +116,4 @@ def resolve_plan(plan: Any, params, cfg, base=None, slo: Optional[Slo] = None,
             spec=plan, policy=policy,
             cost=planner._price(policy, plan, None, slo) if compute_cost
             else None)
-    result = planner.solve(slo=slo)
-    check_servable(result.spec)
-    return result
+    return planner.solve(slo=slo)

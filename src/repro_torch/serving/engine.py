@@ -72,11 +72,21 @@ decoding's tokens.  ``EngineConfig.controller`` attaches a
 the decode batch capped at the largest occupancy whose modeled iteration
 (or round) time meets the SLO, bounded on the paged pool by the blocks
 free, and a replan is asked for when measured-vs-modeled drift leaves the
-deadband.  Not ported yet: tensor parallelism (``tp > 1``, ROADMAP,
-Queue 1 item 3f).
+deadband.
+
+``EngineConfig.tp`` (or a concrete plan's ``tp=``) above 1 serves the
+quantized tree sharded over a ``torch.distributed`` group of that many
+ranks (``serving.distributed.TPServing``): every rank builds this engine
+on the same requests and runs the same scheduler (SPMD), holds its slice
+of the tree and its ``n_kv / tp`` heads of the KV pool, and only the
+model's row-parallel all-reduces (at ``wire`` 32 or 8 bits) cross ranks.
+The group is the caller's (``group=``) or the default one.  The controller
+acts on rank 0's measured step times, broadcast, so every rank takes the
+same decisions.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -84,17 +94,20 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import planning
 from repro_torch.core import prng
 from repro_torch.core.scheduler import DECODE, IterationScheduler, Request
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import tp_context
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.sail_linear import QuantPolicy, map_tensors, \
     quantize_params
 from repro_torch.serving.block_pool import BlockSpaceManager
 from repro_torch.serving.control import ControllerConfig, SloController
+from repro_torch.serving.distributed import TPServing, local_config
 from repro_torch.serving.speculative import SpeculativeDecoder, \
     accept_greedy
 
@@ -158,6 +171,11 @@ class EngineConfig:
     kv_budget_bytes: Optional[int] = None
     share_prefix: bool = True      # COW-share identical prompt prefixes
     preempt: bool = True           # evict the newest request when dry
+    # Tensor-parallel serving: shard the quantized weight tree over ``tp``
+    # ranks of a process group (continuous mode, no tap, no draft); a
+    # concrete plan's tp= / wire= overrides these knobs
+    tp: int = 1
+    wire: int = 32                 # all-reduce bits: 32 exact, 8 compressed
 
 
 @dataclasses.dataclass
@@ -170,7 +188,9 @@ class Completion:
 
 class Engine:
     def __init__(self, params, cfg: ModelConfig, ecfg: EngineConfig,
-                 device="cuda"):
+                 device="cuda", group=None):
+        """``group``: the process group a ``tp > 1`` engine shards over
+        (None: the default group); it must hold exactly ``tp`` ranks."""
         if ecfg.mode not in ("continuous", "batch"):
             raise ValueError(f"mode={ecfg.mode!r}: 'continuous' or 'batch'")
         self.device = resolve_device(device)
@@ -232,6 +252,29 @@ class Engine:
         self.kv_bits = kvb if kvb is not None else (8 if ecfg.quant_kv
                                                     else 32)
         self._quant_kv = self.kv_bits == 8
+        # tensor parallelism: a concrete plan tp= / wire= wins over the
+        # EngineConfig knobs; the shard count is fixed for the engine's life
+        plan_tp = (self.plan.tp if self.plan is not None
+                   and isinstance(self.plan.tp, int) else None)
+        plan_wire = (self.plan.wire if self.plan is not None
+                     and self.plan.wire is not None else None)
+        self.tp = plan_tp if plan_tp is not None else int(ecfg.tp)
+        self.wire_bits = (plan_wire if plan_wire is not None
+                          else int(ecfg.wire))
+        self.tp_serving: Optional[TPServing] = None
+        if self.tp > 1:
+            if ecfg.mode != "continuous":
+                raise ValueError("tensor-parallel serving requires "
+                                 "mode='continuous'")
+            if self.tap is not None:
+                raise ValueError(
+                    "tensor-parallel serving and an ActivationTap cannot "
+                    "coexist — the sharded decode step has no capture path")
+            self.tp_serving = TPServing(cfg, self.tp, self.wire_bits, group)
+            self.params = self.tp_serving.shard_params(self.params)
+        # the model code runs over this rank's view of cfg (cfg itself at
+        # tp=1), inside self._tp()
+        self._mcfg = local_config(cfg, self.tp)
         self.sched = IterationScheduler(target_batch=ecfg.batch_size,
                                         max_batch=ecfg.batch_size,
                                         prefill_budget=ecfg.prefill_budget)
@@ -264,8 +307,8 @@ class Engine:
             if self.paged:
                 self._init_paged_pool(int(ecfg.kv_block_size))
             else:
-                self.cache = lm.init_cache(cfg, ecfg.batch_size, self._clen,
-                                           self._quant_kv,
+                self.cache = lm.init_cache(self._mcfg, ecfg.batch_size,
+                                           self._clen, self._quant_kv,
                                            device=self.device)
         draft = self.plan.draft if self.plan is not None else None
         if draft is not None:
@@ -298,6 +341,11 @@ class Engine:
         if self.ecfg.mode != "continuous":
             raise ValueError("speculative decoding (plan draft=) requires "
                              "mode='continuous'")
+        if self.tp_serving is not None:
+            raise ValueError(
+                "speculative decoding is not supported under "
+                "tensor-parallel serving — the draft/verify round runs "
+                "outside the sharded entry points")
         if self.cfg.family in ("ssm", "hybrid"):
             raise ValueError(
                 "speculative decoding needs a pure-attention family — "
@@ -480,11 +528,12 @@ class Engine:
                 tables = self._tables_dev
             capture = (self.tap is not None
                        and self.tap.should_capture(self.decode_iterations))
-            out = lm.decode_step(
-                self.params, self._cur[:, None], self.cache, self.cfg,
-                quant_kv=self._quant_kv, active_mask=mask,
-                device=self.device, block_tables=tables,
-                capture_layer_inputs=capture)
+            with self._tp():
+                out = lm.decode_step(
+                    self.params, self._cur[:, None], self.cache, self._mcfg,
+                    quant_kv=self._quant_kv, active_mask=mask,
+                    device=self.device, block_tables=tables,
+                    capture_layer_inputs=capture)
             if capture:
                 logits, self.cache, layer_inputs = out
                 self.tap.observe(layer_inputs, mask)
@@ -499,6 +548,8 @@ class Engine:
             # _sample copies to the host, so dt covers the whole iteration
             # (and any tap capture's copy)
             dt = time.perf_counter() - t0
+            if ctl is not None:
+                dt = self._agreed_seconds(dt)
             self.iterations += 1
             self.decode_iterations += 1
             self.decode_seconds += dt
@@ -527,7 +578,7 @@ class Engine:
     def _init_paged_pool(self, bs: int) -> None:
         """The block pool (with its trash block), its manager and the lanes'
         block tables, on the host and on the card."""
-        ecfg, cfg = self.ecfg, self.cfg
+        ecfg = self.ecfg
         if bs < 1:
             raise ValueError(f"kv_block_size={bs}: need >= 1")
         self._mbs = -(-self._clen // bs)       # table columns per lane
@@ -537,8 +588,8 @@ class Engine:
         # one extra physical block: the trash block every dead table entry
         # and masked write points at
         self._trash = nblocks
-        self.cache = lm.init_paged_cache(cfg, ecfg.batch_size, nblocks + 1,
-                                         bs, self._quant_kv,
+        self.cache = lm.init_paged_cache(self._mcfg, ecfg.batch_size,
+                                         nblocks + 1, bs, self._quant_kv,
                                          device=self.device)
         # the host's tables live in a (pinned, on the card) buffer that one
         # copy_ per decode step sends to a device tensor allocated here
@@ -796,16 +847,19 @@ class Engine:
                 self._tables_np[req.slot, :len(table)] = table
                 t = np.arange(nsh * bs, req.prompt_len)
                 phys[i, t] = np.asarray(table)[t // bs]
-            logits, self.cache = lm.prefill_into_blocks(
-                self.params, toks, self.cache, slots, phys.ravel(),
-                offs.ravel(), self.cfg, quant_kv=self._quant_kv,
-                lengths=lengths, device=self.device)
+            with self._tp():
+                logits, self.cache = lm.prefill_into_blocks(
+                    self.params, toks, self.cache, slots, phys.ravel(),
+                    offs.ravel(), self._mcfg, quant_kv=self._quant_kv,
+                    lengths=lengths, device=self.device)
             for req in reqs:
                 self._len_np[req.slot] = req.prompt_len
         else:
-            logits, self.cache = lm.prefill_into_slot(
-                self.params, toks, self.cache, slots, self.cfg,
-                quant_kv=self._quant_kv, lengths=lengths, device=self.device)
+            with self._tp():
+                logits, self.cache = lm.prefill_into_slot(
+                    self.params, toks, self.cache, slots, self._mcfg,
+                    quant_kv=self._quant_kv, lengths=lengths,
+                    device=self.device)
         self.iterations += 1
         self.prefill_iterations += 1
         self.prefill_tokens += int(lengths.sum())
@@ -922,6 +976,25 @@ class Engine:
         return prng.draw_rows(logits, uids, indices, self.ecfg.seed,
                               self.ecfg.temperature).tokens.cpu().numpy()
 
+    def _tp(self):
+        """The block every model call runs in: the tensor-parallel group's
+        collectives at the engine's wire precision (nothing at tp=1)."""
+        if self.tp_serving is None:
+            return contextlib.nullcontext()
+        return tp_context(self.tp_serving.group, self.wire_bits)
+
+    def _agreed_seconds(self, dt: float) -> float:
+        """A wall-clock reading every rank acts on alike: rank 0's,
+        broadcast over the tensor-parallel group (``dt`` itself when
+        serving on one device)."""
+        if self.tp_serving is None:
+            return dt
+        group = self.tp_serving.group
+        t = torch.tensor([dt], dtype=torch.float64)
+        dist.broadcast(t, dist.get_global_rank(group, 0) if group is not None
+                       else 0, group=group)
+        return float(t.item())
+
     def measured_tps(self) -> Optional[float]:
         """Decode-phase tokens per wall second of masked decode steps."""
         if self.decode_seconds <= 0 or self._decode_tokens == 0:
@@ -940,7 +1013,7 @@ class Engine:
             return None
         got = self._iter_cache.get(occupancy)
         if got is None:
-            cost = planning.plan_cost_model(self.plan, batch=int(occupancy))
+            cost = self._plan_cost_model(occupancy)
             if self.spec_decoder is not None:
                 got = planning.speculative_round_seconds(
                     cost, self._plan_units, self.spec_decoder.draft_units,
@@ -954,6 +1027,16 @@ class Engine:
                                              total)
             self._iter_cache[occupancy] = got
         return got
+
+    def _plan_cost_model(self, batch: int):
+        """The served plan's ``DecodeCostModel`` at ``batch``, priced at the
+        engine's shard count and wire precision under TP."""
+        kw: Dict[str, Any] = {"batch": int(batch)}
+        if self.tp_serving is not None:
+            kw.update(tp=self.tp_serving.tp,
+                      wire_bits=self.tp_serving.wire_bits,
+                      allreduce_elems=planning.tp_allreduce_elems(self.cfg))
+        return planning.plan_cost_model(self.plan, **kw)
 
     def _tokens_per_iter(self) -> float:
         """Tokens a lane commits per scheduling quantum: 1 for plain
@@ -1028,8 +1111,9 @@ class Engine:
         without dropping a token.  Accepts a PlanSpec, grammar string /
         JSON, or a ``Planner`` ``PlanResult``.  A plan whose policy is the
         one served skips the requantization unless ``force_requantize``.
-        KV precision and shard count are fixed at construction: a plan
-        asking for others warns and serves on.  The plan's draft swaps in
+        KV precision, shard count and wire precision are fixed at
+        construction: a plan asking for others warns and serves on; under
+        TP the requantized tree is sharded again.  The plan's draft swaps in
         too: a different draft requantizes the draft tree, none stops
         speculating (the pending token carries over either way).
         """
@@ -1044,7 +1128,6 @@ class Engine:
             spec, policy, report = plan.spec, plan.policy, plan.report
         else:
             spec = planning.as_plan(plan)
-            planning.check_servable(spec)
             policy = spec.to_policy(self._base_policy())
         if isinstance(spec.kv_bits, int) and spec.kv_bits != self.kv_bits:
             warnings.warn(
@@ -1053,14 +1136,23 @@ class Engine:
                 "precision cannot hot-swap under in-flight requests; "
                 "rebuild the engine to change it", UserWarning,
                 stacklevel=2)
-        if isinstance(spec.tp, int) and spec.tp != 1:
+        if isinstance(spec.tp, int) and spec.tp != self.tp:
             warnings.warn(
-                f"plan requests tp={spec.tp} but the engine serves tp=1 "
-                "(tensor-parallel serving is not ported: ROADMAP, Queue 1 "
-                "item 3f)", UserWarning, stacklevel=2)
+                f"plan requests tp={spec.tp} but the engine serves "
+                f"tp={self.tp} — the process group is fixed at construction; "
+                "rebuild the engine to change shard count", UserWarning,
+                stacklevel=2)
+        if spec.wire is not None and spec.wire != self.wire_bits:
+            warnings.warn(
+                f"plan requests wire={spec.wire} but the engine serves "
+                f"wire={self.wire_bits} — all-reduce precision is fixed at "
+                "construction; rebuild the engine to change it",
+                UserWarning, stacklevel=2)
         if force_requantize or policy != self.quant_policy:
             self.params, b0, b1 = quantize_params(self._raw_params, policy)
             self.compression = b0 / max(b1, 1)
+            if self.tp_serving is not None:
+                self.params = self.tp_serving.shard_params(self.params)
         self.quant_policy = policy
         self.plan = spec
         # the report tracks the plan actually served
@@ -1119,6 +1211,23 @@ class Engine:
         self.apply_plan(result)
         return result
 
+    def _tp_stats(self) -> Dict[str, Any]:
+        """Tensor-parallel serving: shard count, wire precision, the
+        all-reduce bytes one full-pool decode iteration moves per rank, and
+        the SAIL machine model's wire seconds and their share of that
+        iteration (None unquantized)."""
+        b = self.ecfg.batch_size
+        tw = (self._plan_cost_model(b).t_wire(b)
+              if self._plan_units is not None else None)
+        secs = self._modeled_iter_seconds(b)
+        return {"shards": self.tp_serving.tp,
+                "wire_bits": self.tp_serving.wire_bits,
+                "allreduce_bytes_per_iter":
+                    self.tp_serving.allreduce_bytes_per_iter(b),
+                "modeled_t_wire_s": tw,
+                "modeled_wire_share": (tw / secs if tw is not None
+                                       and secs else None)}
+
     def stats(self) -> Dict[str, Any]:
         lats = [c.latency_s for c in self.completions.values()]
         ttfts = [c.ttft_s for c in self.completions.values()]
@@ -1144,6 +1253,8 @@ class Engine:
                                 if self.spec_decoder is not None else None),
                 "peak_active": self.peak_active,
                 "kv_bits": self.kv_bits,
+                "tp": (self._tp_stats() if self.tp_serving is not None
+                       else None),
                 "block_pool": (self.block_mgr.stats() if self.paged
                                else None),
                 "iterations": self.iterations,

@@ -33,6 +33,16 @@ PROMPTS = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [3, 1, 4, 1, 5], [2, 7, 1]]
 ENGINE = dict(batch_size=4, cache_len=64, group_size=32, quant_kv=True)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's smoke-sized CPU ops are tiny: one intra-op thread runs
+    them fastest, and keeps them off the other test workers' cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def smoke():
     cfg = JC.get_smoke(ARCH)
@@ -179,13 +189,14 @@ def test_mode_and_quantize_errors(smoke):
             eng.replan()
     with pytest.raises(ValueError, match="mode="):
         TEngine(carried, tcfg, TEngineConfig(mode="paged"), device="cpu")
-    # a draft plan needs the continuous engine (the reference's gate), and
-    # tp > 1 is refused in every mode
+    # a draft plan and tensor-parallel serving need the continuous engine
+    # (the reference's gates)
     with pytest.raises(ValueError, match="requires mode='continuous'"):
         TEngine(carried, tcfg, TEngineConfig(
             **ENGINE, plan="uniform:4,draft=q2a8:k4", mode="batch"),
             device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+    with pytest.raises(ValueError, match="tensor-parallel serving requires "
+                                         "mode='continuous'"):
         TEngine(carried, tcfg, TEngineConfig(plan="uniform:4,tp=2",
                                              mode="batch"), device="cpu")
 

@@ -553,3 +553,50 @@ def test_sampling_draw_on_the_card_matches_the_cpu(gen, vocab):
         cpu.gumbel.abs().numpy(), np.float32(1))).astype(np.float64))
     assert ((card.gumbel.cpu().double() - want).abs() / scale).max() <= 4
     assert torch.equal(card.tokens.cpu(), cpu.tokens)
+
+
+# --- tensor parallelism: the shapes one rank of tp = 2 or 4 runs -------------
+
+# (K, N) of the block matrices on one rank of full-width tinymistral:
+# wq, wk / wv, wo, w_gate / w_up, w_down at tp 2, then at tp 4
+TP_KN = [(1024, 512), (1024, 128), (512, 1024), (1024, 2048), (2048, 1024),
+         (1024, 256), (1024, 64), (256, 1024)]
+
+
+@pytest.mark.parametrize("kn", TP_KN)
+def test_lut_kernels_at_the_tp_shard_shapes(gen, kn):
+    """Both LUT-GEMV flavours at a rank's decode shapes (M 8, b 4, G 128;
+    wo's K is 4 groups at tp 2 and 2 at tp 4): the f32 one at the
+    reference tests' tolerance, the int one (8-bit activations quantized
+    from f32) at chip_smoke's tolerance for quantized data."""
+    k, n = kn
+    qt = _qt(gen, k, n, 4, 128)
+    x = torch.randn((8, k), device="cuda", generator=gen)
+    torch.testing.assert_close(lut_matmul_cuda(x, qt),
+                               lut_ref.lut_matmul_ref(x, qt), rtol=1e-5,
+                               atol=1e-4)
+    xq, xs = quantize_activations(x, 8)
+    torch.testing.assert_close(lut_matmul_int_cuda(xq, xs, qt, 8),
+                               lut_ref.lut_matmul_ref_int(xq, xs, qt),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv", [4, 2])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_at_the_tp_shard_heads(gen, kv, quantized):
+    """Decode attention over a rank's kv heads (4 at tp 2, 2 at tp 4; G 4,
+    D 32, 8 lanes, S 512) in ring mode, wrapped and not, and in table mode
+    (block size 16), each at 2e-5 of its plain version."""
+    b, g, d, s = 8, 4, 32, 512
+    q, k, v, ks, vs = _attn_inputs(gen, b, kv, g, d, s, quantized)
+    pos = torch.tensor([0, 1, 40, 255, 511, 512, 700, 2000],
+                       dtype=torch.int32, device="cuda")
+    got = decode_attention_cuda(q, k, v, pos, ks, vs, 4096, ring=True)
+    want = da_ref.decode_attention_ring_ref(q, k, v, pos, 4096, ks, vs)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    q, k, v, ks, vs, tables, pos = _paged(gen, b, kv, g, d, s, 16, quantized)
+    got = decode_attention_cuda(q, k, v, pos, ks, vs, 4096, ring=True,
+                                tables=tables)
+    want = da_ref.decode_attention_paged_ref(q, k, v, pos, tables, 4096, ks,
+                                             vs)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)

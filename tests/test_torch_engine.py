@@ -22,7 +22,7 @@ from repro_torch.models.sail_linear import QuantPolicy
 from repro_torch.models.sail_linear import quantize_params
 from repro_torch.serving.engine import Engine as TEngine
 from repro_torch.serving.engine import EngineConfig as TEngineConfig
-from repro_torch.planning import as_plan, check_servable
+from repro_torch.planning import as_plan
 
 ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 ARCH = "tinymistral_248m"
@@ -118,13 +118,13 @@ def test_plan_grammar_and_unported_options(smoke):
             device="cpu")
         assert eng.plan.solved and eng.kv_bits in (8, 32)
         assert eng.plan.kv_bits in (8, 32, None)
-    # a draft plan is servable now (tests/test_torch_speculative.py serves
-    # it); tp > 1 still raises
+    # a draft plan is servable (tests/test_torch_speculative.py serves it);
+    # a tp=2 plan needs a group of 2 ranks, as the reference's needs 2
+    # devices (tests/test_torch_tp.py serves it)
     draft = as_plan("uniform:4,draft=q2a8:k4")
-    check_servable(draft)
     assert (draft.draft.weight_bits, draft.draft.act_bits,
             draft.draft.k) == (2, 8, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
+    with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
         TEngine(carried, tcfg, TEngineConfig(plan="uniform:4,tp=2"),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -154,9 +154,11 @@ def _port_files():
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20
-    for name in ("control.py", "speculative.py"):
-        assert os.path.join(ROOT, "src", "repro_torch", "serving",
-                            name) in files
+    for name in ("serving/control.py", "serving/speculative.py",
+                 "serving/distributed.py", "dist/sharding.py",
+                 "dist/compress.py", "launch/mesh.py"):
+        assert os.path.join(ROOT, "src", "repro_torch",
+                            *name.split("/")) in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
@@ -184,6 +186,9 @@ def test_entry_points_refuse_a_missing_cuda_device(smoke, monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", ARCH, "--smoke"])
+    # --tp refuses before it spawns a rank
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", ARCH, "--smoke", "--tp", "2"])
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

@@ -30,6 +30,7 @@ from repro.models.common import ModelConfig as JModelConfig
 from repro.planning import Planner as JPlanner
 from repro.planning import Slo as JSlo
 from repro.planning import calibrate_cost as jcc
+from repro.planning import resolve_plan as jresolve_plan
 from repro.planning.spec import PlanSpec as JPlanSpec
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import calibrate as tcal
@@ -50,6 +51,16 @@ TINY = dict(name="tiny", family="dense", vocab=64, d_model=32, n_layers=2,
 BASE = dict(group_size=32, min_size=1024)
 SCORE_TOL = dict(rel=1e-4, abs=1e-9)
 ACT_SCORE_TOL = dict(rel=1e-3, abs=1e-9)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's smoke-sized CPU ops are tiny: one intra-op thread runs
+    them fastest, and keeps them off the other test workers' cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -351,9 +362,9 @@ def test_planner_tp_auto_prices_shards_under_an_slo(tiny, probes):
 
 
 def test_planner_refuses_draft_auto_naming_the_roadmap(tiny, probes):
-    """draft=auto solves now, to the reference's pick on the same measured
-    acceptance curve; serving tp > 1 is what resolve_plan still refuses,
-    naming its ROADMAP item."""
+    """draft=auto solves, to the reference's pick on the same measured
+    acceptance curve; resolve_plan serves a tp=2 plan as the reference's
+    does (the engine shards it, tests/test_torch_tp.py)."""
     j, t = _planners(tiny, probes, "auto:q4")
     for p in (j, t):
         for bits, acc in ((2, 0.35), (3, 0.6), (4, 0.9)):
@@ -363,9 +374,12 @@ def test_planner_refuses_draft_auto_naming_the_roadmap(tiny, probes):
     tr = t.solve(plan=TPlanSpec.parse(plan))
     assert tr.spec.solved and tr.spec.spec_hash == jr.spec.spec_hash
     assert tr.spec.draft == jr.spec.draft is None
-    _, tcfg, _, carried = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP, Queue 1 item 3f"):
-        resolve_plan("uniform:4,tp=2", carried, tcfg)
+    jcfg, tcfg, params, carried = tiny
+    tr = resolve_plan("uniform:4,tp=2", carried, tcfg)
+    jr = jresolve_plan("uniform:4,tp=2", params, jcfg)
+    assert tr.spec.tp == jr.spec.tp == 2
+    assert tr.spec.spec_hash == jr.spec.spec_hash
+    assert tr.policy.to_spec() == jr.policy.to_spec()
 
 
 def test_planner_probe_cache_is_reused(tiny, probes):
