@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase, as the chip check runs it
+    python3 chip_smoke.py --phases build,families   # some phases (no result)
 
 Phases (each passes or the script exits nonzero):
   1. build  — nvcc builds every kernel of the port from ``src/repro_torch/csrc``
@@ -82,13 +83,15 @@ Phases (each passes or the script exits nonzero):
      and paged tokens equal); on phase 3's prompts Q4 card against CPU
      end to end and A8 launch by launch (its 4-bit activation codes turn
      f32 rounding into logit differences, as the CPU against itself with
-     noise shows);
+     noise shows; the CPU's dequantized weights come from the card,
+     bit-equal, as in phase 11);
      the probes at full width and 2 layers on the card and on the CPU
-     (every score within the CPU tests' tolerance, equal allocations); a
-     live replan (replan(), then a re-solve under the tapped traffic and
-     apply_plan) after 8 decode iterations, token-identical to an engine
-     that served the final plan; the cost model refit to the bit-serial
-     LUT-GEMV's timings on the card, and an SLO solve priced on it;
+     (every score within the CPU tests' tolerance, equal allocations); at
+     full width cut to 3 layers, A8 solved again and a live replan
+     (replan(), then a re-solve under the tapped traffic and apply_plan)
+     after 8 decode iterations, token-identical to an engine that served
+     the final plan; the cost model refit to the bit-serial LUT-GEMV's
+     timings on the card, and an SLO solve priced on it at 3 layers;
   8. sampling — phase 4's requests at temperature 0.7 (seed 7) on the ring
      and the paged pool (run A's admission): equal tokens per request,
      not all greedy's; again on the ring under uniform:4a8; every kernel
@@ -133,7 +136,29 @@ Phases (each passes or the script exits nonzero):
      launches are counted exactly (85 LUT-GEMV per pass, 12 decode
      attentions per step) and by shape, and ``allreduce_bytes_per_iter``
      checked; the eager step's wall time against its 24 all-reduces alone,
-     and a rank's 85-call LUT-GEMV step at the sharded shapes as one graph.
+     and a rank's 85-call LUT-GEMV step at the sharded shapes as one graph;
+ 11. families — the dense and MoE decoders, uniform:4, int8 KV, random
+     weights made on the card.  (a) llama2_7b at full width and depth (32
+     layers, d 4096, 32 x 128 heads): init and quantize on the card, the
+     f32 tree freed; phase 4's 16 requests on the ring and on the paged
+     pool (run A's admission), tokens equal; one prefill pass and two
+     decode steps with every LUT-GEMV and decode-attention launch held
+     against its plain version and counted exactly (225 LUT-GEMV and 32
+     attentions per decode step); the step's device time as a graph and
+     its eager wall, its 225 LUT-GEMV calls as one graph beside their
+     bound and torch.matmul on the dequantized weights, its 32 attentions
+     as one graph beside their bound; the model cut to 2 layers card
+     against CPU (phase 3's prompts and tolerance).  (b)
+     granite_moe_1b_a400m the same way at full depth, with its MoE
+     layers' and dense expert einsums' share of the step.  (c)
+     llama2_13b, llama3_2_1b, qwen3_0_6b, h2o_danube_3_4b, starcoder2_7b
+     and mixtral_8x7b at full width cut to 2 layers: four requests on the
+     ring and phase 3's prompts card against CPU, every launch held.  (d)
+     the smoke configs with narrow heads (D 20 and D 12) on the ring and
+     the paged pool, every launch held, tokens equal to the CPU engine's;
+     decode attention timed at D 20 beside D 128.  The CPU's dequantized
+     weights come from the card (bit-equal, checked), its products stay
+     on the CPU.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -408,10 +433,9 @@ def typeconv_sass(text: str) -> dict:
 ATTN_B, ATTN_KV, ATTN_G, ATTN_D, ATTN_WINDOW = 8, 8, 4, 32, 4096
 
 
-def attn_inputs(torch, gen, s):
-    """Random q and K/V of ``s`` slots at tinymistral's widths: f32 and int8
-    with scales."""
-    b, kvh, g, d = ATTN_B, ATTN_KV, ATTN_G, ATTN_D
+def attn_inputs(torch, gen, s, b=ATTN_B, kvh=ATTN_KV, g=ATTN_G, d=ATTN_D):
+    """Random q and K/V of ``s`` slots, by default at tinymistral's widths:
+    f32 and int8 with scales."""
     from repro_torch.core.quant import quantize_kv
     x = {"q": torch.randn((b, kvh * g, d), device="cuda", generator=gen),
          "kf": torch.randn((b, s, kvh, d), device="cuda", generator=gen),
@@ -1507,17 +1531,21 @@ class Held:
     version on the launch's own inputs (the weight dequantized once per
     tensor): f32 launches at F32_RTOL / F32_ATOL, int launches at LUT_RTOL
     / LUT_ATOL.  The plain version launches nothing, so the counters
-    still count the kernel's launches only."""
+    still count the kernel's launches only.  ``cache=False`` dequantizes
+    the weight at each launch instead (a 7B model's f32 weights would
+    take 26 GB)."""
 
-    def __init__(self, torch, name):
+    def __init__(self, torch, name, cache=True):
         from repro_torch.kernels.lut_gemv import ops
         self.ops, self.torch, self.name = ops, torch, name
         self.calls = collections.Counter()
         self.err = {"f32": 0.0, "int": 0.0}
-        self._w = {}
+        self._w, self._cache = {}, cache
 
     def _weight(self, qt):
         from repro_torch.core.quant import dequantize
+        if not self._cache:
+            return dequantize(qt)
         key = (qt.packed.data_ptr(), qt.bits)
         if key not in self._w:
             self._w[key] = dequantize(qt)
@@ -1763,6 +1791,8 @@ def phase_plans(rt):
 SCORE_RTOL = {"scores": 1e-4, "act": 1e-3}
 SCORE_ATOL, KV_RTOL = 1e-9, 1e-3
 PLANNER_BASE = dict(bits=4, group_size=128, min_size=1024)
+# the live replan's and the SLO solve's depth (phase 7 (d), (e))
+LIVE_LAYERS = 3
 
 
 def solve_on_card(torch, Planner, base, raw, cfg, plan, res, name):
@@ -1837,11 +1867,8 @@ def probe_scores(sens, params, cfg, tokens, base):
 def probe_parity(torch, sens, raw, cfg, base, res):
     """(c): the probes at full width and 2 layers, card against CPU, and
     the two allocations their scores solve to."""
-    import dataclasses
-    from repro_torch.models.sail_linear import _walk, map_tensors
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    raw2 = dict(raw)
-    raw2["blocks"] = _walk(raw["blocks"], lambda _, x: x[:2].contiguous())
+    from repro_torch.models.sail_linear import map_tensors
+    raw2, cfg2 = cut_layers(raw, cfg, 2)
     tokens = sens.calibration_tokens(cfg.vocab)
     card = probe_scores(sens, raw2, cfg2, tokens, base)
     torch.cuda.synchronize()
@@ -1948,7 +1975,8 @@ def live_replan(torch, planning, Engine, EngineConfig, raw, cfg, spec,
     ref_run.run()
     want = {c.uid: c.tokens for c in ref_run.completions.values()}
     same = sum(got[u] == want[u] for u in want)
-    log(f"[planner] live replan after 8 decode iterations (iteration "
+    log(f"[planner] live replan at full width, {cfg.n_layers} layers, after "
+        f"8 decode iterations (iteration "
         f"{swap_at}): replan() measured a PRT hit rate of "
         f"{cheap.measured_prt_hit_rate:.4f} on {eng.tap.rows_seen} tapped "
         f"rows; replan(resolve=True) re-solved in {t_resolve:.2f} s to plan "
@@ -1967,6 +1995,7 @@ def live_replan(torch, planning, Engine, EngineConfig, raw, cfg, spec,
         swap_iteration=swap_at, prt_hit_rate=st["prt_hit_rate"],
         cheap_prt_hit_rate=cheap.measured_prt_hit_rate,
         replan_count=st["replan_count"], resolve_seconds=t_resolve,
+        layers=cfg.n_layers,
         apply_plan_seconds=t_apply, allocation_changed=changed,
         final_plan=final.spec_hash, tapped_rows=st["tapped_rows"],
         equal=same)
@@ -2008,7 +2037,8 @@ def cost_calibration(torch, planning, raw, cfg, base, planner, res):
     t_solve = time.perf_counter() - t0
     if result.spec.calibration != prov or not result.spec.solved:
         fail("cost calibration: the SLO plan lost its calibration provenance")
-    log(f"[planner] auto:q4a8,slo={target:.1f} priced on the fitted machine "
+    log(f"[planner] auto:q4a8,slo={target:.1f} at {cfg.n_layers} layers "
+        f"priced on the fitted machine "
         f"(target = uniform 4a8's modeled tok/s on it at batch 8): solved in "
         f"{t_solve:.3f} s to plan {result.spec.spec_hash}, modeled "
         f"{result.cost.tokens_per_second:.1f} tok/s on the effective "
@@ -2022,7 +2052,8 @@ def cost_calibration(torch, planning, raw, cfg, base, planner, res):
         max_rel_err=cal.max_rel_err, mean_rel_err=cal.mean_rel_err,
         stream_bytes_per_s=cal.dram_bw_measured, card=card_line(),
         slo_target_effective_machine=target, slo_plan=result.spec.spec_hash,
-        slo_meets=result.meets_slo, slo_solve_seconds=t_solve)
+        slo_meets=result.meets_slo, slo_solve_seconds=t_solve,
+        slo_layers=cfg.n_layers)
 
 
 def phase_planner(rt):
@@ -2086,14 +2117,17 @@ def phase_planner(rt):
         torch.cuda.synchronize()
         cpu_params = map_tensors(params, lambda t: t.cpu())
         del params
-        cl, ct = run_greedy(torch, lm, cpu_params, cfg, toks, lengths, 4,
-                            "cpu", quant_kv=qkv)
+        # the CPU's dequantization taken from the card (bit-equal, checked)
+        with CardDequant(torch):
+            cl, ct = run_greedy(torch, lm, cpu_params, cfg, toks, lengths, 4,
+                                "cpu", quant_kv=qkv)
+            if name == "A8":
+                pl = run_perturbed(torch, lm, cpu_params, cfg, toks, lengths)
         err = (gl - cl).abs().max().item()
         rec = dict(logits_err=err, tokens_equal=bool(torch.equal(gt, ct)),
                    held=sum(held.calls.values()), held_err=dict(held.err))
         noise = ""
         if name == "A8":
-            pl = run_perturbed(torch, lm, cpu_params, cfg, toks, lengths)
             rec["cpu_vs_cpu_with_noise_err"] = (pl - cl).abs().max().item()
             noise = (f"; the CPU against itself with activations scaled by "
                      f"1 + 1e-7 N(0, 1) before each quantization differs by "
@@ -2118,12 +2152,17 @@ def phase_planner(rt):
     # (c) probe parity at full width, 2 layers
     probe_parity(torch, sens, raw, cfg, base, res)
 
-    # (d) live replan
-    live_replan(torch, planning, Engine, EngineConfig, raw, cfg, r_a8.spec,
-                planner, prompts, res)
-
-    # (e) the cost model refit on the card
-    cost_calibration(torch, planning, raw, cfg, base, planner, res)
+    # (d) live replan and (e) the cost model refit on the card, with its SLO
+    # solve, at full width cut to LIVE_LAYERS layers: A8 solved again there
+    # (the joint solve's time grows with the units, 85 at 12 layers)
+    raw_cut, cfg_cut = cut_layers(raw, cfg, LIVE_LAYERS)
+    planner_cut, r_cut = solve_on_card(
+        torch, planning.Planner, base, raw_cut, cfg_cut, "auto:q4a8,kv=auto",
+        res, f"A8 at {LIVE_LAYERS} layers")
+    live_replan(torch, planning, Engine, EngineConfig, raw_cut, cfg_cut,
+                r_cut.spec, planner_cut, prompts, res)
+    cost_calibration(torch, planning, raw_cut, cfg_cut, base, planner_cut,
+                     res)
 
 
 # ---------------------------------------------------------------------------
@@ -3169,6 +3208,571 @@ def phase_tp(rt):
         f"{torch.cuda.device_count()} card(s) visible, all ranks on cuda:0")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dense and MoE families
+# ---------------------------------------------------------------------------
+
+# (c): the other six configs of the slice, at their full widths cut to 2
+# layers; (d): the smoke configs whose head width is not a multiple of 8
+# (llama2_13b's D 20 at G 1, starcoder2_7b's D 12 at G 3)
+FAMILY_CUT = ("llama2_13b", "llama3_2_1b", "qwen3_0_6b", "h2o_danube_3_4b",
+              "starcoder2_7b", "mixtral_8x7b")
+NARROW = ("llama2_13b", "starcoder2_7b")
+# phase 5 run A's pool: 8 lanes x 32 blocks of 16, no sharing, so admission
+# and prefill groups are the ring engine's
+FAMILY_PAGED = dict(kv_block_size=16, kv_pool_blocks=8 * 32,
+                    share_prefix=False)
+# the smoke configs' widths (64-80) take groups of 8
+NARROW_RING = dict(batch_size=4, cache_len=64, quant_kv=True,
+                   plan="uniform:4", group_size=8)
+NARROW_PAGED = dict(kv_block_size=8, kv_pool_blocks=4 * 8,
+                    share_prefix=False)
+
+
+def family_model(torch, arch, layers=None, smoke=False):
+    """``arch``'s config (full, or smoke; cut to ``layers``) and its random
+    weights made on the card from seed 0."""
+    import dataclasses
+    import repro_torch.configs as C
+    from repro_torch.models import lm
+    cfg = C.get_smoke(arch) if smoke else C.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return cfg, lm.init_params(cfg, gen, device="cuda")
+
+
+def cut_layers(raw, cfg, n):
+    """The first ``n`` layers of a raw tree (copies; the rest shared) and
+    the config cut to them."""
+    import dataclasses
+    from repro_torch.models.sail_linear import _walk
+    out = dict(raw)
+    out["blocks"] = _walk(raw["blocks"], lambda _, x: x[:n].clone())
+    return out, dataclasses.replace(cfg, n_layers=n)
+
+
+def lut_calls(params):
+    """(LUT-GEMV launches of one decode step, of one prefill pass) of a
+    quantized tree: each layer's quantized matrices once (a MoE layer's
+    router; its experts go through einsum_q, no kernel), wk and wv once
+    more in prefill (the cache's K/V), and a quantized lm_head once (a tied
+    head is a plain product)."""
+    from repro_torch.core.quant import QTensor
+    from repro_torch.models import lm
+    dec = pre = 0
+    for _, layer in lm.iter_layers(params):
+        for mats in layer.values():
+            for m, w in mats.items():
+                if isinstance(w, QTensor):
+                    dec += 1
+                    pre += 2 if m in ("wk", "wv") else 1
+    head = int(isinstance(params.get("lm_head"), QTensor))
+    return dec + head, pre + head
+
+
+class CardDequant:
+    """Within the block, the CPU's plain versions (the LUT-GEMV's and
+    ``einsum_q``'s) take each CPU weight's dequantization from the card,
+    once per weight: unpacking is integer work and scaling one f32 multiply
+    per element, so the two are bit-equal (checked on the first weight),
+    and an 8-core host CPU unpacks tens of millions of weights per
+    second, minutes per pass at these widths.  Every product stays on the
+    CPU."""
+
+    def __init__(self, torch):
+        from repro_torch.kernels.lut_gemv import ref
+        from repro_torch.models import sail_linear
+        self.torch, self.ref, self.sl = torch, ref, sail_linear
+        self.memo, self.checked = {}, None
+
+    def _card(self, fn, w):
+        import dataclasses
+        key = (w.packed.data_ptr(), tuple(w.packed.shape))
+        if key not in self.memo:
+            dev = dataclasses.replace(w, packed=w.packed.cuda(),
+                                      scales=w.scales.cuda(),
+                                      codebook=w.codebook.cuda())
+            self.memo[key] = fn(dev).cpu()
+            if self.checked is None:
+                self.checked = bool(self.torch.equal(self.memo[key], fn(w)))
+                if not self.checked:
+                    fail("the card's dequantization differs from the CPU's")
+        return self.memo[key]
+
+    def __enter__(self):
+        from repro_torch.core.quant import QTensor
+        from repro_torch.models.sail_linear import StackedQTensor
+        deq, deq_any = self.ref.dequantize, self.sl.dequantize_any
+        self.saved = deq, deq_any
+        on_cpu = lambda w: (isinstance(w, (QTensor, StackedQTensor))
+                            and w.packed.device.type == "cpu")
+        self.ref.dequantize = lambda w: (self._card(deq, w) if on_cpu(w)
+                                         else deq(w))
+        self.sl.dequantize_any = lambda w: (self._card(deq_any, w)
+                                            if on_cpu(w) else deq_any(w))
+        return self
+
+    def __exit__(self, *exc):
+        self.ref.dequantize, self.sl.dequantize_any = self.saved
+        self.memo.clear()
+        return False
+
+
+def held_passes(torch, lm, params, cfg, toks, lengths, steps, name,
+                cache=True, quant_kv=True):
+    """Prefill ``toks`` and run ``steps`` greedy decode steps on the card
+    (int8 KV, or f32),
+    every LUT-GEMV and decode-attention launch held against its plain
+    version on its own inputs, the launches of each pass counted from 0
+    and checked exactly: ``lut_calls`` per prefill pass and decode step,
+    one attention per layer per step, nothing else.  Returns (logits
+    [steps + 1, B, V] and tokens on the host, record)."""
+    from repro_torch.kernels import _build
+    dec, pre = lut_calls(params)
+    passes = []
+    with Held(torch, name, cache=cache) as held, \
+            HeldAttn(torch, name) as held_attn:
+        _build.reset_launches()
+        logits, kv = lm.prefill(params, toks, cfg, 512, quant_kv, lengths,
+                                device="cuda")
+        passes.append(dict(_build.launches))
+        out_l, out_t = [logits.float().cpu()], []
+        for _ in range(steps):
+            tok = torch.argmax(logits, dim=-1)
+            out_t.append(tok.cpu())
+            _build.reset_launches()
+            logits, kv = lm.decode_step(params, tok[:, None], kv, cfg,
+                                        quant_kv, device="cuda")
+            passes.append(dict(_build.launches))
+            out_l.append(logits.float().cpu())
+        out_t.append(torch.argmax(logits, dim=-1).cpu())
+    for i, c in enumerate(passes):
+        want = (pre, 0) if i == 0 else (dec, cfg.n_layers)
+        if ((c["lut_matmul"], c["decode_attention"]) != want
+                or c["lut_matmul_int"] or c["decode_attention_table"]):
+            fail(f"{name}: pass {i} launched {c}; want LUT-GEMV "
+                 f"{want[0]}, decode attention {want[1]} (ring), nothing else")
+    rec = dict(lut_per_prefill=pre, lut_per_decode_step=dec,
+               attention_per_decode_step=cfg.n_layers,
+               held_lut=sum(held.calls.values()), held_attention=held_attn.calls,
+               max_abs_err_lut=held.err["f32"],
+               max_abs_err_attention=held_attn.err)
+    return torch.stack(out_l), torch.stack(out_t), rec
+
+
+def card_vs_cpu(torch, lm, params, cfg, name):
+    """Phase 3's prompts and steps (prefill [2, 48] + 4 decode steps) on the
+    card, every launch held, against the CPU, greedy tokens equal.  With
+    f32 KV every pass's logits at phase 3's tolerance; with int8 KV the
+    prefill's (which reads no cache), since a K or V value at an int8
+    rounding tie goes either way on the two sides (the decode steps'
+    worst difference is recorded)."""
+    from repro_torch.models.sail_linear import map_tensors
+    toks, lengths = model_prompts(cfg)
+    cpu = map_tensors(params, lambda t: t.cpu())
+    out = {}
+    for kv in ("int8", "f32"):
+        t0 = time.perf_counter()
+        gl, gt, rec = held_passes(torch, lm, params, cfg, toks, lengths, 4,
+                                  f"{name} {kv} KV", quant_kv=kv == "int8")
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with CardDequant(torch) as cd:
+            cl, ct = run_greedy(torch, lm, cpu, cfg, toks, lengths, 4, "cpu",
+                                quant_kv=kv == "int8")
+        t_cpu = time.perf_counter() - t0
+        per_pass = (gl - cl).abs().amax(dim=(1, 2)).tolist()
+        held = gl if kv == "f32" else gl[:1]
+        rec.update(logits_err_per_pass=per_pass,
+                   tokens_equal=bool(torch.equal(gt, ct)),
+                   card_tokens=gt.T.tolist(), cpu_tokens=ct.T.tolist(),
+                   max_abs_logit=cl.abs().max().item(),
+                   dequant_bit_equal=cd.checked, card_s=t_card, cpu_s=t_cpu)
+        out[f"{kv} KV"] = rec
+        log(f"[families] {name}, {kv} KV: prefill [2, 48] + 4 decode steps, "
+            f"uniform:4, card vs CPU: logits max abs err per pass "
+            f"{', '.join(f'{e:.3e}' for e in per_pass)} (max |logit| "
+            f"{rec['max_abs_logit']:.2f}); greedy tokens card "
+            f"{gt.T.tolist()} CPU {ct.T.tolist()}; card {t_card:.2f} s "
+            f"(every launch held: {rec['held_lut']} LUT-GEMV, max abs err "
+            f"{rec['max_abs_err_lut']:.3e}; {rec['held_attention']} decode "
+            f"attention, {rec['max_abs_err_attention']:.3e}; per pass exactly"
+            f" {rec['lut_per_prefill']} / {rec['lut_per_decode_step']} "
+            f"LUT-GEMV and {cfg.n_layers} attentions), CPU {t_cpu:.2f} s")
+        if (tuple(gl.shape) != (5, 2, cfg.vocab)
+                or not torch.isfinite(gl).all() or not rec["tokens_equal"]
+                or not torch.allclose(held, cl[:len(held)], rtol=MODEL_RTOL,
+                                      atol=MODEL_ATOL)):
+            fail(f"{name}, {kv} KV: card and CPU differ (logits per pass "
+                 f"{per_pass}, shape {tuple(gl.shape)}, tokens equal "
+                 f"{rec['tokens_equal']})")
+    return out
+
+
+def serve_families(torch, eng, prompts, cfg, name, max_new, table):
+    """Serve ``prompts`` counted (``serve_counted``) and check that every
+    decode step went through the LUT-GEMV and through decode attention in
+    ring or table mode (and never the other mode or the int LUT-GEMV).
+    Returns ({uid: tokens}, record)."""
+    got, counts, dt = serve_counted(torch, eng, prompts, max_new)
+    st = eng.stats()
+    dec, _ = lut_calls(eng.params)
+    steps = st["decode_iterations"]
+    other = (counts["decode_attention"] - counts["decode_attention_table"]
+             if table else counts["decode_attention_table"])
+    mode = counts["decode_attention"] - other
+    if (len(got) != len(prompts) or any(len(t) != max_new
+                                        for t in got.values())
+            or any(not 0 <= x < cfg.vocab for t in got.values() for x in t)):
+        fail(f"{name}: expected {len(prompts)} completions of {max_new} "
+             "tokens in the vocabulary")
+    if (counts["lut_matmul"] < steps * dec or mode < steps * cfg.n_layers
+            or other or counts["lut_matmul_int"]):
+        fail(f"{name}: {steps} decode steps launched {counts}; need >= "
+             f"{steps * dec} LUT-GEMV and >= {steps * cfg.n_layers} "
+             f"{'table' if table else 'ring'}-mode attentions")
+    rec = dict(tokens=st["generated_tokens"], seconds=dt,
+               decode_steps=steps, decode_tok_per_s=st["measured_tps"],
+               launches=counts)
+    log(f"[families] {name}: {len(prompts)} requests, "
+        f"{st['generated_tokens']} tokens in {dt:.2f} s, decode "
+        f"{st['measured_tps']:.1f} tok/s over {steps} steps; launches "
+        f"{counts}")
+    return got, rec
+
+
+def lut_step(torch, timer, params):
+    """A decode step's LUT-GEMV calls on ``params``' own weights at M = 8,
+    in the step's order, as one graph (no flush), beside torch.matmul on
+    the dequantized weights and the step's bound."""
+    from repro_torch.core.quant import QTensor, dequantize
+    from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda
+    from repro_torch.models import lm
+    qts = [w for _, layer in lm.iter_layers(params) for mats in layer.values()
+           for w in mats.values() if isinstance(w, QTensor)]
+    if isinstance(params.get("lm_head"), QTensor):
+        qts.append(params["lm_head"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xk = {k: torch.randn((8, k), device="cuda", generator=gen)
+          for k in {qt.k for qt in qts}}
+    ms = timer.replay_ms(lambda: [lut_matmul_cuda(xk[qt.k], qt)
+                                  for qt in qts])
+    nbytes = sum(4 * (qt.packed.numel() + qt.scales.numel()
+                      + qt.codebook.numel()) + 4 * 8 * (qt.k + qt.n)
+                 for qt in qts)
+    ops = sum(2 * 8 * qt.k * qt.n for qt in qts)
+    bound, by = bound_ms(nbytes, ops)
+    wds = [dequantize(qt) for qt in qts]
+    lib = timer.replay_ms(lambda: [torch.matmul(xk[w.shape[0]], w)
+                                   for w in wds])
+    del wds
+    return dict(calls=len(qts), step_graph_ms=ms, library_step_graph_ms=lib,
+                bound_ms=bound, bound_by=by, bytes=nbytes,
+                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                ops_bound_ms=ops / F32_OPS_PER_S * 1e3)
+
+
+def attention_step(torch, timer, eng, cfg):
+    """The decode step's attentions (one per layer, ring mode) on the
+    engine's own cache and positions as one graph (no flush), and their
+    bound over the valid slots."""
+    from repro_torch.kernels.decode_attn.ops import decode_attention_ring
+    from repro_torch.kernels.decode_attn.ref import ring_valid
+    layers = eng.cache["layers"]
+    pos = eng.cache["length"].to(torch.int32)
+    b, s = layers["k"].shape[1], layers["k"].shape[2]
+    window = cfg.window or s
+    q = torch.randn((b, cfg.n_heads, cfg.head_dim), device="cuda")
+    ms = timer.replay_ms(lambda: [decode_attention_ring(
+        q, layers["k"][i], layers["v"][i], pos, window, layers["k_scale"][i],
+        layers["v_scale"][i]) for i in range(cfg.n_layers)])
+    slots = int(ring_valid(pos, s, window).sum())
+    nbytes = cfg.n_layers * (2 * 4 * q.numel() + 4 * b + slots * cfg.n_kv
+                             * (2 * cfg.head_dim + 2 * 4))
+    bound, by = bound_ms(nbytes, cfg.n_layers * 4 * slots * cfg.n_heads
+                         * cfg.head_dim)
+    return dict(calls=cfg.n_layers, step_graph_ms=ms, bound_ms=bound,
+                bound_by=by, valid_slots=slots, positions=pos.tolist())
+
+
+def family_full(torch, timer, arch, res):
+    """(a) / (b): ``arch`` at full width and depth: init and quantize on the
+    card (the f32 tree freed once both engines hold their quantized trees),
+    phase 4's 16 requests on the ring and on the paged pool (tokens equal),
+    one prefill pass and two decode steps with every launch held, the step
+    timed, and the model cut to 2 layers card against CPU."""
+    import gc
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, \
+        flatten_with_paths, quantize_params
+    from repro_torch.serving.engine import Engine, EngineConfig
+    rec = res[arch] = {}
+    t0 = time.perf_counter()
+    cfg, raw = family_model(torch, arch)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["raw_gb"] = sum(4 * t.numel() for _, t in flatten_with_paths(raw)) / 1e9
+    raw2, cfg2 = cut_layers(raw, cfg, 2)
+    t0 = time.perf_counter()
+    ring = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
+    paged = Engine(raw, cfg, EngineConfig(**RING, **FAMILY_PAGED),
+                   device="cuda")
+    torch.cuda.synchronize()
+    rec["quantize_s"] = time.perf_counter() - t0
+    rec["compression"] = ring.compression
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["card_gb_served"] = torch.cuda.memory_allocated() / 1e9
+    log(f"[families] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} x {cfg.head_dim} heads over {cfg.n_kv} kv heads, "
+        f"vocab {cfg.vocab}: f32 init on the card ({rec['raw_gb']:.2f} GB) "
+        f"{rec['init_s']:.1f} s; two "
+        f"engines quantized uniform:4 ({ring.compression:.2f}x smaller) in "
+        f"{rec['quantize_s']:.1f} s; f32 tree freed: "
+        f"{rec['card_gb_served']:.2f} GB allocated with both engines' "
+        f"weights and KV pools")
+    prompts = engine_requests(cfg)
+    got, rec["ring"] = serve_families(torch, ring, prompts, cfg,
+                                      f"{arch} ring", 32, table=False)
+    pg, rec["paged"] = serve_families(torch, paged, prompts, cfg,
+                                      f"{arch} paged", 32, table=True)
+    same = sum(pg[u] == got[u] for u in got)
+    rec["paged_equal_ring"] = same
+    log(f"[families] {arch}: {same} of {len(got)} paged completions equal "
+        "the ring engine's")
+    if pg != got:
+        fail(f"{arch}: paged tokens differ from the ring engine's")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    toks, lengths = model_prompts(cfg)
+    t0 = time.perf_counter()
+    _, _, rec["held"] = held_passes(torch, lm, ring.params, cfg, toks,
+                                    lengths, 2, f"{arch} held",
+                                    cache=cfg.family == "moe")
+    h = rec["held"]
+    log(f"[families] {arch}: one prefill pass [2, 48] and two decode steps "
+        f"at full depth, every launch held in {time.perf_counter() - t0:.1f}"
+        f" s: exactly {h['lut_per_prefill']} LUT-GEMV per prefill pass and "
+        f"{h['lut_per_decode_step']} per decode step, "
+        f"{h['attention_per_decode_step']} decode attentions (ring mode) per "
+        f"step; {h['held_lut']} LUT-GEMV within rtol {F32_RTOL} / atol "
+        f"{F32_ATOL} (max abs err {h['max_abs_err_lut']:.3e}), "
+        f"{h['held_attention']} attentions within {ATTN_TOL} (max abs err "
+        f"{h['max_abs_err_attention']:.3e})")
+    tok = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    one_step = lambda: lm.decode_step(ring.params, tok, ring.cache, cfg,
+                                      quant_kv=True, device="cuda")
+    rec["step_device_ms"] = timer(one_step)
+    rec["step_wall_ms"] = timer.call_ms(one_step, iters=10)
+    rec["attention_step"] = attention_step(torch, timer, ring, cfg)
+    if cfg.family == "moe":
+        rec["expert_step"] = expert_step(torch, timer, ring.params, cfg)
+    else:
+        rec["lut_step"] = lut_step(torch, timer, ring.params)
+    step_log(arch, cfg, rec)
+    del ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    params2, _, _ = quantize_params(raw2, QuantPolicy(bits=4, group_size=128,
+                                                      min_size=1024))
+    del raw2
+    rec["card_vs_cpu_2_layers"] = card_vs_cpu(torch, lm, params2, cfg2,
+                                              f"{arch} at 2 layers")
+    return rec
+
+
+def expert_step(torch, timer, params, cfg):
+    """A decode step's MoE layers (router, then the dense expert einsums,
+    which dequantize every expert on every call) at 8 rows as one graph,
+    and the expert einsums alone."""
+    from repro_torch.models import lm, moe
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.randn((8, cfg.d_model), device="cuda", generator=gen)
+    layers = [layer["moe"] for _, layer in lm.iter_layers(params)]
+    moe_ms = timer.replay_ms(lambda: [moe.apply_moe_dense(p, h, cfg)
+                                      for p in layers])
+    ffn_ms = timer.replay_ms(lambda: [moe._expert_ffn(
+        p, h, cfg, "td,edf->tef", "tef,efd->ted") for p in layers])
+    return dict(layers=len(layers), moe_graph_ms=moe_ms,
+                expert_einsums_graph_ms=ffn_ms)
+
+
+def step_log(arch, cfg, rec):
+    a = rec["attention_step"]
+    line = (f"[families] {arch} on {card_line()}: one full-pool decode step "
+            f"(8 lanes): device {rec['step_device_ms']:.3f} ms as a graph, "
+            f"eager wall {rec['step_wall_ms']:.3f} ms "
+            f"({100 * (1 - rec['step_device_ms'] / rec['step_wall_ms']):.1f}% "
+            f"host and launch overhead); decode "
+            f"{rec['ring']['decode_tok_per_s']:.1f} tok/s in the ring run; "
+            f"its {a['calls']} attentions as one graph "
+            f"{a['step_graph_ms']:.4f} ms (bound {a['bound_ms']:.4f} ms by "
+            f"{a['bound_by']} over {a['valid_slots']} valid slots)")
+    if "lut_step" in rec:
+        g = rec["lut_step"]
+        line += (f"; its {g['calls']} LUT-GEMV calls (M 8) as one graph "
+                 f"{g['step_graph_ms']:.4f} ms, torch.matmul on the "
+                 f"dequantized weights {g['library_step_graph_ms']:.4f} ms, "
+                 f"bound {g['bound_ms']:.4f} ms by {g['bound_by']} (bytes "
+                 f"{g['bytes'] / 1e9:.3f} GB -> {g['bytes_bound_ms']:.4f} ms,"
+                 f" f32 operations {g['ops_bound_ms']:.4f} ms)")
+    else:
+        e = rec["expert_step"]
+        line += (f"; its {e['layers']} MoE layers (router and dense experts, "
+                 f"8 rows) as one graph {e['moe_graph_ms']:.3f} ms, the "
+                 f"expert einsums alone {e['expert_einsums_graph_ms']:.3f} ms "
+                 f"({100 * e['expert_einsums_graph_ms'] / rec['step_device_ms']:.1f}"
+                 f"% of the step)")
+    log(line)
+
+
+def family_cut(torch, arch, res):
+    """(c): ``arch`` at full width cut to 2 layers: four of phase 4's
+    requests (8 new tokens) on the ring with every launch held, and the
+    card against the CPU."""
+    import gc
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, EngineConfig
+    rec = res[arch] = {}
+    cfg, raw = family_model(torch, arch, layers=2)
+    eng = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
+    del raw
+    gc.collect()
+    with Held(torch, arch) as held, HeldAttn(torch, arch) as held_attn:
+        _, rec["ring"] = serve_families(torch, eng, engine_requests(cfg)[:4],
+                                        cfg, f"{arch} (2 layers) ring", 8,
+                                        table=False)
+    rec["ring"].update(held_lut=sum(held.calls.values()),
+                       held_attention=held_attn.calls,
+                       max_abs_err_lut=held.err["f32"],
+                       max_abs_err_attention=held_attn.err)
+    rec["card_vs_cpu"] = card_vs_cpu(torch, lm, eng.params, cfg,
+                                     f"{arch} at 2 layers")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def family_narrow(torch, timer, arch, res):
+    """(d): a smoke config with a narrow head on the card, ring and paged,
+    every launch held; its tokens against the CPU engine's."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.models.sail_linear import map_tensors
+    rec = res[f"{arch} smoke"] = {}
+    cfg, raw = family_model(torch, arch, smoke=True)
+    prompts = [p[:12] for p in engine_requests(cfg)[:6]]
+    out = {}
+    for name, fields in (("ring", NARROW_RING),
+                         ("paged", {**NARROW_RING, **NARROW_PAGED})):
+        eng = Engine(raw, cfg, EngineConfig(**fields), device="cuda")
+        with Held(torch, arch) as held, HeldAttn(torch, arch) as held_attn:
+            out[name], rec[name] = serve_families(
+                torch, eng, prompts, cfg, f"{arch} smoke {name}", 16,
+                table=name == "paged")
+        rec[name].update(held_lut=sum(held.calls.values()),
+                         held_attention=held_attn.calls,
+                         max_abs_err_lut=held.err["f32"],
+                         max_abs_err_attention=held_attn.err)
+    cpu = Engine(map_tensors(raw, lambda t: t.cpu()), cfg,
+                 EngineConfig(**NARROW_RING), device="cpu")
+    for p in prompts:
+        cpu.submit(p, max_new_tokens=16)
+    want = {c.uid: c.tokens for c in cpu.run()}
+    rec["ring_equal_paged"] = out["ring"] == out["paged"]
+    rec["ring_equal_cpu"] = out["ring"] == want
+    log(f"[families] {arch} smoke (D {cfg.head_dim}, G "
+        f"{cfg.n_heads // cfg.n_kv}): {rec['ring']['held_attention']} ring "
+        f"and {rec['paged']['held_attention']} table-mode attentions within "
+        f"{ATTN_TOL} of the plain version (max abs err "
+        f"{max(rec['ring']['max_abs_err_attention'], rec['paged']['max_abs_err_attention']):.3e}"
+        f"); ring tokens equal paged {rec['ring_equal_paged']}, equal the "
+        f"CPU engine's {rec['ring_equal_cpu']}")
+    if not (rec["ring_equal_paged"] and rec["ring_equal_cpu"]):
+        fail(f"{arch} smoke: ring, paged and CPU tokens differ")
+    return rec
+
+
+def narrow_timing(torch, timer, res):
+    """Decode attention at D 20 beside D 128 (B 8, KV 4, G 1, S 512, int8
+    ring, wrapped positions), each beside its plain version, SDPA and its
+    bound."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    position = torch.tensor([3, 300, 511, 512, 700, 1023, 1500, 2047],
+                            dtype=torch.int32, device="cuda")
+    rows = {}
+    for d in (20, 128):
+        x = attn_inputs(torch, gen, 512, b=8, kvh=4, g=1, d=d)
+        rows[f"D{d}"] = row = attention_row(torch, timer, x, position,
+                                            decode_attention_cuda)
+        log(f"[families] decode_attention D {d} (B 8, KV 4, G 1, S 512, "
+            f"int8 ring, {row['valid_slots']} valid slots): "
+            f"{1e3 * row['ms']:.2f} us (plain {1e3 * row['plain_ms']:.2f}, "
+            f"SDPA {1e3 * row['library_ms']:.2f}, bound "
+            f"{1e3 * row['bound_ms']:.3f} us by {row['bound_by']})")
+    res["narrow_timing"] = rows
+
+
+def phase_families(rt):
+    import torch
+    timer = Timer(torch)
+    res = rt["families"] = {}
+    seconds = res["seconds"] = {}
+    subs = [("llama2_7b", lambda: family_full(torch, timer, "llama2_7b",
+                                              res)),
+            ("granite_moe_1b_a400m", lambda: family_full(
+                torch, timer, "granite_moe_1b_a400m", res))]
+    subs += [(f"{a} (2 layers)", lambda a=a: family_cut(torch, a, res))
+             for a in FAMILY_CUT]
+    subs += [(f"{a} smoke", lambda a=a: family_narrow(torch, timer, a, res))
+             for a in NARROW]
+    subs.append(("narrow timing", lambda: narrow_timing(torch, timer, res)))
+    for name, fn in subs:
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        log(f"[families] {name}: {seconds[name]:.1f} s")
+
+
+def held_errors(tree: dict, key: str, prefix: str = "") -> dict:
+    """{path: value} of every ``key`` in a nested record (phase 11's held
+    sets' worst errors)."""
+    out = {}
+    for name, sub in tree.items():
+        if isinstance(sub, dict):
+            if key in sub:
+                out[prefix + name] = sub[key]
+            out.update(held_errors(sub, key, f"{prefix}{name} "))
+    return out
+
+
+def families_fields(families: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in phase 11's runs (all ``uniform:4``: the
+    int LUT-GEMV and typeconv are on none of them), each held set's worst
+    error, and the llama2_7b step's and the narrow heads' timings."""
+    fam = {k: v for k, v in families.items()
+           if k not in ("seconds", "narrow_timing")}
+    out = {"launches_families": {
+        f"{arch} {run}": rec[run]["launches"][name]
+        for arch, rec in fam.items() for run in ("ring", "paged")
+        if run in rec}}
+    if name in ("lut_matmul", "decode_attention"):
+        key = ("max_abs_err_lut" if name == "lut_matmul"
+               else "max_abs_err_attention")
+        out["max_abs_err_families"] = held_errors(fam, key)
+    if name == "lut_matmul":
+        out["llama2_7b_step_graph"] = fam["llama2_7b"]["lut_step"]
+    if name == "decode_attention":
+        out["llama2_7b_attention_step_graph"] = \
+            fam["llama2_7b"]["attention_step"]
+        out["narrow_head_rows"] = families["narrow_timing"]
+    return out
+
+
 def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
@@ -3252,6 +3856,7 @@ def kernels_line(rt) -> dict:
                 for tp, r in rt["tp"].items()
                 for run, rec in r["runs"].items()
                 if rec["launches"].get(name)}
+        entry.update(families_fields(rt["families"], name))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -3279,14 +3884,27 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     rt = {}
     t_all = time.perf_counter()
-    for name, fn in (("build", phase_build), ("kernels", phase_kernels),
-                     ("model", phase_model), ("engine", phase_engine),
-                     ("paged", phase_paged), ("plans", phase_plans),
-                     ("planner", phase_planner), ("sampling", phase_sampling),
-                     ("speculation", phase_speculation), ("tp", phase_tp)):
+    phases = (("build", phase_build), ("kernels", phase_kernels),
+              ("model", phase_model), ("engine", phase_engine),
+              ("paged", phase_paged), ("plans", phase_plans),
+              ("planner", phase_planner), ("sampling", phase_sampling),
+              ("speculation", phase_speculation), ("tp", phase_tp),
+              ("families", phase_families))
+    only = sys.argv[2].split(",") if sys.argv[1:2] == ["--phases"] else None
+    for name, fn in phases:
+        if only is not None and name not in only:
+            continue
         t0 = time.perf_counter()
         fn(rt)
         log(f"[{name}] phase passed in {time.perf_counter() - t0:.1f} s")
+    if only is not None:
+        # a development run of some phases: no kernel line, no result
+        os.makedirs(OUT_DIR, exist_ok=True)
+        with open(os.path.join(OUT_DIR, "phases.json"), "w") as f:
+            json.dump({k: rt[k] for k in ("families", "planner", "build_s")
+                       if k in rt}, f, indent=1, default=str)
+        log(f"phases {only} passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
     line = kernels_line(rt)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:
@@ -3295,7 +3913,7 @@ def main() -> int:
                    "plans": rt["plans"], "planner": rt["planner"],
                    "sampling": rt["sampling"],
                    "speculation": rt["speculation"], "tp": rt["tp"],
-                   "build_s": rt["build_s"],
+                   "families": rt["families"], "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line))

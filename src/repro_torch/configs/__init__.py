@@ -2,8 +2,9 @@
 
 Each module defines ``full()`` (the exact published configuration) and
 ``smoke()`` (a reduced same-family config for CPU tests).  The port has
-the paper's small evaluation model so far; the other architectures wait
-for ROADMAP's other families (``llama2_7b`` / ``llama2_13b`` first).
+the dense and MoE decoders, in the reference's order; the hybrid,
+recurrent, encoder-decoder and vision architectures wait for ROADMAP's
+other families.
 """
 from __future__ import annotations
 
@@ -12,7 +13,18 @@ from typing import List
 
 from repro_torch.models.common import ModelConfig
 
-ARCHS: List[str] = ["tinymistral_248m"]
+ARCHS: List[str] = [
+    "starcoder2_7b",
+    "llama3_2_1b",
+    "h2o_danube_3_4b",
+    "qwen3_0_6b",
+    "granite_moe_1b_a400m",
+    "mixtral_8x7b",
+    # the paper's own evaluation models
+    "llama2_7b",
+    "llama2_13b",
+    "tinymistral_248m",
+]
 
 
 def canon(name: str) -> str:

@@ -42,10 +42,12 @@
 //     rows loads nothing and leaves the neutral partial (m = NEG_INF, l = 0,
 //     acc = 0);
 //   * vector loads: every warp streams its rows through a private ring of
-//     NSTAGE shared-memory stages with 16-byte cp.async (8-byte when an
-//     int8 row is not a multiple of 16 bytes); a stage holds TW rows of K
-//     and V, each padded with zero-filled bytes to the lanes' width, and
-//     the rows' (k scale, v scale) pairs, one 4-byte copy each per row;
+//     NSTAGE shared-memory stages with 16-byte cp.async (8-byte when a row
+//     is a multiple of 8 bytes and not of 16, 4-byte when it is a multiple
+//     of 4 and not of 8: an int8 row of a narrow head, D 12 or 20, whose
+//     rows are only 4-byte aligned); a stage holds TW rows of K and V,
+//     each padded with zero-filled bytes to the lanes' width, and the rows'
+//     (k scale, v scale) pairs, one 4-byte copy each per row;
 //   * lanes: a row is read by P = 2^lg_p lanes, E elements each (16 for
 //     G <= 2, 8 for G = 4, 4 for G >= 8; 8 at most for f32), so a warp takes
 //     32 / P rows at once.  A lane keeps its q slice for all GM query heads
@@ -93,7 +95,7 @@ constexpr int NSTAGE = 4;          // ring depth per warp (a power of two)
 constexpr int MAX_TW = 32;         // rows per stage: one scale pair per lane
 constexpr int MAX_SPLITS = 16;     // a (b, kv head)'s splits form one cluster
 constexpr int MAX_G = 16;          // query heads per kv head
-constexpr int MAX_D = 128;         // head width (a multiple of 8)
+constexpr int MAX_D = 128;         // head width (a multiple of 4)
 constexpr int MAX_E = 16;          // row elements per lane (int8 K/V)
 constexpr int MAX_E_F32 = 8;       // row elements per lane (f32 K/V)
 constexpr int MIN_E = 4;
@@ -138,7 +140,7 @@ struct Args {
   int lg_p;              // lanes per row
   int lg_tw;             // rows per stage
   int lg_cpr;            // copies per padded row
-  int copy16;            // 16-byte copies (else 8)
+  int lg_cb;             // bytes per copy: 16, 8 or 4 (a divisor of row_bytes)
   int row_bytes;         // D * element size
   int stage_bytes;       // K rows, V rows [TW][padded row], scale pairs [TW]
 };
@@ -201,8 +203,8 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
 __device__ __forceinline__ void cp_async8(void* dst, const void* src, int n) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
 }
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src), "r"(n));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -215,7 +217,7 @@ __device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wai
 template <bool QUANT>
 __device__ __forceinline__ void issue_tile(const Args& a, const Range& rg, int b, int h,
                                            unsigned char* st, int j0, int rows, int lane) {
-  const int cb = a.copy16 ? 16 : 8;
+  const int cb = 1 << a.lg_cb;
   const int rbp = cb << a.lg_cpr;
   const int tw = 1 << a.lg_tw;
   unsigned char* sk = st;
@@ -228,20 +230,23 @@ __device__ __forceinline__ void issue_tile(const Args& a, const Range& rg, int b
     const int off = (c & cmask) * cb;
     const int n = off < a.row_bytes ? cb : 0;
     const long long src = n ? row_of(a, rg, b, h, j0 + r) * a.row_bytes + off : 0;
-    if (a.copy16) {
+    if (a.lg_cb == 4) {
       cp_async16(sk + r * rbp + off, kb + src, n);
       cp_async16(sv + r * rbp + off, vb + src, n);
-    } else {
+    } else if (a.lg_cb == 3) {
       cp_async8(sk + r * rbp + off, kb + src, n);
       cp_async8(sv + r * rbp + off, vb + src, n);
+    } else {
+      cp_async4(sk + r * rbp + off, kb + src, n);
+      cp_async4(sv + r * rbp + off, vb + src, n);
     }
   }
   if constexpr (QUANT) {
     if (lane < rows) {
       float* sc = reinterpret_cast<float*>(st + 2 * tw * rbp);
       const long long row = row_of(a, rg, b, h, j0 + lane);
-      cp_async4(sc + 2 * lane, a.ks + row);
-      cp_async4(sc + 2 * lane + 1, a.vs + row);
+      cp_async4(sc + 2 * lane, a.ks + row, 4);
+      cp_async4(sc + 2 * lane + 1, a.vs + row, 4);
     }
   }
 }
@@ -301,7 +306,7 @@ __global__ void __launch_bounds__(32 * warps_of<GM>())
   const int rgi = lane >> a.lg_p;             // this lane's row within a pass
   const int rw = 32 >> a.lg_p;                // rows per pass
   const int tw = 1 << a.lg_tw;
-  const int rbp = (a.copy16 ? 16 : 8) << a.lg_cpr;
+  const int rbp = 1 << (a.lg_cb + a.lg_cpr);
 
   // the group's queries, this lane's slice, prescaled; zero past G and D
   float qr[GM][E];
@@ -635,11 +640,12 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
                                       const void* lens, const void* tables, void* out,
                                       int B, int H, int KV, int S, int D, int window,
                                       int quantized, int ring, int gm, int lg_splits, int lg_p,
-                                      int lg_tw, int lg_cpr, int copy16, int stage_bytes,
+                                      int lg_tw, int lg_cpr, int lg_cb, int stage_bytes,
                                       int smem, int bs, int mbs, unsigned s_magic,
                                       unsigned bs_magic, float qscale, void* stream) {
   if (B == 0 || H == 0) return 0;
   if (lg_splits < 0 || (1 << lg_splits) > MAX_SPLITS || lg_tw < 0 || (1 << lg_tw) > MAX_TW ||
+      lg_cb < 2 || lg_cb > 4 || lg_cpr < 0 ||
       H % KV != 0 || H / KV > gm || gm > MAX_G || D > MAX_D || smem > MAX_SMEM ||
       smem < WARPS_G16 * NSTAGE * stage_bytes ||
       (tables != nullptr && (!ring || bs < 1 || mbs < 1 || static_cast<long long>(bs) * mbs != S)))
@@ -648,7 +654,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k, const void* 
          static_cast<const float*>(v_scale), static_cast<const int32_t*>(lens),
          static_cast<const int32_t*>(tables), static_cast<float*>(out), H, KV, S, D, H / KV,
          window, ring, bs, mbs, s_magic, bs_magic, qscale, lg_splits, lg_p, lg_tw, lg_cpr,
-         copy16, quantized ? D : 4 * D, stage_bytes};
+         lg_cb, quantized ? D : 4 * D, stage_bytes};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_instance(gm, quantized,
                        [&](auto inst) { return decltype(inst)::launch(a, B, smem, st); });

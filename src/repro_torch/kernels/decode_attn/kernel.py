@@ -10,11 +10,13 @@ over a block pool read through each lane's block table in place.  The
 kernel masks the ragged edges itself, so nothing is padded.
 
 ``plan`` is the launch plan as a pure function of the shapes and the card:
-the lane layout of a row, the rows of one shared-memory stage, the shared
-memory, and how many splits of S (a thread-block cluster) each
-(sequence, kv head) gets.  The functions below it are the kernel's index
-arithmetic written out in Python (the valid range of a sequence, the rows of
-a split and of a warp), so that the CPU tests can check it.  The wrapper
+the lane layout of a row, the bytes of one staging copy (16, 8, or 4 for
+the int8 rows of a narrow head, D 12 or 20, which are only 4-byte
+aligned), the rows of one shared-memory stage, the shared memory, and how
+many splits of S (a thread-block cluster) each (sequence, kv head) gets.
+The functions below it are the kernel's index arithmetic written out in
+Python (the valid range of a sequence, the rows of a split and of a warp),
+so that the CPU tests can check it.  The wrapper
 checks the shapes and the tensors before it looks at the device, so a shape
 the kernel cannot take raises ``ValueError`` before any launch; on the card
 it plans with the clusters of the instance the CUDA runtime says the card
@@ -40,7 +42,7 @@ NSTAGE = 4           # shared-memory stages per warp
 MAX_TW = 32          # rows per stage
 MAX_SPLITS = 16      # a (sequence, kv head)'s splits form one cluster
 MAX_G = 16           # query heads per kv head
-MAX_D = 128          # head width, a multiple of 8
+MAX_D = 128          # head width, a multiple of 4
 MAX_E = 16           # row elements per lane, int8 K/V
 MAX_E_F32 = 8        # row elements per lane, f32 K/V
 MIN_E = 4
@@ -85,9 +87,9 @@ def check_shape(b: int, h: int, kv: int, d: int, s: int) -> None:
     if not 1 <= h // kv <= MAX_G:
         raise ValueError(f"G = H/KV = {h // kv}: the kernel takes 1 to {MAX_G} "
                          f"query heads per kv head")
-    if d % 8 or not 8 <= d <= MAX_D:
+    if d % 4 or not 4 <= d <= MAX_D:
         raise ValueError(f"D={d}: the kernel takes head widths that are a "
-                         f"multiple of 8 up to {MAX_D}")
+                         f"multiple of 4 up to {MAX_D}")
     if not 1 <= s < 1 << 30:
         raise ValueError(f"S={s}: the kernel takes 1 <= S < 2^30 cache slots")
     if kv > MAX_GRID_YZ or b > MAX_GRID_YZ:
@@ -102,7 +104,8 @@ class Plan:
     stage holds ``tw`` rows of K and V and their scale pairs.  The valid
     rows of each (sequence, kv head) are cut into ``splits`` chunks
     (``split_rows``), one block each, and a chunk into the block's warps
-    (``warp_share``)."""
+    (``warp_share``).  A row is staged by ``copies`` copies of
+    ``copy_bytes`` each, the last ones zero-filled past the row."""
     b: int
     kv: int
     g: int
@@ -118,6 +121,12 @@ class Plan:
     smem: int
     nmax: int                # the most valid rows a sequence can have
     splits: int
+    copy_bytes: int          # bytes per staging copy: 16, 8 or 4
+
+    @property
+    def copies(self) -> int:
+        """Copies per padded row (a power of two)."""
+        return self.padded_row // self.copy_bytes
 
     @property
     def warps(self) -> int:
@@ -134,6 +143,14 @@ class Plan:
     @property
     def lg_splits(self) -> int:
         return self.splits.bit_length() - 1
+
+
+def copy_bytes(d: int, quantized: bool) -> int:
+    """Bytes per staging copy of a K/V row: the largest of 16, 8 and 4 that
+    divides the row's bytes (f32 rows at D % 4 = 0 always take 16; int8
+    rows of a narrow head, D % 8 != 0, take 4)."""
+    row = d * (1 if quantized else 4)
+    return next(c for c in (16, 8, 4) if row % c == 0)
 
 
 def tiles(g: int, d: int, quantized: bool) -> Tuple[int, int, int, int, int,
@@ -210,7 +227,8 @@ def plan(b: int, h: int, kv: int, d: int, s: int, window: Optional[int],
         splits *= 2
     return Plan(b=b, kv=kv, g=g, d=d, s=s, quantized=quantized, gm=gm,
                 elems=elems, lanes=lanes, tw=tw, padded_row=padded,
-                stage_bytes=stage, smem=smem, nmax=nmax, splits=splits)
+                stage_bytes=stage, smem=smem, nmax=nmax, splits=splits,
+                copy_bytes=copy_bytes(d, quantized))
 
 
 # --- the kernel's index arithmetic, written out --------------------------
@@ -429,10 +447,9 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if t.device != dev or not t.is_contiguous():
             raise ValueError("decode_attention_cuda needs contiguous "
                              "tensors on one CUDA device")
-    if q.data_ptr() % 16 or k.data_ptr() % 8 or v.data_ptr() % 8 or (
-            k_scale is None and (k.data_ptr() % 16 or v.data_ptr() % 16)):
-        raise ValueError("decode_attention_cuda needs q (and f32 K/V) "
-                         "16-byte aligned and int8 K/V 8-byte aligned")
+    if q.data_ptr() % 16 or k.data_ptr() % 4 or v.data_ptr() % 4:
+        raise ValueError("decode_attention_cuda needs q 16-byte aligned and "
+                         "K/V 4-byte aligned")
     p = card_plan(b, h, kv, d, s, window, ring, k_scale is not None, dev)
     return _launch(q, k, v, lens, k_scale, v_scale, window, ring, p, tables)
 
@@ -442,9 +459,11 @@ def _launch(q, k, v, lens, k_scale, v_scale, window, ring, p: Plan,
     """One launch of checked tensors under plan ``p``; table mode counts in
     ``launches["decode_attention_table"]`` as well as in the total."""
     b, h, d = q.shape
-    copy16 = (d * k.element_size()) % 16 == 0 and k.data_ptr() % 16 == 0 \
-        and v.data_ptr() % 16 == 0
-    lg_cpr = (p.padded_row // (16 if copy16 else 8)).bit_length() - 1
+    # the plan's copies, narrower where K or V starts off their alignment
+    cb = p.copy_bytes
+    while k.data_ptr() % cb or v.data_ptr() % cb:
+        cb //= 2
+    lg_cpr = (p.padded_row // cb).bit_length() - 1
     out = torch.empty((b, h, d), dtype=torch.float32, device=q.device)
     fn = _fn()
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -458,7 +477,7 @@ def _launch(q, k, v, lens, k_scale, v_scale, window, ring, p: Plan,
                     out.data_ptr(), b, h, p.kv, p.s, d,
                     0 if window is None else int(window), int(p.quantized),
                     int(ring), p.gm, p.lg_splits, p.lanes.bit_length() - 1,
-                    p.tw.bit_length() - 1, lg_cpr, int(copy16),
+                    p.tw.bit_length() - 1, lg_cpr, cb.bit_length() - 1,
                     p.stage_bytes, p.smem, bs, p.s // bs, s_magic(p.s),
                     bs_magic(bs), math.log2(math.e) / math.sqrt(d), stream),
                  "decode_attention")

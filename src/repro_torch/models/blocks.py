@@ -1,5 +1,5 @@
-"""Dense decoder block (port of ``repro.models.blocks``, dense family,
-ring and paged KV pools).
+"""Decoder block of the dense and MoE families (port of
+``repro.models.blocks``, ring and paged KV pools).
 
 Layers are applied by a Python loop in ``lm``; parameters stay stacked
 along a leading layer axis like the reference trees, and one layer's
@@ -21,6 +21,13 @@ step's on the same cache bit for bit, and greedy speculation commits the
 tokens plain decoding does.  The reference's chunk-causal composite
 (``_verify_attend``) is kept as the plain version that attention is held
 to.
+
+As in the reference, only the full-sequence attention adds the attention
+biases: the decode and verify steps and the prefill cache's K/V
+(``_kv_from_seq``) leave them out, so the cache holds unbiased K/V while
+prefill's last-token logits are biased (ROADMAP, Queue 3).  MoE layers take
+``moe.apply_moe`` in place of the MLP: ``moe_mode="dense"`` in decode and
+verify, the caller's mode in the full sequence.
 """
 from __future__ import annotations
 
@@ -33,23 +40,25 @@ from repro_torch.dist.sharding import tp_all_reduce
 from repro_torch.kernels.decode_attn.ops import decode_attention_paged, \
     decode_attention_ring
 from repro_torch.kernels.decode_attn.ref import decode_attention_ring_ref
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_attention, apply_mlp, apply_norm,
                                        apply_rope, attention_init, mlp_init,
-                                       norm_init)
+                                       norm_init, qk_norm, qk_rope)
 from repro_torch.models.sail_linear import mm
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves tinymistral's architecture so far: a dense GQA
-    decoder with RoPE, RMSNorm, SwiGLU and an untied head."""
-    if (cfg.family, cfg.pos, cfg.norm, cfg.act) != (
-            "dense", "rope", "rmsnorm", "swiglu") or cfg.qk_norm \
-            or cfg.attention_bias or cfg.tie_embeddings:
+    """The port serves the dense and MoE decoders: RoPE, RMSNorm or
+    LayerNorm, SwiGLU / GeGLU / GELU, with or without qk-norm, attention
+    biases and a tied head.  The hybrid, recurrent and encoder-decoder
+    families, other positions and the frontends are still to port."""
+    if cfg.family not in ("dense", "moe") or cfg.pos != "rope" \
+            or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: only dense RoPE/RMSNorm/SwiGLU models without "
-            "qk-norm, attention bias or tied embeddings are ported (ROADMAP, "
-            "other families)")
+            f"{cfg.name}: family={cfg.family!r}, pos={cfg.pos!r}, "
+            f"frontend={cfg.frontend!r}: only the dense and MoE decoders with "
+            "RoPE and no frontend are ported (ROADMAP, other families)")
 
 
 def block_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
@@ -57,15 +66,28 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
     """All layers' params, stacked on a leading [n_layers] axis."""
     check_supported(cfg)
     lead = (n_layers,)
-    return {"attn_norm": norm_init(cfg, lead=lead, device=device),
-            "attn": attention_init(generator, cfg, lead=lead, device=device),
-            "mlp_norm": norm_init(cfg, lead=lead, device=device),
-            "mlp": mlp_init(generator, cfg, lead=lead, device=device)}
+    p = {"attn_norm": norm_init(cfg, lead=lead, device=device),
+         "attn": attention_init(generator, cfg, lead=lead, device=device),
+         "mlp_norm": norm_init(cfg, lead=lead, device=device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_lib.moe_init(generator, cfg, lead=lead, device=device)
+    else:
+        p["mlp"] = mlp_init(generator, cfg, lead=lead, device=device)
+    return p
+
+
+def _ffn(p, h: torch.Tensor, cfg: ModelConfig, moe_mode: str = "dense",
+         plan_rows: Optional[int] = None):
+    """The MLP, or the MoE layer in ``moe_mode``: (y, aux loss)."""
+    if cfg.family == "moe":
+        return moe_lib.apply_moe(p["moe"], h, cfg, mode=moe_mode)
+    return apply_mlp(p["mlp"], h, cfg, plan_rows=plan_rows), 0.0
 
 
 def block_apply_seq(p, x: torch.Tensor, cfg: ModelConfig,
-                    positions: torch.Tensor, collect_cache: bool = False):
-    """Full-sequence block.  Returns (x, cache_entries)."""
+                    positions: torch.Tensor, moe_mode: str = "dispatch",
+                    collect_cache: bool = False):
+    """Full-sequence block.  Returns (x, aux loss, cache_entries)."""
     in_dtype = x.dtype
     cache = {}
     h = apply_norm(p["attn_norm"], x, cfg)
@@ -74,16 +96,19 @@ def block_apply_seq(p, x: torch.Tensor, cfg: ModelConfig,
         cache["kv"] = _kv_from_seq(p["attn"], h, cfg, positions)
     x = (x + attn_out).to(in_dtype)
     h = apply_norm(p["mlp_norm"], x, cfg)
-    x = (x + apply_mlp(p["mlp"], h, cfg)).to(in_dtype)
-    return x, cache
+    y, aux = _ffn(p, h, cfg, moe_mode)
+    return (x + y).to(in_dtype), aux, cache
 
 
 def _kv_from_seq(attn_p, h: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
-    """Recompute K/V for the prefill cache (keys stored post-RoPE)."""
+    """Recompute K/V for the prefill cache (keys stored post-qk-norm and
+    post-RoPE; no biases, as the reference's)."""
     b, t, _ = h.shape
     k = mm(h, attn_p["wk"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
     v = mm(h, attn_p["wv"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
+    if cfg.qk_norm:
+        k = qk_norm(k, attn_p["k_norm"]["scale"], cfg.norm_eps)
     return {"k": apply_rope(k, positions, cfg), "v": v}
 
 
@@ -113,8 +138,7 @@ def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
     q = mm(h, p["attn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     k = mm(h, p["attn"]["wk"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
     v = mm(h, p["attn"]["wv"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
-    q = apply_rope(q, position[:, None], cfg)
-    k = apply_rope(k, position[:, None], cfg)
+    q, k = qk_rope(p["attn"], q, k, position[:, None], cfg)
 
     if block_tables is None:
         slot = torch.remainder(position, cache_len)
@@ -149,7 +173,7 @@ def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
                                 p["attn"]["wo"], k_sharded=True))
     x = (x + attn_out).to(in_dtype)
     h = apply_norm(p["mlp_norm"], x, cfg)
-    return (x + apply_mlp(p["mlp"], h, cfg)).to(in_dtype)
+    return (x + _ffn(p, h, cfg)[0]).to(in_dtype)
 
 
 def _ring_write(cache: torch.Tensor, val: torch.Tensor,
@@ -238,8 +262,7 @@ def block_apply_verify(p, x: torch.Tensor, cfg: ModelConfig,
     k = mm(h, p["attn"]["wk"], b).reshape(b, t, cfg.n_kv, cfg.head_dim)
     v = mm(h, p["attn"]["wv"], b).reshape(b, t, cfg.n_kv, cfg.head_dim)
     qpos = position[:, None] + torch.arange(t, device=x.device)[None, :]
-    q = apply_rope(q, qpos, cfg)
-    k = apply_rope(k, qpos, cfg)
+    q, k = qk_rope(p["attn"], q, k, qpos, cfg)
 
     if block_tables is None:
         slot = torch.remainder(qpos, cache_len)
@@ -282,7 +305,7 @@ def block_apply_verify(p, x: torch.Tensor, cfg: ModelConfig,
                                 p["attn"]["wo"], b, k_sharded=True))
     x = (x + attn_out).to(in_dtype)
     h = norm("mlp_norm", x)
-    return (x + apply_mlp(p["mlp"], h, cfg, plan_rows=b)).to(in_dtype)
+    return (x + _ffn(p, h, cfg, plan_rows=b)[0]).to(in_dtype)
 
 
 def _ring_write_multi(cache: torch.Tensor, val: torch.Tensor,

@@ -1,8 +1,10 @@
-"""Core transformer layers (port of ``repro.models.layers``, the dense
-path tinymistral takes: RMSNorm, RoPE, GQA prefill attention, SwiGLU).
+"""Core transformer layers (port of ``repro.models.layers``, what the
+dense and MoE decoders take: RMSNorm and LayerNorm, RoPE, GQA prefill
+attention with optional qk-norm and biases, SwiGLU, GeGLU and GELU MLPs).
 Parameters are plain dicts of tensors mirroring the reference trees;
-weight matmuls go through ``sail_linear.mm``.  Prefill attention is plain PyTorch (einsum and a
-masked softmax), as the reference's is plain jnp."""
+weight matmuls go through ``sail_linear.mm``.  Prefill attention is plain
+PyTorch (einsum and a masked softmax), as the reference's is plain jnp.
+GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
 from __future__ import annotations
 
 import math
@@ -27,14 +29,35 @@ def dense_init(generator: torch.Generator, shape, fan_in=None,
 
 
 def norm_init(cfg: ModelConfig, lead=(), device=None):
-    return {"scale": torch.ones(tuple(lead) + (cfg.d_model,), device=device)}
+    shape = tuple(lead) + (cfg.d_model,)
+    p = {"scale": torch.ones(shape, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros(shape, device=device)
+    return p
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """RMSNorm."""
+    """RMSNorm, or LayerNorm written as the reference writes it (mean,
+    variance, rsqrt)."""
     xf = x.to(torch.float32)
+    if cfg.norm == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + cfg.norm_eps)
+        return (y * p["scale"] + p["bias"]).to(x.dtype)
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + cfg.norm_eps) * p["scale"]).to(x.dtype)
+
+
+def qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm over a head's width (qwen3's q_norm / k_norm), before RoPE."""
+    var = (x.to(torch.float32) ** 2).mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -55,14 +78,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def qk_rope(attn_p, q: torch.Tensor, k: torch.Tensor,
+            positions: torch.Tensor, cfg: ModelConfig):
+    """qk-norm (where the config has it), then RoPE, of q and k."""
+    if cfg.qk_norm:
+        q = qk_norm(q, attn_p["q_norm"]["scale"], cfg.norm_eps)
+        k = qk_norm(k, attn_p["k_norm"]["scale"], cfg.norm_eps)
+    return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg)
+
+
 def attention_init(generator, cfg: ModelConfig, lead=(), device=None):
     d, lead = cfg.d_model, tuple(lead)
-    return {
+    p = {
         "wq": dense_init(generator, lead + (d, cfg.q_dim), device=device),
         "wk": dense_init(generator, lead + (d, cfg.kv_dim), device=device),
         "wv": dense_init(generator, lead + (d, cfg.kv_dim), device=device),
         "wo": dense_init(generator, lead + (cfg.q_dim, d), device=device),
     }
+    zeros = lambda n: torch.zeros(lead + (n,), device=device)
+    if cfg.attention_bias:
+        p.update(bq=zeros(cfg.q_dim), bk=zeros(cfg.kv_dim),
+                 bv=zeros(cfg.kv_dim), bo=zeros(d))
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": torch.ones(lead + (cfg.head_dim,),
+                                           device=device)}
+        p["k_norm"] = {"scale": torch.ones(lead + (cfg.head_dim,),
+                                           device=device)}
+    return p
 
 
 def flash_attention(q, k, v, *, window: Optional[int]) -> torch.Tensor:
@@ -95,29 +137,46 @@ def flash_attention(q, k, v, *, window: Optional[int]) -> torch.Tensor:
 
 def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence (prefill) causal self-attention."""
+    """Full-sequence (prefill) causal self-attention.  Only this path adds
+    the attention biases: the decode and verify steps and the prefill
+    cache's K/V leave them out, as the reference's do."""
     b, t, _ = x.shape
-    q = mm(x, p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = mm(x, p["wk"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
-    v = mm(x, p["wv"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
-    q = apply_rope(q, positions, cfg)
-    k = apply_rope(k, positions, cfg)
+    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
+    if cfg.attention_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, t, cfg.n_kv, cfg.head_dim)
+    v = v.reshape(b, t, cfg.n_kv, cfg.head_dim)
+    q, k = qk_rope(p, q, k, positions, cfg)
     out = flash_attention(q, k, v, window=cfg.window)
-    return tp_all_reduce(mm(out.reshape(b, t, cfg.q_dim), p["wo"],
-                            k_sharded=True))
+    out = tp_all_reduce(mm(out.reshape(b, t, cfg.q_dim), p["wo"],
+                           k_sharded=True))
+    return out + p["bo"] if cfg.attention_bias else out
 
 
 def mlp_init(generator, cfg: ModelConfig, lead=(), device=None):
+    """SwiGLU and GeGLU: ``w_gate``, ``w_up``, ``w_down``; GELU: ``w_up``
+    and ``w_down``."""
     d, f, lead = cfg.d_model, cfg.d_ff, tuple(lead)
-    return {"w_gate": dense_init(generator, lead + (d, f), device=device),
-            "w_up": dense_init(generator, lead + (d, f), device=device),
-            "w_down": dense_init(generator, lead + (f, d), device=device)}
+    p = {}
+    if cfg.act in ("swiglu", "geglu"):
+        p["w_gate"] = dense_init(generator, lead + (d, f), device=device)
+    p["w_up"] = dense_init(generator, lead + (d, f), device=device)
+    p["w_down"] = dense_init(generator, lead + (f, d), device=device)
+    return p
 
 
 def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
               plan_rows: Optional[int] = None) -> torch.Tensor:
-    """SwiGLU (``plan_rows``: see ``sail_linear.mm``).  ``w_down`` is
-    row-parallel under tensor parallelism: its partial sums are summed over
-    the group (``dist.sharding.tp_all_reduce``), as ``wo``'s are."""
-    h = F.silu(mm(x, p["w_gate"], plan_rows)) * mm(x, p["w_up"], plan_rows)
+    """SwiGLU, GeGLU or GELU (``plan_rows``: see ``sail_linear.mm``).
+    ``w_down`` is row-parallel under tensor parallelism: its partial sums
+    are summed over the group (``dist.sharding.tp_all_reduce``), as
+    ``wo``'s are."""
+    if cfg.act == "swiglu":
+        h = F.silu(mm(x, p["w_gate"], plan_rows)) * mm(x, p["w_up"],
+                                                       plan_rows)
+    elif cfg.act == "geglu":
+        h = gelu(mm(x, p["w_gate"], plan_rows)) * mm(x, p["w_up"], plan_rows)
+    else:
+        h = gelu(mm(x, p["w_up"], plan_rows))
     return tp_all_reduce(mm(h, p["w_down"], plan_rows, k_sharded=True))

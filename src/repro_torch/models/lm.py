@@ -1,7 +1,12 @@
-"""Causal language model serving path (port of ``repro.models.lm``,
-dense family, ring and paged KV pools): init, the full-sequence forward,
-prefill, decode, and speculative decoding's k-step draft and multi-token
-verify.
+"""Causal language model serving path (port of ``repro.models.lm``, ring
+and paged KV pools): init, the full-sequence forward, prefill, decode, and
+speculative decoding's k-step draft and multi-token verify.
+
+A tied head (``cfg.tie_embeddings``) has no ``lm_head``: the logits are
+``x @ embed.T``, a plain product as in the reference (the embedding is
+never quantized).  MoE layers run ``moe_mode="dense"`` in prefill, decode
+and verify, and the forward's ``moe_mode`` (``"dispatch"`` by default,
+whose aux loss it returns).
 
 A Python loop over layers replaces the reference's ``lax.scan``; the
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
@@ -38,14 +43,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     sqrt(d_model)).  ``generator`` must live on ``device``; the numbers
     differ from the reference's ``jax.random`` ones."""
     dev = resolve_device(device)
-    return {
+    p = {
         "embed": dense_init(generator, (cfg.vocab, cfg.d_model),
                             fan_in=cfg.vocab, device=dev)
         * cfg.d_model ** 0.5,
         "blocks": blk.block_init(generator, cfg, cfg.n_layers, device=dev),
         "final_norm": norm_init(cfg, device=dev),
-        "lm_head": dense_init(generator, (cfg.d_model, cfg.vocab), device=dev),
     }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(generator, (cfg.d_model, cfg.vocab),
+                                  device=dev)
+    return p
 
 
 def layer_params(blocks: Dict[str, Any], i: int):
@@ -92,22 +100,28 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
               plan_rows: Optional[int] = None) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return x @ params["embed"].T
     return mm(x, params["lm_head"], plan_rows)
 
 
-def forward(params, tokens, cfg: ModelConfig, device="cuda"):
+def forward(params, tokens, cfg: ModelConfig, device="cuda",
+            moe_mode: str = "dispatch"):
     """tokens [B, T] -> (logits [B, T, V], aux): the full-sequence causal
-    forward with no cache (the Planner's probes run it).  Dense family
-    only, so ``aux`` (the reference's MoE loss) is 0."""
+    forward with no cache (the Planner's probes run it); ``aux`` is the
+    MoE layers' summed load-balancing loss (0 for a dense model)."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     x = embed_tokens(params, tokens, cfg)
     b, t, _ = x.shape
     positions = torch.arange(t, device=dev).expand(b, t)
+    aux = 0.0
     for _, p_l in iter_layers(params):
-        x, _ = blk.block_apply_seq(p_l, x, cfg, positions)
+        x, a, _ = blk.block_apply_seq(p_l, x, cfg, positions,
+                                      moe_mode=moe_mode)
+        aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    return lm_logits(params, x, cfg), 0.0
+    return lm_logits(params, x, cfg), aux
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -153,7 +167,8 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
-            quant_kv: bool = False, lengths=None, device="cuda"):
+            quant_kv: bool = False, lengths=None, device="cuda",
+            moe_mode: str = "dense"):
     """Process right-padded prompts [B, T]; build their decode cache and
     return the logits at each prompt's last token ([B, V], cache)."""
     dev = resolve_device(device)
@@ -166,8 +181,9 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
     positions = torch.arange(t, device=dev).expand(b, t)
     ks, vs = [], []
     for _, p_l in iter_layers(params):
-        x, cache = blk.block_apply_seq(p_l, x, cfg, positions,
-                                       collect_cache=True)
+        x, _, cache = blk.block_apply_seq(p_l, x, cfg, positions,
+                                          moe_mode=moe_mode,
+                                          collect_cache=True)
         ks.append(cache["kv"]["k"])
         vs.append(cache["kv"]["v"])
     x = apply_norm(params["final_norm"], x, cfg)

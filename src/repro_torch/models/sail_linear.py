@@ -4,8 +4,12 @@
 Every weight matmul goes through ``mm(x, w)``: a plain tensor takes
 ``x @ w``; a ``QTensor`` takes the LUT-GEMV (the CUDA kernel for CUDA
 tensors, its plain version for CPU tensors; with ``abits`` set, the
-integer-activation path).  ``quantize_params`` converts a parameter tree
-to the serving format; embeddings and 1-D parameters stay f32.
+integer-activation path).  The MoE expert einsums go through
+``einsum_q``: as in the reference, a quantized expert stack is
+dequantized and multiplied by ``torch.einsum`` (with ``abits``, on the
+per-token integer codes, the scale applied to the output), outside any
+kernel.  ``quantize_params`` converts a parameter tree to the serving
+format; embeddings and 1-D parameters stay f32.
 
 Mixed precision: ``QuantPolicy`` resolves bits per parameter path —
 explicit ``rules`` (regex, first match) over an ``allocation``
@@ -33,18 +37,20 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, \
 import torch
 
 from repro_torch.core.quant import (SUPPORTED_ABITS, SUPPORTED_BITS, QTensor,
-                                    _uniform_codebook, nf_codebook, quantize)
+                                    _uniform_codebook, dequantize,
+                                    nf_codebook, quantize,
+                                    quantize_activations)
 
 __all__ = ["ActQuantWeight", "BitAllocation", "QTensor", "QuantPolicy",
-           "StackedQTensor", "act_fake_quant", "mm", "nf_codebook",
-           "quantize_params", "map_tensors", "flatten_with_paths"]
+           "StackedQTensor", "act_fake_quant", "dequantize_any", "einsum_q",
+           "mm", "nf_codebook", "quantize_params", "map_tensors",
+           "flatten_with_paths"]
 
 
 def act_fake_quant(x: torch.Tensor, abits: int) -> torch.Tensor:
     """Per-token activation quantize->dequantize at ``abits``: the error a
     SAIL matmul serving ``abits`` activations sees on its inputs (any
     leading shape; the last axis is the token's feature vector)."""
-    from repro_torch.core.quant import quantize_activations
     xq, xs = quantize_activations(x, abits)
     return (xq.to(torch.float32) * xs).to(x.dtype)
 
@@ -82,7 +88,9 @@ def _apply_act_quant(x: torch.Tensor, w: Any):
 def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None,
        k_sharded: bool = False) -> torch.Tensor:
     """x [..., K] @ w [K, N] with QTensor dispatch (``plan_rows`` and
-    ``k_sharded``: see ``kernels.lut_gemv.ops.lut_matmul``)."""
+    ``k_sharded``: see ``kernels.lut_gemv.ops.lut_matmul``).  Only a
+    ``QTensor`` (one matrix) takes the LUT-GEMV: a layer's expert stack is
+    a ``StackedQTensor`` and goes through :func:`einsum_q`."""
     x, w = _apply_act_quant(x, w)
     if isinstance(w, QTensor):
         from repro_torch.kernels.lut_gemv.ops import lut_matmul
@@ -95,25 +103,100 @@ def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None,
 
 @dataclasses.dataclass(frozen=True)
 class StackedQTensor:
-    """QTensor stacked along a leading layer axis."""
-    packed: torch.Tensor      # [L, (K//G)*wpg, N] int32 bit patterns
-    scales: torch.Tensor      # [L, K//G, N]
-    codebook: torch.Tensor    # [L, 2**bits] (or [2**bits])
+    """QTensor stacked along leading axes: layers [L, ...], or a MoE
+    layer stack's experts [L, E, ...]."""
+    packed: torch.Tensor      # [*lead, (K//G)*wpg, N] int32 bit patterns
+    scales: torch.Tensor      # [*lead, K//G, N]
+    codebook: torch.Tensor    # [lead[0], 2**bits] (or [2**bits])
     bits: int
     group_size: int
     k: int
     abits: Optional[int] = None
 
-    def __getitem__(self, i) -> QTensor:
+    def __getitem__(self, i):
+        """Slice ``i`` of the first leading axis: a ``QTensor`` when that
+        leaves one matrix, else a ``StackedQTensor`` with a 1-D codebook (a
+        layer's experts, as the reference's scan slices them)."""
         cb = self.codebook if self.codebook.ndim == 1 else self.codebook[i]
-        return QTensor(packed=self.packed[i], scales=self.scales[i],
-                       codebook=cb, bits=self.bits,
-                       group_size=self.group_size, k=self.k,
-                       abits=self.abits)
+        packed, scales = self.packed[i], self.scales[i]
+        cls = QTensor if packed.ndim == 2 else StackedQTensor
+        return cls(packed=packed, scales=scales, codebook=cb,
+                   bits=self.bits, group_size=self.group_size, k=self.k,
+                   abits=self.abits)
 
     @property
     def n(self) -> int:
         return self.packed.shape[-1]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """Logical (unquantized) weight shape."""
+        return tuple(self.packed.shape[:-2]) + (self.k, self.n)
+
+
+# above this many weights a stack is dequantized one matrix at a time
+_DEQUANT_CHUNK = 1 << 26
+
+
+def dequantize_any(w) -> torch.Tensor:
+    """Tensor | QTensor | StackedQTensor -> f32 tensor (the plain path)."""
+    if isinstance(w, QTensor):
+        return dequantize(w)
+    if not isinstance(w, StackedQTensor):
+        return w
+    cb = w.codebook if w.codebook.ndim == 1 else w.codebook[0]
+    lead = tuple(w.packed.shape[:-2])
+    packed = w.packed.reshape((-1,) + tuple(w.packed.shape[-2:]))
+    scales = w.scales.reshape((-1,) + tuple(w.scales.shape[-2:]))
+    one = lambda p, s: QTensor(packed=p, scales=s, codebook=cb, bits=w.bits,
+                               group_size=w.group_size, k=w.k)
+    if packed.shape[0] * w.k * w.n > _DEQUANT_CHUNK:
+        out = torch.stack([dequantize(one(p, s))
+                           for p, s in zip(packed, scales)])
+    else:
+        # the matrices side by side along N: one unpack for the stack
+        e = packed.shape[0]
+        wide = dequantize(one(packed.permute(1, 0, 2).reshape(-1, e * w.n),
+                              scales.permute(1, 0, 2).reshape(-1, e * w.n)))
+        out = wide.reshape(w.k, e, w.n).permute(1, 0, 2)
+    return out.reshape(lead + (w.k, w.n))
+
+
+def _einsum_scale_to_out(spec: str, xs: torch.Tensor
+                         ) -> Optional[torch.Tensor]:
+    """Per-token activation scales ``xs`` [..., 1] broadcast to the einsum
+    output, where x's last subscript is the contracted one and every other
+    x subscript is kept in the output (every MoE expert einsum); else
+    None (the caller folds the scale into the input)."""
+    lhs, out = spec.split("->")
+    x_sub = lhs.split(",")[0]
+    keep = x_sub[:-1]
+    if x_sub[-1] in out or any(c not in out for c in keep):
+        return None
+    xs_t = xs[..., 0].permute([keep.index(c) for c in out if c in keep])
+    it = iter(xs_t.shape)
+    return xs_t.reshape([next(it) if c in keep else 1 for c in out])
+
+
+def einsum_q(spec: str, x: torch.Tensor, w: Any) -> torch.Tensor:
+    """``torch.einsum(spec, x, w)`` where ``w`` may be quantized (the MoE
+    expert einsums): the stack is dequantized on every call, as the
+    reference does.  With ``abits`` the integer path runs: per-token
+    activation codes enter the einsum and their scale multiplies the
+    output."""
+    x, w = _apply_act_quant(x, w)
+    if not isinstance(w, (QTensor, StackedQTensor)):
+        return torch.einsum(spec, x, w)
+    wd = dequantize_any(w).to(x.dtype)
+    if w.abits is not None and x.is_floating_point():
+        xq, xs = quantize_activations(x, w.abits)
+        xs_out = _einsum_scale_to_out(spec, xs)
+        if xs_out is not None:
+            y = torch.einsum(spec, xq.to(torch.float32),
+                             wd.to(torch.float32))
+            return (y * xs_out).to(x.dtype)
+        x = (xq.to(torch.float32) * xs).to(x.dtype)
+    return torch.einsum(spec, x, wd)
 
 
 # Bits for one path: a scalar, or one entry per stacked layer.
@@ -291,8 +374,8 @@ def _should_quantize(path: str, w, policy: QuantPolicy) -> bool:
 
 
 def _should_quantize_stacked(path: str, w, policy: QuantPolicy) -> bool:
-    """Layer-stacked [L, K, N] weights."""
-    return (isinstance(w, torch.Tensor) and w.ndim == 3
+    """Layer-stacked [L, K, N] weights and MoE experts [L, E, K, N]."""
+    return (isinstance(w, torch.Tensor) and w.ndim >= 3
             and "embed" not in path
             and w.shape[-2] % policy.group_size == 0
             and w.shape[-2] * w.shape[-1] >= policy.min_size)
@@ -318,19 +401,23 @@ def _scalar_bits(spec: BitsSpec, path: str, offset: int,
 
 def _quantize_stacked(w: torch.Tensor, bits: int, policy: QuantPolicy,
                       abits: Optional[int] = None) -> StackedQTensor:
-    """Quantize a stacked weight one layer at a time (bounded scratch);
-    the codebook is tiled along the layer axis as the reference does."""
+    """Quantize a stacked weight one matrix at a time (bounded scratch),
+    over every leading dim; the codebook is tiled along the first one only,
+    as the reference does, so a layer's slice carries a 1-D codebook."""
     cb = policy.codebook_for(bits)
     codebook = (_uniform_codebook(bits, device=w.device) if cb is None
                 else cb.to(device=w.device, dtype=torch.float32))
+    lead = tuple(w.shape[:-2])
     packed, scales = [], []
-    for layer in w:
-        qt = quantize(layer, bits, policy.group_size, codebook)
+    for mat in w.reshape((-1,) + tuple(w.shape[-2:])):
+        qt = quantize(mat, bits, policy.group_size, codebook)
         packed.append(qt.packed)
         scales.append(qt.scales)
+    packed, scales = torch.stack(packed), torch.stack(scales)
     return StackedQTensor(
-        packed=torch.stack(packed), scales=torch.stack(scales),
-        codebook=codebook[None].repeat(w.shape[0], 1), bits=bits,
+        packed=packed.reshape(lead + tuple(packed.shape[1:])),
+        scales=scales.reshape(lead + tuple(scales.shape[1:])),
+        codebook=codebook[None].repeat(lead[0], 1), bits=bits,
         group_size=policy.group_size, k=w.shape[-2], abits=abits)
 
 

@@ -600,3 +600,65 @@ def test_decode_attention_at_the_tp_shard_heads(gen, kv, quantized):
     want = da_ref.decode_attention_paged_ref(q, k, v, pos, tables, 4096, ks,
                                              vs)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [12, 20])
+@pytest.mark.parametrize("g", [1, 2, 3])
+def test_decode_attention_narrow_heads(gen, quantized, d, g):
+    """The narrow heads of the smoke configs (D 12 and 20, a multiple of 4
+    and not of 8: an int8 row is only 4-byte aligned, so it is staged by
+    4-byte copies) in lengths, ring and table mode, each at 2e-5 of its
+    plain version; table mode bit-equal to ring mode on the same rows."""
+    b, kv, s = 4, 2, 300
+    q, k, v, ks, vs = _attn_inputs(gen, b, kv, g, d, s, quantized)
+    assert da_kernel.plan(b, kv * g, kv, d, s, None, False,
+                          quantized).copy_bytes == (4 if quantized else 16)
+    lens = torch.tensor([0, 1, 150, 300], dtype=torch.int32, device="cuda")
+    for window in (64, None):
+        got = decode_attention_cuda(q, k, v, lens, ks, vs, window, ring=False)
+        want = da_ref.decode_attention_ref(q, k, v, lens, ks, vs, window)
+        torch.testing.assert_close(got[1:], want[1:], rtol=2e-5, atol=2e-5)
+    pos = torch.tensor([0, 150, 305, 1000], dtype=torch.int32, device="cuda")
+    for window in (100, 4096):
+        got = decode_attention_cuda(q, k, v, pos, ks, vs, window, ring=True)
+        want = da_ref.decode_attention_ring_ref(q, k, v, pos, window, ks, vs)
+        torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    q, k, v, ks, vs, tables, pos = _paged(gen, b, kv, g, d, 512, 16,
+                                          quantized)
+    g_ = lambda a: None if a is None else da_ref.gather_blocks(a, tables)
+    got = decode_attention_cuda(q, k, v, pos, ks, vs, 4096, ring=True,
+                                tables=tables)
+    want = da_ref.decode_attention_paged_ref(q, k, v, pos, tables, 4096, ks,
+                                             vs)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, decode_attention_cuda(
+        q, g_(k), g_(v), pos, g_(ks), g_(vs), 4096, ring=True))
+
+
+# (K, N) of llama2_7b's weight matrices: wq / wk / wv / wo, w_gate / w_up,
+# lm_head, w_down
+LLAMA2_7B_KN = [(4096, 4096), (4096, 11008), (4096, 32000), (11008, 4096)]
+
+
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("kn", LLAMA2_7B_KN)
+def test_lut_kernels_at_the_llama2_7b_shapes(gen, m, kn):
+    """Both LUT-GEMV flavours at llama2_7b's shapes (b 4, G 128), at M 8
+    (a decode step) and 64 (a prefill), against their plain versions: the
+    other shape tests' tolerances at K 4096, and at K 11008 an absolute
+    tolerance grown with K (the two sum K products in another f32 order,
+    so their difference can grow with K; at atol 1e-4 one output in
+    ~30000, an output of |y| 4.6 out of a sum of 11008 terms, parts by
+    1.5e-4)."""
+    k, n = kn
+    atol = 1e-4 * k / 4096
+    qt = _qt(gen, k, n, 4, 128)
+    x = torch.randn((m, k), device="cuda", generator=gen)
+    torch.testing.assert_close(lut_matmul_cuda(x, qt),
+                               lut_ref.lut_matmul_ref(x, qt), rtol=1e-5,
+                               atol=atol)
+    xq, xs = quantize_activations(x, 8)
+    torch.testing.assert_close(lut_matmul_int_cuda(xq, xs, qt, 8),
+                               lut_ref.lut_matmul_ref_int(xq, xs, qt),
+                               rtol=1e-4, atol=atol)

@@ -128,8 +128,9 @@ def test_plan_grammar_and_unported_options(smoke):
         TEngine(carried, tcfg, TEngineConfig(plan="uniform:4,tp=2"),
                 device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.prefill(carried, [[1, 2]], dataclasses.replace(tcfg, act="gelu"),
-                    8, device="cpu")
+        tlm.prefill(carried, [[1, 2]],
+                    dataclasses.replace(tcfg, family="hybrid"), 8,
+                    device="cpu")
 
 
 def _imports(path):

@@ -285,11 +285,12 @@ def test_lut_gemv_wrapper_refuses_what_cannot_launch(m, k, group, bits, fits):
 @pytest.mark.parametrize("g, d, fits", [(4, 32, True), (32, 32, False),
                                         (128, 8, False), (9, 128, True),
                                         (16, 120, True), (1, 8, True),
-                                        (4, 12, False), (17, 64, False),
+                                        (4, 12, True), (1, 20, True),
+                                        (4, 10, False), (17, 64, False),
                                         (4, 136, False)])
 def test_decode_attention_wrapper_refuses_what_cannot_launch(g, d, fits):
     """Shapes the kernel has no path for (more than 16 query heads per kv
-    head, a head width that is not a multiple of 8 up to 128) raise a
+    head, a head width that is not a multiple of 4 up to 128) raise a
     ValueError before any launch; shapes it takes pass the shape checks and
     stop only at the device check (these tensors are on ``meta``)."""
     _build.reset_launches()
@@ -304,10 +305,12 @@ def test_decode_attention_wrapper_refuses_what_cannot_launch(g, d, fits):
 
 
 # (G, D) of every attention config in src/repro/configs at full width;
-# xLSTM keeps no KV cache (its D is 256)
+# xLSTM keeps no KV cache (its D is 256); and the narrow heads of the smoke
+# configs (llama2_13b's D 20 at G 1, starcoder2_7b's D 12 at G 3)
 CONFIG_HEADS = sorted({(c.n_heads // c.n_kv, c.head_dim)
                        for c in map(jconfigs.get_config, jconfigs.ARCHS)
-                       if c.family != "ssm"})
+                       if c.family != "ssm"}
+                      | {(g, d) for g in (1, 3) for d in (12, 20)})
 
 
 def _rows_covered(p, n):
@@ -344,6 +347,14 @@ def test_decode_attention_plan_covers_fits_and_stays_in_a_wave(g, d):
                     assert p.lanes * p.elems >= d and p.lanes <= 32
                     assert p.padded_row == p.lanes * p.elems * (
                         1 if quantized else 4)
+                    # whole copies per row, none straddling a row's end
+                    row = d * (1 if quantized else 4)
+                    assert row % p.copy_bytes == 0
+                    assert p.padded_row % p.copy_bytes == 0
+                    assert p.copies & (p.copies - 1) == 0
+                    assert p.copy_bytes == (4 if quantized and d % 8
+                                            else 8 if quantized and d % 16
+                                            else 16)
                     assert p.rows_per_pass <= p.tw <= kern.MAX_TW
                     assert p.tw % p.rows_per_pass == 0
                     assert p.stage_bytes % 16 == 0
