@@ -159,6 +159,33 @@ Phases (each passes or the script exits nonzero):
      decode attention timed at D 20 beside D 128.  The CPU's dequantized
      weights come from the card (bit-equal, checked), its products stay
      on the CPU.
+ 12. others — the hybrid, recurrent, vision and encoder-decoder families,
+     uniform:4, int8 KV, random weights made on the card, at full width
+     and depth.  (a) hymba_1_5b (group 128: only w_down is quantized, the
+     K = 1600 matrices stay f32): phase 4's 16 requests on the ring
+     (exact-length prefill); one prefill pass and two decode steps with
+     every launch held and counted exactly (32 LUT-GEMV and 32 attentions
+     per step); the step's device time as a graph and its eager wall, its
+     f32 matmuls and its G 5 attentions as graphs.  (b) xlstm_350m the same
+     way (139 LUT-GEMV per step, no attention; w_if at N 8), the share of
+     its mLSTM state updates in the step, and the requests again under
+     uniform:4a8 with every int LUT-GEMV launch held.  (c)
+     phi_3_vision_4_2b: phase 4's requests text-only on the ring and the
+     paged pool (tokens equal); 8 lanes through lm.prefill after 576
+     seeded prefix embeddings, then 32 greedy steps, every launch held and
+     counted (225 and 32 per step); the prefill and the step timed.  (d)
+     whisper_large_v3 (32 + 32 layers) through models/encdec.py:
+     serve_prefill over 8 x 1500 seeded frames, then 32 greedy
+     serve_decode_step calls, every launch held and counted (256 LUT-GEMV
+     and 32 ring + 32 lengths-mode attentions per step); the encoder pass,
+     the step, the 32 cross-attentions as a graph beside their bound and
+     SDPA, and the LUT-GEMV at the encoder's M 12000.  (e) each config cut
+     to 2 layers (xlstm: one super-block of 4; whisper: 2 + 2) card
+     against CPU on phase 3's prompts (phi with the prefix; whisper on 2 x
+     1500 frames and 4 steps): f32 KV every pass at phase 3's tolerance,
+     int8 KV the prefill (whisper: the cross K/V) and the tokens.  Decode
+     attention at hymba's shape and at whisper's cross-attention (f32,
+     lengths mode, S 1500) beside its plain version, SDPA and its bound.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -1062,9 +1089,11 @@ def full_model(rt):
 
 
 def run_greedy(torch, lm, params, cfg, toks, lengths, steps, device,
-               quant_kv=True):
-    logits, cache = lm.prefill(params, toks, cfg, 512, quant_kv, lengths,
-                               device=device)
+               quant_kv=True, prefix=None, cache_len=512):
+    if prefix is not None:
+        prefix = prefix.to(device)
+    logits, cache = lm.prefill(params, toks, cfg, cache_len, quant_kv,
+                               lengths, device=device, prefix_embeds=prefix)
     out_logits, out_toks = [logits.float().cpu()], []
     for _ in range(steps):
         tok = torch.argmax(logits, dim=-1)
@@ -3255,18 +3284,20 @@ def cut_layers(raw, cfg, n):
 def lut_calls(params):
     """(LUT-GEMV launches of one decode step, of one prefill pass) of a
     quantized tree: each layer's quantized matrices once (a MoE layer's
-    router; its experts go through einsum_q, no kernel), wk and wv once
-    more in prefill (the cache's K/V), and a quantized lm_head once (a tied
-    head is a plain product)."""
+    router; its experts go through einsum_q, no kernel; an xlstm
+    super-block's sub-layers), the attention's wk and wv once more in
+    prefill (the cache's K/V), and a quantized lm_head once (a tied head is
+    a plain product)."""
     from repro_torch.core.quant import QTensor
     from repro_torch.models import lm
+    from repro_torch.models.sail_linear import flatten_with_paths
     dec = pre = 0
     for _, layer in lm.iter_layers(params):
-        for mats in layer.values():
-            for m, w in mats.items():
-                if isinstance(w, QTensor):
-                    dec += 1
-                    pre += 2 if m in ("wk", "wv") else 1
+        for path, w in flatten_with_paths(layer):
+            if isinstance(w, QTensor):
+                dec += 1
+                pre += 2 if path in ("['attn']['wk']", "['attn']['wv']") \
+                    else 1
     head = int(isinstance(params.get("lm_head"), QTensor))
     return dec + head, pre + head
 
@@ -3320,22 +3351,28 @@ class CardDequant:
 
 
 def held_passes(torch, lm, params, cfg, toks, lengths, steps, name,
-                cache=True, quant_kv=True):
-    """Prefill ``toks`` and run ``steps`` greedy decode steps on the card
-    (int8 KV, or f32),
+                cache=True, quant_kv=True, attn=None, prefix=None,
+                cache_len=512):
+    """Prefill ``toks`` (after ``prefix`` embeddings when given) and run
+    ``steps`` greedy decode steps on the card (int8 KV, or f32),
     every LUT-GEMV and decode-attention launch held against its plain
     version on its own inputs, the launches of each pass counted from 0
     and checked exactly: ``lut_calls`` per prefill pass and decode step,
-    one attention per layer per step, nothing else.  Returns (logits
-    [steps + 1, B, V] and tokens on the host, record)."""
+    ``attn`` attentions per step (default one per layer; xlstm has none),
+    nothing else.  Returns (logits [steps + 1, B, V] and tokens on the
+    host, record)."""
     from repro_torch.kernels import _build
     dec, pre = lut_calls(params)
+    attn = cfg.n_layers if attn is None else attn
     passes = []
     with Held(torch, name, cache=cache) as held, \
             HeldAttn(torch, name) as held_attn:
         _build.reset_launches()
-        logits, kv = lm.prefill(params, toks, cfg, 512, quant_kv, lengths,
-                                device="cuda")
+        t0 = time.perf_counter()
+        logits, kv = lm.prefill(params, toks, cfg, cache_len, quant_kv,
+                                lengths, device="cuda", prefix_embeds=prefix)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
         passes.append(dict(_build.launches))
         out_l, out_t = [logits.float().cpu()], []
         for _ in range(steps):
@@ -3348,20 +3385,22 @@ def held_passes(torch, lm, params, cfg, toks, lengths, steps, name,
             out_l.append(logits.float().cpu())
         out_t.append(torch.argmax(logits, dim=-1).cpu())
     for i, c in enumerate(passes):
-        want = (pre, 0) if i == 0 else (dec, cfg.n_layers)
+        want = (pre, 0) if i == 0 else (dec, attn)
         if ((c["lut_matmul"], c["decode_attention"]) != want
                 or c["lut_matmul_int"] or c["decode_attention_table"]):
             fail(f"{name}: pass {i} launched {c}; want LUT-GEMV "
                  f"{want[0]}, decode attention {want[1]} (ring), nothing else")
     rec = dict(lut_per_prefill=pre, lut_per_decode_step=dec,
-               attention_per_decode_step=cfg.n_layers,
+               attention_per_decode_step=attn, held_prefill_s=prefill_s,
+               launches=dict(sum((collections.Counter(c) for c in passes),
+                                 collections.Counter())),
                held_lut=sum(held.calls.values()), held_attention=held_attn.calls,
                max_abs_err_lut=held.err["f32"],
                max_abs_err_attention=held_attn.err)
     return torch.stack(out_l), torch.stack(out_t), rec
 
 
-def card_vs_cpu(torch, lm, params, cfg, name):
+def card_vs_cpu(torch, lm, params, cfg, name, attn=None, prefix=None):
     """Phase 3's prompts and steps (prefill [2, 48] + 4 decode steps) on the
     card, every launch held, against the CPU, greedy tokens equal.  With
     f32 KV every pass's logits at phase 3's tolerance; with int8 KV the
@@ -3375,12 +3414,15 @@ def card_vs_cpu(torch, lm, params, cfg, name):
     for kv in ("int8", "f32"):
         t0 = time.perf_counter()
         gl, gt, rec = held_passes(torch, lm, params, cfg, toks, lengths, 4,
-                                  f"{name} {kv} KV", quant_kv=kv == "int8")
+                                  f"{name} {kv} KV", quant_kv=kv == "int8",
+                                  attn=attn, prefix=prefix,
+                                  cache_len=CACHE_LEN.get(cfg.frontend, 512))
         t_card = time.perf_counter() - t0
         t0 = time.perf_counter()
         with CardDequant(torch) as cd:
             cl, ct = run_greedy(torch, lm, cpu, cfg, toks, lengths, 4, "cpu",
-                                quant_kv=kv == "int8")
+                                quant_kv=kv == "int8", prefix=prefix,
+                                cache_len=CACHE_LEN.get(cfg.frontend, 512))
         t_cpu = time.perf_counter() - t0
         per_pass = (gl - cl).abs().amax(dim=(1, 2)).tolist()
         held = gl if kv == "f32" else gl[:1]
@@ -3390,7 +3432,9 @@ def card_vs_cpu(torch, lm, params, cfg, name):
                    max_abs_logit=cl.abs().max().item(),
                    dequant_bit_equal=cd.checked, card_s=t_card, cpu_s=t_cpu)
         out[f"{kv} KV"] = rec
-        log(f"[families] {name}, {kv} KV: prefill [2, 48] + 4 decode steps, "
+        rows = "" if prefix is None else f"{prefix.shape[1]} prefix rows + "
+        log(f"[families] {name}, {kv} KV: prefill [2, {rows}48] + 4 decode "
+            f"steps, "
             f"uniform:4, card vs CPU: logits max abs err per pass "
             f"{', '.join(f'{e:.3e}' for e in per_pass)} (max |logit| "
             f"{rec['max_abs_logit']:.2f}); greedy tokens card "
@@ -3399,7 +3443,8 @@ def card_vs_cpu(torch, lm, params, cfg, name):
             f"{rec['max_abs_err_lut']:.3e}; {rec['held_attention']} decode "
             f"attention, {rec['max_abs_err_attention']:.3e}; per pass exactly"
             f" {rec['lut_per_prefill']} / {rec['lut_per_decode_step']} "
-            f"LUT-GEMV and {cfg.n_layers} attentions), CPU {t_cpu:.2f} s")
+            f"LUT-GEMV and {rec['attention_per_decode_step']} attentions), "
+            f"CPU {t_cpu:.2f} s")
         if (tuple(gl.shape) != (5, 2, cfg.vocab)
                 or not torch.isfinite(gl).all() or not rec["tokens_equal"]
                 or not torch.allclose(held, cl[:len(held)], rtol=MODEL_RTOL,
@@ -3410,11 +3455,15 @@ def card_vs_cpu(torch, lm, params, cfg, name):
     return out
 
 
-def serve_families(torch, eng, prompts, cfg, name, max_new, table):
+def serve_families(torch, eng, prompts, cfg, name, max_new, table,
+                   attn=None, lut="lut_matmul"):
     """Serve ``prompts`` counted (``serve_counted``) and check that every
-    decode step went through the LUT-GEMV and through decode attention in
-    ring or table mode (and never the other mode or the int LUT-GEMV).
-    Returns ({uid: tokens}, record)."""
+    decode step went through the LUT-GEMV (``lut``: the f32 or the int
+    flavour) and through ``attn`` decode attentions (default one per
+    layer) in ring or table mode (and never the other mode or the other
+    LUT-GEMV).  Returns ({uid: tokens}, record)."""
+    attn = cfg.n_layers if attn is None else attn
+    other_lut = "lut_matmul_int" if lut == "lut_matmul" else "lut_matmul"
     got, counts, dt = serve_counted(torch, eng, prompts, max_new)
     st = eng.stats()
     dec, _ = lut_calls(eng.params)
@@ -3427,14 +3476,14 @@ def serve_families(torch, eng, prompts, cfg, name, max_new, table):
             or any(not 0 <= x < cfg.vocab for t in got.values() for x in t)):
         fail(f"{name}: expected {len(prompts)} completions of {max_new} "
              "tokens in the vocabulary")
-    if (counts["lut_matmul"] < steps * dec or mode < steps * cfg.n_layers
-            or other or counts["lut_matmul_int"]):
+    if (counts[lut] < steps * dec or mode < steps * attn
+            or other or counts[other_lut]):
         fail(f"{name}: {steps} decode steps launched {counts}; need >= "
-             f"{steps * dec} LUT-GEMV and >= {steps * cfg.n_layers} "
+             f"{steps * dec} {lut} and >= {steps * attn} "
              f"{'table' if table else 'ring'}-mode attentions")
     rec = dict(tokens=st["generated_tokens"], seconds=dt,
                decode_steps=steps, decode_tok_per_s=st["measured_tps"],
-               launches=counts)
+               prefill_passes=st["prefill_iterations"], launches=counts)
     log(f"[families] {name}: {len(prompts)} requests, "
         f"{st['generated_tokens']} tokens in {dt:.2f} s, decode "
         f"{st['measured_tps']:.1f} tok/s over {steps} steps; launches "
@@ -3449,8 +3498,9 @@ def lut_step(torch, timer, params):
     from repro_torch.core.quant import QTensor, dequantize
     from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda
     from repro_torch.models import lm
-    qts = [w for _, layer in lm.iter_layers(params) for mats in layer.values()
-           for w in mats.values() if isinstance(w, QTensor)]
+    from repro_torch.models.sail_linear import flatten_with_paths
+    qts = [w for _, layer in lm.iter_layers(params)
+           for _, w in flatten_with_paths(layer) if isinstance(w, QTensor)]
     if isinstance(params.get("lm_head"), QTensor):
         qts.append(params["lm_head"])
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -3473,14 +3523,14 @@ def lut_step(torch, timer, params):
                 ops_bound_ms=ops / F32_OPS_PER_S * 1e3)
 
 
-def attention_step(torch, timer, eng, cfg):
-    """The decode step's attentions (one per layer, ring mode) on the
-    engine's own cache and positions as one graph (no flush), and their
-    bound over the valid slots."""
+def attention_step(torch, timer, cache, cfg):
+    """The decode step's attentions (one per layer, ring mode) on a decode
+    cache's K/V and positions as one graph (no flush), and their bound
+    over the valid slots."""
     from repro_torch.kernels.decode_attn.ops import decode_attention_ring
     from repro_torch.kernels.decode_attn.ref import ring_valid
-    layers = eng.cache["layers"]
-    pos = eng.cache["length"].to(torch.int32)
+    layers = cache["layers"]
+    pos = cache["length"].to(torch.int32)
     b, s = layers["k"].shape[1], layers["k"].shape[2]
     window = cfg.window or s
     q = torch.randn((b, cfg.n_heads, cfg.head_dim), device="cuda")
@@ -3567,7 +3617,7 @@ def family_full(torch, timer, arch, res):
                                       quant_kv=True, device="cuda")
     rec["step_device_ms"] = timer(one_step)
     rec["step_wall_ms"] = timer.call_ms(one_step, iters=10)
-    rec["attention_step"] = attention_step(torch, timer, ring, cfg)
+    rec["attention_step"] = attention_step(torch, timer, ring.cache, cfg)
     if cfg.family == "moe":
         rec["expert_step"] = expert_step(torch, timer, ring.params, cfg)
     else:
@@ -3738,6 +3788,630 @@ def phase_families(rt):
         log(f"[families] {name}: {seconds[name]:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the hybrid, recurrent, vision and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# the decode cache's ring: phi-3-vision's holds its 576 prefix rows, the
+# prompt and the new tokens
+CACHE_LEN = {"vision": 1024}
+# whisper: the decoder's ring, its greedy steps, and the 4-bit policy the
+# engine would use (the reference's launcher refuses encdec, so whisper is
+# quantized and served through models/encdec.py directly)
+WHISPER = "whisper_large_v3"
+WHISPER_RING, WHISPER_STEPS = 512, 32
+WHISPER_POLICY = dict(bits=4, group_size=128, min_size=1024)
+# phi-3-vision: the lanes of its prefix prefill and its greedy steps
+VISION = "phi_3_vision_4_2b"
+VISION_LANES, VISION_STEPS = 8, 32
+
+
+def cut_blocks(raw, cfg, nb):
+    """The first ``nb`` blocks of a raw decoder tree (an xlstm block is a
+    super-block of ``slstm_every`` layers) and the config cut to them."""
+    import dataclasses
+    per = cfg.slstm_every if cfg.family == "ssm" else 1
+    out, _ = cut_layers(raw, cfg, nb)
+    return out, dataclasses.replace(cfg, n_layers=nb * per)
+
+
+def attn_per_step(cfg) -> int:
+    """Decode attentions per step: one per layer, none for xlstm."""
+    return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def plain_step(torch, timer, params, cfg):
+    """The f32 weight matmuls of hymba's decode step (every leaf ``mm``
+    takes as a plain ``x @ w``: those whose K the group does not divide)
+    at M 8, as one graph (flush), and their bytes."""
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import flatten_with_paths
+    names = ("['wq']", "['wk']", "['wv']", "['wo']", "['w_gate']",
+             "['w_up']", "['w_down']", "['w_in']", "['w_bcdt']", "['w_dt']",
+             "['w_out']")
+    ws = [w for _, layer in lm.iter_layers(params)
+          for p, w in flatten_with_paths(layer)
+          if p.endswith(names) and isinstance(w, torch.Tensor)]
+    if isinstance(params.get("lm_head"), torch.Tensor):
+        ws.append(params["lm_head"])
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xk = {k: torch.randn((8, k), device="cuda", generator=gen)
+          for k in {w.shape[0] for w in ws}}
+    ms = timer(lambda: [xk[w.shape[0]] @ w for w in ws])
+    return dict(calls=len(ws), graph_ms=ms,
+                bytes=sum(4 * w.numel() for w in ws))
+
+
+def mlstm_state_step(torch, timer, cache, cfg):
+    """The mLSTM state updates of one decode step (every mLSTM layer's
+    ``mlstm_step`` at the cache's lanes, random q / k / v and gates) as
+    one graph (flush), and the bytes of the states they read and write."""
+    from repro_torch.models.xlstm import mlstm_step
+    states = [st for name, st in cache["layers"].items()
+              if name.startswith("mlstm")]
+    b, h, dh = states[0].n.shape[1:]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = [torch.randn((b, h, dh), device="cuda", generator=gen)
+           for _ in range(3)]
+    ifg = [torch.randn((b, h), device="cuda", generator=gen)
+           for _ in range(2)]
+    calls = [(st.c[i], st.n[i], st.m[i]) for st in states
+             for i in range(st.c.shape[0])]
+    ms = timer(lambda: [mlstm_step(c, n, m, *qkv, *ifg)
+                        for c, n, m in calls])
+    return dict(layers=len(calls), graph_ms=ms,
+                state_bytes=sum(2 * 4 * c.numel() for c, _, _ in calls))
+
+
+def recurrent_full(torch, timer, arch, res):
+    """(a) / (b): hymba or xlstm at full width and depth on the ring:
+    phase 4's 16 requests (exact-length prefill); one prefill pass and two
+    decode steps with every launch held and counted exactly; the step's
+    device time as a graph and its eager wall; hymba's f32 matmuls and
+    attentions as graphs, xlstm's mLSTM state updates as a graph and its
+    requests again under uniform:4a8 (the int LUT-GEMV, every launch
+    held)."""
+    import gc
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import flatten_with_paths
+    from repro_torch.serving.engine import Engine, EngineConfig
+    rec = res[arch] = {}
+    t0 = time.perf_counter()
+    cfg, raw = family_model(torch, arch)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    rec["raw_gb"] = sum(4 * t.numel() for _, t in flatten_with_paths(raw)) / 1e9
+    attn = attn_per_step(cfg)
+    cut = cut_blocks(raw, cfg, 1 if cfg.family == "ssm" else 2)
+    ring = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
+    a8 = (Engine(raw, cfg, EngineConfig(**dict(RING, plan="uniform:4a8")),
+                 device="cuda") if cfg.family == "ssm" else None)
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    quantized = sorted(p for p, w in flatten_with_paths(ring.params)
+                       if not isinstance(w, torch.Tensor))
+    rec["quantized_paths"] = quantized
+    dec, pre = lut_calls(ring.params)
+    log(f"[others] {arch}: {cfg.n_layers} layers, d {cfg.d_model}, f32 init "
+        f"on the card ({rec['raw_gb']:.2f} GB) {rec['init_s']:.1f} s; "
+        f"uniform:4 at group 128 quantizes {len(quantized)} leaves "
+        f"({ring.compression:.2f}x smaller): {dec} LUT-GEMV per decode step,"
+        f" {attn} attentions")
+    prompts = engine_requests(cfg)
+    _, rec["ring"] = serve_families(torch, ring, prompts, cfg,
+                                    f"{arch} ring", 32, table=False,
+                                    attn=attn)
+    toks, lengths = model_prompts(cfg)
+    t0 = time.perf_counter()
+    _, _, rec["held"] = held_passes(torch, lm, ring.params, cfg, toks,
+                                    lengths, 2, f"{arch} held", attn=attn)
+    h = rec["held"]
+    log(f"[others] {arch}: one prefill pass [2, 48] and two decode steps at "
+        f"full depth, every launch held in {time.perf_counter() - t0:.1f} s: "
+        f"exactly {h['lut_per_prefill']} / {h['lut_per_decode_step']} "
+        f"LUT-GEMV per prefill pass / decode step and {attn} attentions per "
+        f"step; {h['held_lut']} LUT-GEMV within rtol {F32_RTOL} / atol "
+        f"{F32_ATOL} (max abs err {h['max_abs_err_lut']:.3e}), "
+        f"{h['held_attention']} attentions within {ATTN_TOL} (max abs err "
+        f"{h['max_abs_err_attention']:.3e})")
+    tok = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
+    one_step = lambda: lm.decode_step(ring.params, tok, ring.cache, cfg,
+                                      quant_kv=True, device="cuda")
+    rec["step_device_ms"] = timer(one_step)
+    rec["step_wall_ms"] = timer.call_ms(one_step, iters=10)
+    rec["lut_step"] = lut_step(torch, timer, ring.params)
+    line = (f"[others] {arch} on {card_line()}: one full-pool decode step (8 "
+            f"lanes): device {rec['step_device_ms']:.3f} ms as a graph, eager"
+            f" wall {rec['step_wall_ms']:.3f} ms; decode "
+            f"{rec['ring']['decode_tok_per_s']:.1f} tok/s in the ring run "
+            f"({rec['ring']['prefill_passes']} exact-length prefill passes); "
+            f"its {rec['lut_step']['calls']} LUT-GEMV calls (M 8) as one "
+            f"graph {rec['lut_step']['step_graph_ms']:.4f} ms (bound "
+            f"{rec['lut_step']['bound_ms']:.4f} ms by "
+            f"{rec['lut_step']['bound_by']})")
+    if cfg.family == "hybrid":
+        rec["attention_step"] = attention_step(torch, timer, ring.cache, cfg)
+        rec["f32_step"] = plain_step(torch, timer, ring.params, cfg)
+        a, f = rec["attention_step"], rec["f32_step"]
+        line += (f"; its {f['calls']} f32 matmuls (x @ w, M 8, "
+                 f"{f['bytes'] / 1e9:.3f} GB) as one graph "
+                 f"{f['graph_ms']:.4f} ms = "
+                 f"{100 * f['graph_ms'] / rec['step_device_ms']:.1f}% of the "
+                 f"step; its {a['calls']} attentions (G 5, D 64) as one graph"
+                 f" {a['step_graph_ms']:.4f} ms (bound {a['bound_ms']:.4f} ms"
+                 f" by {a['bound_by']})")
+    else:
+        rec["mlstm_state"] = m = mlstm_state_step(torch, timer, ring.cache,
+                                                  cfg)
+        line += (f"; its {m['layers']} mLSTM state updates (C [8, 4, 512, "
+                 f"512], {m['state_bytes'] / 1e9:.3f} GB read and written) "
+                 f"as one graph {m['graph_ms']:.4f} ms = "
+                 f"{100 * m['graph_ms'] / rec['step_device_ms']:.1f}% of the "
+                 f"step (bytes bound "
+                 f"{m['state_bytes'] / HBM_BYTES_PER_S * 1e3:.4f} ms)")
+    log(line)
+    del ring
+    gc.collect()
+    torch.cuda.empty_cache()
+    if a8 is not None:
+        with Held(torch, f"{arch} uniform:4a8") as held:
+            got8, rec["ring 4a8"] = serve_families(
+                torch, a8, prompts, cfg, f"{arch} ring uniform:4a8", 32,
+                table=False, attn=attn, lut="lut_matmul_int")
+        rec["ring 4a8"].update(held_lut=sum(held.calls.values()),
+                               max_abs_err_lut=held.err["int"])
+        log(f"[others] {arch} uniform:4a8: {rec['ring 4a8']['held_lut']} int "
+            f"LUT-GEMV launches held within rtol {LUT_RTOL} / atol "
+            f"{LUT_ATOL} (max abs err {held.err['int']:.3e})")
+        del a8
+        gc.collect()
+        torch.cuda.empty_cache()
+    raw2, cfg2 = cut
+    params2, _, _ = quantize_params_card(raw2)
+    del raw2
+    rec["card_vs_cpu"] = card_vs_cpu(torch, lm, params2, cfg2,
+                                     f"{arch} at {cfg2.n_layers} layers",
+                                     attn=attn_per_step(cfg2))
+    return rec
+
+
+def quantize_params_card(raw):
+    from repro_torch.models.sail_linear import QuantPolicy, quantize_params
+    return quantize_params(raw, QuantPolicy(bits=4, group_size=128,
+                                            min_size=1024))
+
+
+def vision_prefix(torch, cfg, b, seed=3):
+    """``b`` lanes of prefix embeddings (the stubbed CLIP patches), from a
+    seeded generator on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, cfg.vision_tokens, cfg.d_model), device="cuda",
+                       generator=gen)
+
+
+def vision_full(torch, timer, res):
+    """(c): phi-3-vision at full width and depth: phase 4's requests
+    text-only on the ring and on the paged pool (tokens equal); 8 lanes
+    through ``lm.prefill`` with 576 prefix embeddings, then 32 greedy
+    decode steps, every launch held and counted exactly; the prefill's
+    and the step's times; the model cut to 2 layers card against CPU
+    (with the prefix)."""
+    import gc
+    import numpy as np
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, EngineConfig
+    rec = res[VISION] = {}
+    t0 = time.perf_counter()
+    cfg, raw = family_model(torch, VISION)
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    raw2, cfg2 = cut_layers(raw, cfg, 2)
+    ring = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
+    paged = Engine(raw, cfg, EngineConfig(**RING, **FAMILY_PAGED),
+                   device="cuda")
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    prompts = engine_requests(cfg)
+    got, rec["ring"] = serve_families(torch, ring, prompts, cfg,
+                                      f"{VISION} ring (text only)", 32,
+                                      table=False)
+    pg, rec["paged"] = serve_families(torch, paged, prompts, cfg,
+                                      f"{VISION} paged (text only)", 32,
+                                      table=True)
+    rec["paged_equal_ring"] = sum(pg[u] == got[u] for u in got)
+    if pg != got:
+        fail(f"{VISION}: paged tokens differ from the ring engine's")
+    del paged
+    gc.collect()
+    torch.cuda.empty_cache()
+    # 8 lanes: 576 prefix rows, then phase 4's first 8 prompts right-padded
+    lens = np.array([len(p) for p in prompts[:VISION_LANES]], np.int32)
+    toks = np.zeros((VISION_LANES, int(lens.max())), np.int64)
+    for i, p in enumerate(prompts[:VISION_LANES]):
+        toks[i, :len(p)] = p
+    prefix = vision_prefix(torch, cfg, VISION_LANES)
+    cl = CACHE_LEN["vision"]
+    logits, cache = lm.prefill(ring.params, toks, cfg, cl, True, lens,
+                               device="cuda", prefix_embeds=prefix)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(ring.params, toks, cfg, cl, True, lens,
+                               device="cuda", prefix_embeds=prefix)
+    torch.cuda.synchronize()
+    rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    rec["prefill_rows"] = [VISION_LANES, cfg.vision_tokens + toks.shape[1]]
+    t0 = time.perf_counter()
+    gl, gt, rec["held"] = held_passes(
+        torch, lm, ring.params, cfg, toks, lens, VISION_STEPS,
+        f"{VISION} prefix", prefix=prefix, cache_len=cl)
+    h = rec["held"]
+    if not torch.isfinite(gl).all() or tuple(gl.shape) != (
+            VISION_STEPS + 1, VISION_LANES, cfg.vocab):
+        fail(f"{VISION}: prefix logits not finite or of shape {gl.shape}")
+    rec["prefix_tokens"] = gt.T.tolist()
+    log(f"[others] {VISION}: 8 lanes of {cfg.vision_tokens} prefix embeddings"
+        f" and prompts of {lens.tolist()} tokens (T {rec['prefill_rows'][1]}"
+        f"), prefill {rec['prefill_ms']:.1f} ms eager, then {VISION_STEPS} "
+        f"greedy decode steps, every launch held in "
+        f"{time.perf_counter() - t0:.1f} s: exactly {h['lut_per_prefill']} / "
+        f"{h['lut_per_decode_step']} LUT-GEMV per prefill pass / step and "
+        f"{h['attention_per_decode_step']} attentions per step; max abs err "
+        f"{h['max_abs_err_lut']:.3e} LUT-GEMV, "
+        f"{h['max_abs_err_attention']:.3e} attention")
+    tok = torch.zeros((VISION_LANES, 1), dtype=torch.int64, device="cuda")
+    one_step = lambda: lm.decode_step(ring.params, tok, cache, cfg,
+                                      quant_kv=True, device="cuda")
+    rec["step_device_ms"] = timer(one_step)
+    rec["step_wall_ms"] = timer.call_ms(one_step, iters=10)
+    rec["attention_step"] = attention_step(torch, timer, cache, cfg)
+    rec["lut_step"] = lut_step(torch, timer, ring.params)
+    step_log(VISION, cfg, rec)
+    del ring, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    params2, _, _ = quantize_params_card(raw2)
+    del raw2
+    rec["card_vs_cpu"] = card_vs_cpu(
+        torch, lm, params2, cfg2, f"{VISION} at 2 layers",
+        prefix=vision_prefix(torch, cfg2, 2))
+    return rec
+
+
+def whisper_frames(torch, cfg, b, seed=4):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((b, cfg.enc_seq, cfg.d_model), device="cuda",
+                       generator=gen)
+
+
+def whisper_held(torch, params, cfg, frames, steps, quant_kv, name):
+    """``serve_prefill`` over ``frames`` and ``steps`` greedy
+    ``serve_decode_step`` calls on the card, every launch held against its
+    plain version and counted exactly: 6 LUT-GEMV per encoder layer and the
+    cross wk / wv per decoder layer in prefill, 8 LUT-GEMV and 2 attentions
+    (the self-attention's ring, the cross-attention's lengths mode) per
+    decoder layer per step.  Returns (logits [steps, B, V], tokens, cross
+    K/V on the host, record)."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import encdec
+    le, ld = cfg.n_enc_layers, cfg.n_layers
+    want_pre, want_dec, want_attn = 6 * le + 2 * ld, 8 * ld, 2 * ld
+    passes = []
+    b = frames.shape[0]
+    with Held(torch, name) as held, HeldAttn(torch, name) as held_attn:
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        cache = encdec.serve_prefill(params, frames, cfg, WHISPER_RING,
+                                     quant_kv, device="cuda")
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        passes.append(dict(_build.launches))
+        cross = (cache["layers"]["ck"][:, :, :4].cpu(),
+                 cache["layers"]["cv"][:, :, :4].cpu())
+        tok = torch.full((b, 1), 1, dtype=torch.int64, device="cuda")
+        out_l, out_t = [], []
+        for _ in range(steps):
+            _build.reset_launches()
+            logits, cache = encdec.serve_decode_step(params, tok, cache, cfg,
+                                                     quant_kv, device="cuda")
+            passes.append(dict(_build.launches))
+            out_l.append(logits.float().cpu())
+            tok = torch.argmax(logits, dim=-1)[:, None]
+            out_t.append(tok[:, 0].cpu())
+    for i, c in enumerate(passes):
+        want = (want_pre, 0) if i == 0 else (want_dec, want_attn)
+        if ((c["lut_matmul"], c["decode_attention"]) != want
+                or c["lut_matmul_int"] or c["decode_attention_table"]):
+            fail(f"{name}: pass {i} launched {c}; want LUT-GEMV {want[0]}, "
+                 f"decode attention {want[1]}, nothing else")
+    rec = dict(lut_per_prefill=want_pre, lut_per_decode_step=want_dec,
+               attention_per_decode_step=want_attn, held_prefill_s=prefill_s,
+               held_lut=sum(held.calls.values()),
+               held_attention=held_attn.calls,
+               max_abs_err_lut=held.err["f32"],
+               max_abs_err_attention=held_attn.err,
+               launches=dict(sum((collections.Counter(c) for c in passes),
+                                 collections.Counter())))
+    return torch.stack(out_l), torch.stack(out_t), cross, rec
+
+
+def whisper_cpu(torch, params, cfg, frames, steps, quant_kv):
+    """The same passes on the CPU (plain versions, the dequantized weights
+    from the card): (logits, tokens, cross K/V)."""
+    from repro_torch.models import encdec
+    cache = encdec.serve_prefill(params, frames.cpu(), cfg, WHISPER_RING,
+                                 quant_kv, device="cpu")
+    cross = (cache["layers"]["ck"][:, :, :4].clone(),
+             cache["layers"]["cv"][:, :, :4].clone())
+    tok = torch.full((frames.shape[0], 1), 1, dtype=torch.int64)
+    out_l, out_t = [], []
+    for _ in range(steps):
+        logits, cache = encdec.serve_decode_step(params, tok, cache, cfg,
+                                                 quant_kv, device="cpu")
+        out_l.append(logits.float())
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        out_t.append(tok[:, 0])
+    return torch.stack(out_l), torch.stack(out_t), cross
+
+
+def cross_attention_step(torch, timer, cache, cfg):
+    """The decode step's 32 cross-attentions (lengths mode over the f32
+    cross K/V, every slot valid) on the cache as one graph (flush), beside
+    their bytes bound and SDPA on the same K/V (laid out [B, KV, S, D]
+    beforehand, not timed)."""
+    from repro_torch.models.encdec import cross_attend
+    ck, cv = cache["layers"]["ck"], cache["layers"]["cv"]
+    l, b, s, kv, d = ck.shape
+    q = torch.randn((b, cfg.n_heads, d), device="cuda")
+    ms = timer(lambda: [cross_attend(q, ck[i], cv[i]) for i in range(l)])
+    nbytes = l * (2 * 4 * ck[0].numel() + 2 * 4 * q.numel())
+    bound, by = bound_ms(nbytes, l * 4 * b * s * cfg.n_heads * d)
+    kt = [ck[i].transpose(1, 2).contiguous() for i in range(l)]
+    vt = [cv[i].transpose(1, 2).contiguous() for i in range(l)]
+    q4 = q[:, :, None, :]
+    sdpa = timer(lambda: [torch.nn.functional.scaled_dot_product_attention(
+        q4, kt[i], vt[i], enable_gqa=True) for i in range(l)])
+    del kt, vt
+    return dict(calls=l, graph_ms=ms, sdpa_graph_ms=sdpa, bound_ms=bound,
+                bound_by=by, bytes=nbytes)
+
+
+def lut_rows_m(torch, timer, params, m):
+    """The LUT-GEMV at M = ``m`` (the encoder's rows) on one encoder
+    layer's w_up and w_down, each beside torch.matmul on the dequantized
+    weight and its bound."""
+    from repro_torch.core.quant import dequantize
+    from repro_torch.kernels.lut_gemv.kernel import lut_matmul_cuda
+    from repro_torch.models import lm
+    layer = lm.layer_params(params["enc_blocks"], 0)["mlp"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for name in ("w_up", "w_down"):
+        qt = layer[name]
+        x = torch.randn((m, qt.k), device="cuda", generator=gen)
+        wd = dequantize(qt)
+        nbytes = 4 * (qt.packed.numel() + qt.scales.numel()) + 4 * m * (
+            qt.k + qt.n)
+        bound, by = bound_ms(nbytes, 2 * m * qt.k * qt.n)
+        rows[f"{name} K{qt.k} N{qt.n}"] = dict(
+            ms=timer(lambda: lut_matmul_cuda(x, qt), iters=10),
+            library_ms=timer(lambda: torch.matmul(x, wd), iters=10),
+            bound_ms=bound, bound_by=by)
+    return rows
+
+
+def whisper_full(torch, timer, res):
+    """(d): whisper at full width and depth (32 + 32 layers): quantized on
+    the card, ``serve_prefill`` over 8 lanes of 1500 frames and 32 greedy
+    ``serve_decode_step`` calls, every launch held and counted exactly; the
+    encoder pass, the step, the cross-attentions and the LUT-GEMV at the
+    encoder's M timed; then cut to 2 + 2 layers, card against CPU."""
+    import dataclasses
+    import gc
+    import repro_torch.configs as C
+    from repro_torch.models import encdec
+    from repro_torch.models.sail_linear import (QuantPolicy,
+                                                flatten_with_paths,
+                                                quantize_params, _walk)
+    rec = res[WHISPER] = {}
+    cfg = C.get_config(WHISPER)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    raw = encdec.init_params(cfg, gen, device="cuda")
+    torch.cuda.synchronize()
+    rec["init_s"] = time.perf_counter() - t0
+    cut = dict(raw)
+    for name in ("enc_blocks", "dec_blocks"):
+        cut[name] = _walk(raw[name], lambda _, x: x[:2].clone())
+    cfg2 = dataclasses.replace(cfg, n_layers=2, n_enc_layers=2)
+    params, b0, b1 = quantize_params(raw, QuantPolicy(**WHISPER_POLICY))
+    del raw
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["compression"] = b0 / b1
+    dec_bytes = sum(4 * (w.packed.numel() + w.scales.numel())
+                    if hasattr(w, "packed") else 4 * w.numel()
+                    for _, w in flatten_with_paths(params["dec_blocks"]))
+    rec["decoder_weight_gb"] = dec_bytes / 1e9
+    frames = whisper_frames(torch, cfg, 8)
+    t0 = time.perf_counter()
+    gl, gt, _, rec["held"] = whisper_held(
+        torch, params, cfg, frames, WHISPER_STEPS, True, f"{WHISPER} held")
+    h = rec["held"]
+    if not torch.isfinite(gl).all() or tuple(gl.shape) != (
+            WHISPER_STEPS, 8, cfg.vocab):
+        fail(f"{WHISPER}: logits not finite or of shape {gl.shape}")
+    rec["tokens"] = gt.T.tolist()
+    log(f"[others] {WHISPER}: serve_prefill over 8 x {cfg.enc_seq} frames and"
+        f" {WHISPER_STEPS} greedy decode steps, every launch held in "
+        f"{time.perf_counter() - t0:.1f} s: exactly {h['lut_per_prefill']} "
+        f"LUT-GEMV per prefill (the encoder's at M {8 * cfg.enc_seq}, the "
+        f"cross K/V's), {h['lut_per_decode_step']} LUT-GEMV and "
+        f"{h['attention_per_decode_step']} attentions (ring + lengths mode) "
+        f"per step; max abs err {h['max_abs_err_lut']:.3e} LUT-GEMV, "
+        f"{h['max_abs_err_attention']:.3e} attention; tokens lane 0 "
+        f"{rec['tokens'][0][:8]}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = encdec.serve_prefill(params, frames, cfg, WHISPER_RING, True,
+                                 device="cuda")
+    torch.cuda.synchronize()
+    rec["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    encdec.encode(params, frames, cfg, device="cuda")
+    torch.cuda.synchronize()
+    rec["encoder_ms"] = (time.perf_counter() - t0) * 1e3
+    tok = torch.ones((8, 1), dtype=torch.int64, device="cuda")
+    for _ in range(4):
+        encdec.serve_decode_step(params, tok, cache, cfg, True, device="cuda")
+    one_step = lambda: encdec.serve_decode_step(params, tok, cache, cfg,
+                                                True, device="cuda")
+    rec["step_device_ms"] = timer(one_step)
+    rec["step_wall_ms"] = timer.call_ms(one_step, iters=10)
+    rec["cross_attention"] = x = cross_attention_step(torch, timer, cache,
+                                                      cfg)
+    rec["lut_m12000"] = lut_rows_m(torch, timer, params, 8 * cfg.enc_seq)
+    log(f"[others] {WHISPER} on {card_line()}: encoder pass (8 x "
+        f"{cfg.enc_seq} frames, 32 layers) {rec['encoder_ms']:.1f} ms eager, "
+        f"serve_prefill {rec['prefill_ms']:.1f} ms; one decode step (8 lanes)"
+        f" device {rec['step_device_ms']:.3f} ms as a graph, eager wall "
+        f"{rec['step_wall_ms']:.3f} ms; its {x['calls']} cross-attentions "
+        f"(S {cfg.enc_seq}, f32, {x['bytes'] / 1e9:.3f} GB) as one graph "
+        f"{x['graph_ms']:.4f} ms = "
+        f"{100 * x['graph_ms'] / rec['step_device_ms']:.1f}% of the step "
+        f"(bound {x['bound_ms']:.4f} ms by {x['bound_by']}, SDPA "
+        f"{x['sdpa_graph_ms']:.4f} ms); the decoder's weights "
+        f"{rec['decoder_weight_gb']:.3f} GB; LUT-GEMV at M {8 * cfg.enc_seq}: "
+        + ", ".join(f"{k} {r['ms']:.3f} ms (torch.matmul {r['library_ms']:.3f}"
+                    f", bound {r['bound_ms']:.3f} by {r['bound_by']})"
+                    for k, r in rec["lut_m12000"].items()))
+    del params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    params2, _, _ = quantize_params(cut, QuantPolicy(**WHISPER_POLICY))
+    del cut
+    frames2 = whisper_frames(torch, cfg2, 2, seed=5)
+    from repro_torch.models.sail_linear import map_tensors
+    cpu = map_tensors(params2, lambda t: t.cpu())
+    out = rec["card_vs_cpu"] = {}
+    for kv in ("int8", "f32"):
+        q = kv == "int8"
+        gl, gt, gx, r = whisper_held(torch, params2, cfg2, frames2, 4, q,
+                                     f"{WHISPER} 2 + 2 layers {kv} KV")
+        t0 = time.perf_counter()
+        with CardDequant(torch) as cd:
+            cl, ct, cx = whisper_cpu(torch, cpu, cfg2, frames2, 4, q)
+        per_pass = (gl - cl).abs().amax(dim=(1, 2)).tolist()
+        cross_err = max((a - b).abs().max().item() for a, b in zip(gx, cx))
+        r.update(logits_err_per_pass=per_pass, cross_kv_err=cross_err,
+                 tokens_equal=bool(torch.equal(gt, ct)),
+                 dequant_bit_equal=cd.checked,
+                 cpu_s=time.perf_counter() - t0)
+        out[f"{kv} KV"] = r
+        log(f"[others] {WHISPER} at 2 + 2 layers, {kv} KV: card vs CPU "
+            f"(2 x {cfg.enc_seq} frames, 4 decode steps): cross K/V max abs "
+            f"err {cross_err:.3e}, logits per step "
+            f"{', '.join(f'{e:.3e}' for e in per_pass)}; tokens equal "
+            f"{r['tokens_equal']}; CPU {r['cpu_s']:.1f} s")
+        held = gl if kv == "f32" else gl[:0]
+        if (not r["tokens_equal"] or cross_err > MODEL_ATOL
+                or not torch.allclose(held, cl[:len(held)], rtol=MODEL_RTOL,
+                                      atol=MODEL_ATOL)):
+            fail(f"{WHISPER} 2 + 2 layers, {kv} KV: card and CPU differ")
+    return rec
+
+
+def phase_others(rt):
+    import torch
+    timer = Timer(torch)
+    res = rt["others"] = {}
+    seconds = res["seconds"] = {}
+    subs = [(arch, lambda a=arch: recurrent_full(torch, timer, a, res))
+            for arch in ("hymba_1_5b", "xlstm_350m")]
+    subs += [(VISION, lambda: vision_full(torch, timer, res)),
+             (WHISPER, lambda: whisper_full(torch, timer, res)),
+             ("attention rows", lambda: other_attention_rows(torch, timer,
+                                                             res))]
+    for name, fn in subs:
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+        log(f"[others] {name}: {seconds[name]:.1f} s")
+
+
+def other_attention_rows(torch, timer, res):
+    """Decode attention at the new paths' shapes, each beside its plain
+    version, SDPA and its bound: hymba's ring call (B 8, KV 5, G 5, D 64,
+    S 512, int8, wrapped positions) and whisper's cross-attention call
+    (lengths mode, f32, B 8, KV 20, G 1, D 64, S 1500, every slot valid)."""
+    from repro_torch.kernels.decode_attn.kernel import decode_attention_cuda
+    from repro_torch.kernels.decode_attn.ref import decode_attention_ref
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    position = torch.tensor([3, 300, 511, 512, 700, 1023, 1500, 2047],
+                            dtype=torch.int32, device="cuda")
+    x = attn_inputs(torch, gen, 512, b=8, kvh=5, g=5, d=64)
+    rows = {"hymba ring G5 D64": attention_row(torch, timer, x, position,
+                                               decode_attention_cuda)}
+    b, s, kv, d = 8, 1500, 20, 64
+    q = torch.randn((b, kv, d), device="cuda", generator=gen)
+    k = torch.randn((b, s, kv, d), device="cuda", generator=gen)
+    v = torch.randn((b, s, kv, d), device="cuda", generator=gen)
+    lens = torch.full((b,), s, dtype=torch.int32, device="cuda")
+    out = decode_attention_cuda(q, k, v, lens, None, None, None, ring=False)
+    err = (out - decode_attention_ref(q, k, v, lens)).abs().max().item()
+    if err > ATTN_TOL:
+        fail(f"cross-attention row: max err {err:.3e} above {ATTN_TOL}")
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    bound, by = bound_ms(nbytes, 4 * b * s * kv * d)
+    row = timings(
+        timer,
+        lambda: decode_attention_cuda(q, k, v, lens, None, None, None,
+                                      ring=False),
+        lambda: decode_attention_ref(q, k, v, lens),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q[:, :, None], kt, vt))
+    row.update(s=s, valid_slots=b * s, bound_ms=bound, bound_by=by,
+               bound_share=bound / row["ms"], max_abs_err=err)
+    rows["whisper cross lengths f32 S1500"] = row
+    for name, r in rows.items():
+        log(f"[others] decode_attention {name}: {1e3 * r['ms']:.2f} us "
+            f"(plain {1e3 * r['plain_ms']:.2f}, SDPA "
+            f"{1e3 * r['library_ms']:.2f}, bound {1e3 * r['bound_ms']:.3f} "
+            f"us by {r['bound_by']})")
+    res["attention_rows"] = rows
+
+
+def others_fields(others: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in phase 12's runs, each held set's worst
+    error, and the new paths' step and attention timings."""
+    fam = {k: v for k, v in others.items()
+           if k not in ("seconds", "attention_rows")}
+    out = {"launches_others": {
+        f"{arch} {run}": rec[run]["launches"].get(name, 0)
+        for arch, rec in fam.items()
+        for run in ("ring", "paged", "ring 4a8", "held") if run in rec
+        and "launches" in rec[run]}}
+    if name in ("lut_matmul", "lut_matmul_int", "decode_attention"):
+        key = ("max_abs_err_attention" if name == "decode_attention"
+               else "max_abs_err_lut")
+        errs = held_errors(fam, key)
+        errs = {k: v for k, v in errs.items()
+                if ("4a8" in k) == (name == "lut_matmul_int")}
+        out["max_abs_err_others"] = errs
+        out["per_decode_step_others"] = {
+            arch: rec["held"]["attention_per_decode_step" if name ==
+                              "decode_attention" else "lut_per_decode_step"]
+            for arch, rec in fam.items()}
+    if name == "decode_attention":
+        out["rows_others"] = others["attention_rows"]
+        out["whisper_cross_attention_step"] = fam[WHISPER]["cross_attention"]
+    if name == "lut_matmul":
+        out["whisper_lut_m12000"] = fam[WHISPER]["lut_m12000"]
+    return out
+
+
 def held_errors(tree: dict, key: str, prefix: str = "") -> dict:
     """{path: value} of every ``key`` in a nested record (phase 11's held
     sets' worst errors)."""
@@ -3857,6 +4531,7 @@ def kernels_line(rt) -> dict:
                 for run, rec in r["runs"].items()
                 if rec["launches"].get(name)}
         entry.update(families_fields(rt["families"], name))
+        entry.update(others_fields(rt["others"], name))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -3889,7 +4564,7 @@ def main() -> int:
               ("paged", phase_paged), ("plans", phase_plans),
               ("planner", phase_planner), ("sampling", phase_sampling),
               ("speculation", phase_speculation), ("tp", phase_tp),
-              ("families", phase_families))
+              ("families", phase_families), ("others", phase_others))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--phases"] else None
     for name, fn in phases:
         if only is not None and name not in only:
@@ -3901,7 +4576,8 @@ def main() -> int:
         # a development run of some phases: no kernel line, no result
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "phases.json"), "w") as f:
-            json.dump({k: rt[k] for k in ("families", "planner", "build_s")
+            json.dump({k: rt[k] for k in ("families", "others", "planner",
+                                          "build_s")
                        if k in rt}, f, indent=1, default=str)
         log(f"phases {only} passed in {time.perf_counter() - t_all:.1f} s")
         return 0
@@ -3913,7 +4589,8 @@ def main() -> int:
                    "plans": rt["plans"], "planner": rt["planner"],
                    "sampling": rt["sampling"],
                    "speculation": rt["speculation"], "tp": rt["tp"],
-                   "families": rt["families"], "build_s": rt["build_s"],
+                   "families": rt["families"], "others": rt["others"],
+                   "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line))

@@ -2,9 +2,9 @@
 
 Each module defines ``full()`` (the exact published configuration) and
 ``smoke()`` (a reduced same-family config for CPU tests).  The port has
-the dense and MoE decoders, in the reference's order; the hybrid,
-recurrent, encoder-decoder and vision architectures wait for ROADMAP's
-other families.
+every architecture of the reference, in its order: the decoders serve
+through ``models.lm`` and the engine, whisper (``family="encdec"``)
+through ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -18,8 +18,12 @@ ARCHS: List[str] = [
     "llama3_2_1b",
     "h2o_danube_3_4b",
     "qwen3_0_6b",
+    "whisper_large_v3",
+    "phi_3_vision_4_2b",
+    "hymba_1_5b",
     "granite_moe_1b_a400m",
     "mixtral_8x7b",
+    "xlstm_350m",
     # the paper's own evaluation models
     "llama2_7b",
     "llama2_13b",
@@ -34,8 +38,7 @@ def canon(name: str) -> str:
 def _module(name: str):
     arch = canon(name)
     if arch not in ARCHS:
-        raise ValueError(f"arch {name!r} is not ported yet (have {ARCHS}); "
-                         "see ROADMAP, other families")
+        raise ValueError(f"unknown arch {name!r} (have {ARCHS})")
     return importlib.import_module(f"repro_torch.configs.{arch}")
 
 

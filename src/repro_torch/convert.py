@@ -2,8 +2,9 @@
 
 ``params_from_numpy`` takes the reference's tree after
 ``jax.tree_util.tree_map(np.asarray, tree)`` — nested dicts/lists of
-numpy arrays, raw f32 or quantized — and returns the port's tree of
-tensors on ``device``.  Quantized leaves are recognised by their fields
+numpy arrays, raw f32 or quantized, of any family (xlstm's ``subs``
+lists, hymba's SSM leaves, whisper's ``enc_blocks`` / ``dec_blocks``) —
+and returns the port's tree of tensors on ``device``.  Quantized leaves are recognised by their fields
 (``packed``, ``scales``, ``codebook``, ``bits``, ``group_size``, ``k``,
 ``abits``), so this module needs neither JAX nor the reference package.
 Packed uint32 words become int32 tensors with the same bit patterns.

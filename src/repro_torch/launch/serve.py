@@ -9,7 +9,11 @@ plan's ``kv=8|32``), continuous batching over ``--batch`` KV-pool slots
 (``--mode batch``: run-to-completion cohorts of ``--batch``;
 ``--prefill-budget``: new prompt tokens admitted per iteration).
 ``--device`` defaults to ``cuda`` and the run fails rather than fall back
-when CUDA is missing.
+when CUDA is missing.  ``--arch`` takes any decoder of
+``repro_torch.configs.ARCHS`` (hymba and xlstm serve on the ring pool;
+phi-3-vision's requests are text-only here); whisper, an encoder-decoder,
+is served through ``models.encdec`` and refused here, as the reference's
+launcher refuses it.
 
     # a plan: grammar string or a solved plan.json
     ... --plan 'rules:mlp=3,attn=5a8,default=4' --save-plan plan.json
@@ -106,10 +110,14 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    import repro_torch.configs as C
     from repro_torch.device import resolve_device
     from repro_torch.launch.mesh import run_ranks
     from repro_torch.planning import plan_from_arg
 
+    cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+    if cfg.family == "encdec":
+        raise SystemExit("use a decoder-only arch for the LM server")
     resolve_device(args.device)
     plan = plan_from_arg(args.plan) if args.plan is not None else None
     world = (plan.tp if plan is not None and isinstance(plan.tp, int)

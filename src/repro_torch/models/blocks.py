@@ -1,5 +1,10 @@
-"""Decoder block of the dense and MoE families (port of
-``repro.models.blocks``, ring and paged KV pools).
+"""Decoder blocks of every decoder family (port of ``repro.models.blocks``,
+ring and paged KV pools): dense and MoE, hymba's hybrid block (attention
+and the SSM branch in parallel, ``x + 0.5 * (attn + ssm)``) and xlstm's
+super-block of ``slstm_every`` recurrent sub-layers (mLSTMs, then one
+sLSTM).  Recurrent state lives in the decode cache beside the KV pool and
+is updated in place; the paged pool and speculative verify are for the
+attention families only, as in the reference.
 
 Layers are applied by a Python loop in ``lm``; parameters stay stacked
 along a leading layer axis like the reference trees, and one layer's
@@ -41,6 +46,8 @@ from repro_torch.kernels.decode_attn.ops import decode_attention_paged, \
     decode_attention_ring
 from repro_torch.kernels.decode_attn.ref import decode_attention_ring_ref
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import (apply_attention, apply_mlp, apply_norm,
                                        apply_rope, attention_init, mlp_init,
@@ -49,23 +56,40 @@ from repro_torch.models.sail_linear import mm
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves the dense and MoE decoders: RoPE, RMSNorm or
+    """The decoders this module serves: dense and MoE (RoPE, RMSNorm or
     LayerNorm, SwiGLU / GeGLU / GELU, with or without qk-norm, attention
-    biases and a tied head.  The hybrid, recurrent and encoder-decoder
-    families, other positions and the frontends are still to port."""
-    if cfg.family not in ("dense", "moe") or cfg.pos != "rope" \
-            or cfg.frontend is not None:
+    biases and a tied head, and a vision prefix), hymba's hybrid blocks
+    and xlstm's recurrent ones (no positions).  Whisper's encoder-decoder
+    goes through ``models.encdec``; the reference's learned positions are
+    on no config and not ported."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: family='encdec' is served by models/encdec.py "
+            "(serve_prefill, serve_decode_step), not by the decoder stack")
+    pos_ok = cfg.pos == ("none" if cfg.family == "ssm" else "rope")
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm") or not pos_ok \
+            or cfg.frontend not in (None, "vision"):
         raise NotImplementedError(
             f"{cfg.name}: family={cfg.family!r}, pos={cfg.pos!r}, "
-            f"frontend={cfg.frontend!r}: only the dense and MoE decoders with "
-            "RoPE and no frontend are ported (ROADMAP, other families)")
+            f"frontend={cfg.frontend!r}: not a decoder the port serves")
 
 
-def block_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
+def block_init(generator: torch.Generator, cfg: ModelConfig, n_blocks: int,
                device=None) -> Dict[str, Any]:
-    """All layers' params, stacked on a leading [n_layers] axis."""
+    """All blocks' params, stacked on a leading [n_blocks] axis (xlstm: a
+    block is a super-block whose ``subs`` list holds its sub-layers)."""
     check_supported(cfg)
-    lead = (n_layers,)
+    lead = (n_blocks,)
+    if cfg.family == "ssm":
+        subs = []
+        for i in range(cfg.slstm_every):
+            kind, init = (("slstm", xlstm_lib.slstm_init)
+                          if i == cfg.slstm_every - 1
+                          else ("mlstm", xlstm_lib.mlstm_init))
+            subs.append({"norm": norm_init(cfg, lead=lead, device=device),
+                         kind: init(generator, cfg, lead=lead,
+                                    device=device)})
+        return {"subs": subs}
     p = {"attn_norm": norm_init(cfg, lead=lead, device=device),
          "attn": attention_init(generator, cfg, lead=lead, device=device),
          "mlp_norm": norm_init(cfg, lead=lead, device=device)}
@@ -73,7 +97,42 @@ def block_init(generator: torch.Generator, cfg: ModelConfig, n_layers: int,
         p["moe"] = moe_lib.moe_init(generator, cfg, lead=lead, device=device)
     else:
         p["mlp"] = mlp_init(generator, cfg, lead=lead, device=device)
+    if cfg.family == "hybrid":
+        p["ssm_norm"] = norm_init(cfg, lead=lead, device=device)
+        p["ssm"] = ssm_lib.ssm_init(generator, cfg, lead=lead, device=device)
     return p
+
+
+def _recurrent_subs(p, x: torch.Tensor, cfg: ModelConfig,
+                    states: Optional[Dict[str, Any]] = None,
+                    collect: bool = False):
+    """xlstm's super-block: each sub-layer ``x + cell(norm(x))`` in turn.
+    ``states`` (decode: this block's cache entries, ``mlstm_<i>`` /
+    ``slstm_<i>``) start the recurrences; with ``collect`` or ``states``
+    the final states are returned by the same names."""
+    in_dtype = x.dtype
+    out = {}
+    for i, sub in enumerate(p["subs"]):
+        kind = "slstm" if "slstm" in sub else "mlstm"
+        apply = (xlstm_lib.apply_slstm if kind == "slstm"
+                 else xlstm_lib.apply_mlstm)
+        h = apply_norm(sub["norm"], x, cfg)
+        name = f"{kind}_{i}"
+        if collect or states is not None:
+            y, out[name] = apply(sub[kind], h, cfg,
+                                 state=None if states is None
+                                 else states[name], return_state=True)
+        else:
+            y = apply(sub[kind], h, cfg)
+        x = (x + y).to(in_dtype)
+    return x, out
+
+
+def _store_state(dst, src) -> None:
+    """Write a recurrent state (a NamedTuple of tensors) into the cache's
+    views in place."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
 
 
 def _ffn(p, h: torch.Tensor, cfg: ModelConfig, moe_mode: str = "dense",
@@ -87,14 +146,29 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, moe_mode: str = "dense",
 def block_apply_seq(p, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, moe_mode: str = "dispatch",
                     collect_cache: bool = False):
-    """Full-sequence block.  Returns (x, aux loss, cache_entries)."""
+    """Full-sequence block.  Returns (x, aux loss, cache_entries): the
+    K/V under ``"kv"``, hymba's SSM state under ``"ssm"``, xlstm's states
+    by sub-layer."""
+    if cfg.family == "ssm":
+        x, cache = _recurrent_subs(p, x, cfg, collect=collect_cache)
+        return x, 0.0, cache
     in_dtype = x.dtype
     cache = {}
     h = apply_norm(p["attn_norm"], x, cfg)
-    attn_out = apply_attention(p["attn"], h, cfg, positions=positions)
+    attn_out = apply_attention(p["attn"], h, cfg, positions=positions,
+                               window=cfg.window)
     if collect_cache:
         cache["kv"] = _kv_from_seq(p["attn"], h, cfg, positions)
-    x = (x + attn_out).to(in_dtype)
+    if cfg.family == "hybrid":
+        hs = apply_norm(p["ssm_norm"], x, cfg)
+        if collect_cache:
+            ssm_out, cache["ssm"] = ssm_lib.apply_ssm(p["ssm"], hs, cfg,
+                                                      return_state=True)
+        else:
+            ssm_out = ssm_lib.apply_ssm(p["ssm"], hs, cfg)
+        x = (x + 0.5 * (attn_out + ssm_out)).to(in_dtype)
+    else:
+        x = (x + attn_out).to(in_dtype)
     h = apply_norm(p["mlp_norm"], x, cfg)
     y, aux = _ffn(p, h, cfg, moe_mode)
     return (x + y).to(in_dtype), aux, cache
@@ -109,7 +183,9 @@ def _kv_from_seq(attn_p, h: torch.Tensor, cfg: ModelConfig,
     v = mm(h, attn_p["wv"]).reshape(b, t, cfg.n_kv, cfg.head_dim)
     if cfg.qk_norm:
         k = qk_norm(k, attn_p["k_norm"]["scale"], cfg.norm_eps)
-    return {"k": apply_rope(k, positions, cfg), "v": v}
+    if cfg.pos == "rope":
+        k = apply_rope(k, positions, cfg)
+    return {"k": k, "v": v}
 
 
 def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
@@ -131,15 +207,55 @@ def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
     ring validity rule (a paged lane never wraps, so slot j is valid iff
     ``max(0, p + 1 - w) <= j <= p``).  ``write_at`` goes with it:
     ``paged_slot(block_tables, position, BS)``, the same for every layer
-    of a step, so the decode step computes it once."""
+    of a step, so the decode step computes it once.
+
+    Recurrent state (hymba's ``"ssm"``, xlstm's sub-layers') is read from
+    ``layer_cache`` and its update written back in place, on every lane:
+    a retired lane's state advances too, and a new request's prefill
+    replaces it, as in the reference."""
     in_dtype = x.dtype
     b = x.shape[0]
+    if cfg.family == "ssm":
+        x, states = _recurrent_subs(p, x, cfg, states=layer_cache)
+        for name, st in states.items():
+            _store_state(layer_cache[name], st)
+        return x
     h = apply_norm(p["attn_norm"], x, cfg)
     q = mm(h, p["attn"]["wq"]).reshape(b, 1, cfg.n_heads, cfg.head_dim)
     k = mm(h, p["attn"]["wk"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
     v = mm(h, p["attn"]["wv"]).reshape(b, 1, cfg.n_kv, cfg.head_dim)
     q, k = qk_rope(p["attn"], q, k, position[:, None], cfg)
 
+    window = cfg.window if cfg.window is not None else cache_len
+    attn = write_and_attend(layer_cache, q, k, v, position, cache_len,
+                            window, quant_kv, block_tables, write_at)
+    attn_out = tp_all_reduce(mm(attn.reshape(b, 1, cfg.q_dim),
+                                p["attn"]["wo"], k_sharded=True))
+    if cfg.family == "hybrid":
+        hs = apply_norm(p["ssm_norm"], x, cfg)
+        ssm_out, st = ssm_lib.apply_ssm(p["ssm"], hs, cfg,
+                                        state=layer_cache["ssm"],
+                                        return_state=True)
+        _store_state(layer_cache["ssm"], st)
+        x = (x + 0.5 * (attn_out + ssm_out)).to(in_dtype)
+    else:
+        x = (x + attn_out).to(in_dtype)
+    h = apply_norm(p["mlp_norm"], x, cfg)
+    return (x + _ffn(p, h, cfg)[0]).to(in_dtype)
+
+
+def write_and_attend(layer_cache: Dict[str, torch.Tensor], q: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor, position: torch.Tensor,
+                     cache_len: int, window: int, quant_kv: bool = False,
+                     block_tables: Optional[torch.Tensor] = None,
+                     write_at: Optional[Tuple[torch.Tensor,
+                                             torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """A decode step's self-attention over one layer's cache: the token's
+    K/V [B, 1, KV, Dh] (int8 codes and scales when ``quant_kv``) written in
+    place at ``position % cache_len`` of the ring, or through the block
+    tables at ``write_at``, then q [B, 1, H, Dh] attends over the ring (or
+    the lane's blocks) through the decode-attention kernel: [B, H, Dh]."""
     if block_tables is None:
         slot = torch.remainder(position, cache_len)
         write = lambda cache, val: _ring_write(cache, val, slot)
@@ -158,22 +274,13 @@ def block_apply_decode(p, x: torch.Tensor, cfg: ModelConfig,
         write(layer_cache["k"], k)
         write(layer_cache["v"], v)
         scales = (None, None)
-
-    window = cfg.window if cfg.window is not None else cache_len
-    qh = q.reshape(b, cfg.n_heads, cfg.head_dim).contiguous()
+    qh = q[:, 0].contiguous()
+    pos = position.to(torch.int32)
     if block_tables is None:
-        attn = decode_attention_ring(qh, layer_cache["k"], layer_cache["v"],
-                                     position.to(torch.int32), window,
-                                     *scales)
-    else:
-        attn = decode_attention_paged(qh, layer_cache["k"], layer_cache["v"],
-                                      position.to(torch.int32), block_tables,
-                                      window, *scales)
-    attn_out = tp_all_reduce(mm(attn.reshape(b, 1, cfg.q_dim),
-                                p["attn"]["wo"], k_sharded=True))
-    x = (x + attn_out).to(in_dtype)
-    h = apply_norm(p["mlp_norm"], x, cfg)
-    return (x + _ffn(p, h, cfg)[0]).to(in_dtype)
+        return decode_attention_ring(qh, layer_cache["k"], layer_cache["v"],
+                                     pos, window, *scales)
+    return decode_attention_paged(qh, layer_cache["k"], layer_cache["v"],
+                                  pos, block_tables, window, *scales)
 
 
 def _ring_write(cache: torch.Tensor, val: torch.Tensor,
@@ -252,7 +359,13 @@ def block_apply_verify(p, x: torch.Tensor, cfg: ModelConfig,
     ``submit`` reserves the lookahead), so the later tokens of the chunk
     are invalid there.  Returns x.
 
-    ``block_tables``: paged mode, as in :func:`block_apply_decode`."""
+    ``block_tables``: paged mode, as in :func:`block_apply_decode`.
+    Attention families only: recurrent state cannot be rolled back to an
+    accepted frontier (the engine refuses speculation for them)."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"speculative verify requires a pure-attention family, "
+            f"got {cfg.family!r}")
     in_dtype = x.dtype
     b, t, _ = x.shape
     norm = lambda name, v: per_token(

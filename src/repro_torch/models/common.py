@@ -1,7 +1,7 @@
 """Model configuration (a copy of ``repro.models.common``).
 
-One dataclass parameterizes every family the reference serves; the port
-so far runs the dense family.  ``src/repro_torch/configs/<arch>.py``
+One dataclass parameterizes every family the reference serves, and the
+port serves them all.  ``src/repro_torch/configs/<arch>.py``
 instantiates the exact published dimensions plus a ``smoke()``
 reduction for CPU tests.
 """

@@ -1,10 +1,11 @@
-"""Core transformer layers (port of ``repro.models.layers``, what the
-dense and MoE decoders take: RMSNorm and LayerNorm, RoPE, GQA prefill
-attention with optional qk-norm and biases, SwiGLU, GeGLU and GELU MLPs).
-Parameters are plain dicts of tensors mirroring the reference trees;
-weight matmuls go through ``sail_linear.mm``.  Prefill attention is plain
-PyTorch (einsum and a masked softmax), as the reference's is plain jnp.
-GELU is the tanh approximation, ``jax.nn.gelu``'s default."""
+"""Core transformer layers (port of ``repro.models.layers``): RMSNorm and
+LayerNorm, RoPE and sinusoidal positions, GQA full-sequence attention
+(causal or bidirectional, self or cross, with optional qk-norm and
+biases), SwiGLU, GeGLU and GELU MLPs.  Parameters are plain dicts of
+tensors mirroring the reference trees; weight matmuls go through
+``sail_linear.mm``.  Full-sequence attention is plain PyTorch (einsum and
+a masked softmax), as the reference's is plain jnp.  GELU is the tanh
+approximation, ``jax.nn.gelu``'s default."""
 from __future__ import annotations
 
 import math
@@ -80,11 +81,40 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 def qk_rope(attn_p, q: torch.Tensor, k: torch.Tensor,
             positions: torch.Tensor, cfg: ModelConfig):
-    """qk-norm (where the config has it), then RoPE, of q and k."""
+    """qk-norm (where the config has it), then RoPE (where the config's
+    positions are rotary), of q and k."""
     if cfg.qk_norm:
         q = qk_norm(q, attn_p["q_norm"]["scale"], cfg.norm_eps)
         k = qk_norm(k, attn_p["k_norm"]["scale"], cfg.norm_eps)
+    if cfg.pos != "rope":
+        return q, k
     return apply_rope(q, positions, cfg), apply_rope(k, positions, cfg)
+
+
+def sinusoidal_angles(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """[P, d/2] f32 angles ``pos / 10000 ** (dim / d)`` of positions
+    ``pos`` [P] (the reference's expression, ``layers.py:75-82``).  The
+    power is taken in f64 and rounded, which is the reference's f32 power
+    bit for bit; the division is f32's."""
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=pos.device)
+    denom = (10000.0 ** (dim / d).to(torch.float64)).to(torch.float32)
+    return pos.to(torch.float32)[:, None] / denom[None, :]
+
+
+def sinusoidal_rows(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """Rows ``pos`` [P] of the sinusoidal table: [P, d], sin at even and
+    cos at odd columns.  Sine and cosine are taken in f64 and rounded, so
+    each entry is the correctly rounded f32 value (the reference's f32
+    sin / cos on the CPU part from it by one ulp on ~1% of entries); a row
+    is the table's row bit for bit on one device."""
+    ang = sinusoidal_angles(pos, d).to(torch.float64)
+    pe = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return pe.reshape(pos.shape[0], d).to(torch.float32)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """[seq, d] sinusoidal position table (reference ``layers.py:75``)."""
+    return sinusoidal_rows(torch.arange(seq, device=device), d)
 
 
 def attention_init(generator, cfg: ModelConfig, lead=(), device=None):
@@ -107,9 +137,11 @@ def attention_init(generator, cfg: ModelConfig, lead=(), device=None):
     return p
 
 
-def flash_attention(q, k, v, *, window: Optional[int]) -> torch.Tensor:
-    """Causal masked-softmax attention in plain PyTorch, one pass over all
-    keys (prefill: query t sits at position t).
+def flash_attention(q, k, v, *, window: Optional[int],
+                    causal: bool = True) -> torch.Tensor:
+    """Masked-softmax attention in plain PyTorch, one pass over all keys
+    (query t sits at position t; ``causal=False``: every key is valid but
+    for the window, as in the encoder and in cross-attention).
 
     q [B, T, H, Dh]; k, v [B, S, KV, Dh]; GQA by head grouping.  Computes
     what the reference's chunked online softmax computes:
@@ -122,7 +154,8 @@ def flash_attention(q, k, v, *, window: Optional[int]) -> torch.Tensor:
                           k.to(torch.float32)) * (1.0 / math.sqrt(dh))
     q_pos = torch.arange(t, device=q.device)[:, None]
     kv_pos = torch.arange(s, device=q.device)[None, :]
-    valid = kv_pos <= q_pos
+    valid = (kv_pos <= q_pos if causal
+             else torch.ones((t, s), dtype=torch.bool, device=q.device))
     if window is not None:
         valid &= kv_pos > q_pos - window
     valid = valid[None, :, None, None, :]
@@ -136,19 +169,28 @@ def flash_attention(q, k, v, *, window: Optional[int]) -> torch.Tensor:
 
 
 def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor) -> torch.Tensor:
-    """Full-sequence (prefill) causal self-attention.  Only this path adds
+                    positions: torch.Tensor, causal: bool = True,
+                    kv_x: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Full-sequence (prefill) attention: self-attention, or cross-attention
+    to ``kv_x`` [B, S, D] (never causal, no RoPE).  Only this path adds
     the attention biases: the decode and verify steps and the prefill
     cache's K/V leave them out, as the reference's do."""
     b, t, _ = x.shape
-    q, k, v = mm(x, p["wq"]), mm(x, p["wk"]), mm(x, p["wv"])
+    src = kv_x if kv_x is not None else x
+    q, k, v = mm(x, p["wq"]), mm(src, p["wk"]), mm(src, p["wv"])
     if cfg.attention_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, t, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, t, cfg.n_kv, cfg.head_dim)
-    v = v.reshape(b, t, cfg.n_kv, cfg.head_dim)
-    q, k = qk_rope(p, q, k, positions, cfg)
-    out = flash_attention(q, k, v, window=cfg.window)
+    k = k.reshape(b, src.shape[1], cfg.n_kv, cfg.head_dim)
+    v = v.reshape(b, src.shape[1], cfg.n_kv, cfg.head_dim)
+    if kv_x is None:
+        q, k = qk_rope(p, q, k, positions, cfg)
+    elif cfg.qk_norm:
+        q = qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
+        k = qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
+    out = flash_attention(q, k, v, window=window,
+                          causal=causal and kv_x is None)
     out = tp_all_reduce(mm(out.reshape(b, t, cfg.q_dim), p["wo"],
                            k_sharded=True))
     return out + p["bo"] if cfg.attention_bias else out

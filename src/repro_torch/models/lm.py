@@ -2,6 +2,14 @@
 and paged KV pools): init, the full-sequence forward, prefill, decode, and
 speculative decoding's k-step draft and multi-token verify.
 
+Every decoder family: dense, MoE, hymba's hybrid blocks (a KV pool plus
+per-lane SSM state) and xlstm's recurrent super-blocks (state only; the
+cache has no KV, ``n_scan_blocks`` super-blocks of ``slstm_every``
+layers).  Recurrent state sits in the cache as the reference's NamedTuples
+of stacked ``[L, B, ...]`` tensors.  Phi-3-vision's prefix embeddings (the
+stubbed CLIP patches) go ahead of the prompt's token embeddings in
+``prefill`` / ``forward`` (``prefix_embeds``).
+
 A tied head (``cfg.tie_embeddings``) has no ``lm_head``: the logits are
 ``x @ embed.T``, a plain product as in the reference (the embedding is
 never quantized).  MoE layers run ``moe_mode="dense"`` in prefill, decode
@@ -31,9 +39,19 @@ from repro_torch.core import prng
 from repro_torch.core.quant import quantize_kv
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
 from repro_torch.models.sail_linear import mm
+
+
+def n_scan_blocks(cfg: ModelConfig) -> int:
+    """Blocks of the stack: xlstm's super-blocks, else one per layer."""
+    if cfg.family == "ssm":
+        assert cfg.n_layers % cfg.slstm_every == 0
+        return cfg.n_layers // cfg.slstm_every
+    return cfg.n_layers
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -47,7 +65,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "embed": dense_init(generator, (cfg.vocab, cfg.d_model),
                             fan_in=cfg.vocab, device=dev)
         * cfg.d_model ** 0.5,
-        "blocks": blk.block_init(generator, cfg, cfg.n_layers, device=dev),
+        "blocks": blk.block_init(generator, cfg, n_scan_blocks(cfg),
+                                 device=dev),
         "final_norm": norm_init(cfg, device=dev),
     }
     if not cfg.tie_embeddings:
@@ -61,6 +80,8 @@ def layer_params(blocks: Dict[str, Any], i: int):
     leaves)."""
     if isinstance(blocks, dict):
         return {k: layer_params(v, i) for k, v in blocks.items()}
+    if isinstance(blocks, list):
+        return [layer_params(v, i) for v in blocks]
     return blocks[i]
 
 
@@ -73,8 +94,11 @@ def block_segments(params) -> List[Dict[str, Any]]:
 
 
 def _segment_len(segment) -> int:
-    """Number of layers in one stacked segment tree."""
-    return segment["attn_norm"]["scale"].shape[0]
+    """Number of blocks in one stacked segment tree (its first norm's
+    leading size; an xlstm super-block's norms are its sub-layers')."""
+    norm = (segment["subs"][0]["norm"] if "subs" in segment
+            else segment["attn_norm"])
+    return norm["scale"].shape[0]
 
 
 def iter_layers(params) -> Iterator[Tuple[int, Dict[str, Any]]]:
@@ -93,9 +117,16 @@ def n_layers(params) -> int:
     return sum(_segment_len(seg) for seg in block_segments(params))
 
 
-def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig):
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 prefix_embeds: Optional[torch.Tensor] = None):
+    """Token embeddings [B, T, D], after ``prefix_embeds`` [B, P, D] when
+    given (the vision frontend's patches): [B, P + T, D]."""
     blk.check_supported(cfg)
-    return params["embed"][tokens]
+    x = params["embed"][tokens]
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(device=x.device, dtype=x.dtype), x],
+                      dim=1)
+    return x
 
 
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
@@ -106,13 +137,13 @@ def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params, tokens, cfg: ModelConfig, device="cuda",
-            moe_mode: str = "dispatch"):
-    """tokens [B, T] -> (logits [B, T, V], aux): the full-sequence causal
-    forward with no cache (the Planner's probes run it); ``aux`` is the
-    MoE layers' summed load-balancing loss (0 for a dense model)."""
+            moe_mode: str = "dispatch", prefix_embeds=None):
+    """tokens [B, T] -> (logits [B, (P +) T, V], aux): the full-sequence
+    causal forward with no cache (the Planner's probes run it); ``aux`` is
+    the MoE layers' summed load-balancing loss (0 for a dense model)."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
-    x = embed_tokens(params, tokens, cfg)
+    x = embed_tokens(params, tokens, cfg, prefix_embeds)
     b, t, _ = x.shape
     positions = torch.arange(t, device=dev).expand(b, t)
     aux = 0.0
@@ -134,9 +165,42 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
                quant_kv: bool = False, device="cuda") -> Dict[str, Any]:
     """The stacked per-layer decode cache: the engine's fixed slot pool
     ``[L, batch, cache_len, KV, Dh]`` (int8 codes + f32 scales when
-    ``quant_kv``), plus per-lane ``length``."""
-    return _kv_pool((cfg.n_layers, batch, cache_len, cfg.n_kv, cfg.head_dim),
-                    batch, quant_kv, resolve_device(device))
+    ``quant_kv``), plus per-lane ``length``.  Hymba's adds its SSM state
+    (``"ssm"``: conv window and h, ``[L, batch, ...]``); xlstm's holds only
+    its super-blocks' states (``"mlstm_<i>"`` / ``"slstm_<i>"``, ``m`` at
+    -inf), and no KV."""
+    dev = resolve_device(device)
+    nb = n_scan_blocks(cfg)
+    if cfg.family == "ssm":
+        layers = {}
+        for i in range(cfg.slstm_every):
+            if i == cfg.slstm_every - 1:
+                layers[f"slstm_{i}"] = xlstm_lib.init_slstm_state(
+                    cfg, batch, lead=(nb,), device=dev)
+            else:
+                layers[f"mlstm_{i}"] = xlstm_lib.init_mlstm_state(
+                    cfg, batch, lead=(nb,), device=dev)
+        return {"length": torch.zeros((batch,), dtype=torch.int32,
+                                      device=dev), "layers": layers}
+    cache = _kv_pool((nb, batch, cache_len, cfg.n_kv, cfg.head_dim),
+                     batch, quant_kv, dev)
+    if cfg.family == "hybrid":
+        cache["layers"]["ssm"] = ssm_lib.init_ssm_state(cfg, batch,
+                                                        lead=(nb,), device=dev)
+    return cache
+
+
+def _map_layers(fn, layers: Dict[str, Any], *others) -> Dict[str, Any]:
+    """``fn`` over every tensor of a cache's ``layers`` (a recurrent state's
+    fields one by one), with the matching entries of ``others``."""
+    out = {}
+    for name, a in layers.items():
+        if isinstance(a, tuple):
+            out[name] = type(a)(*(fn(*f) for f in
+                                  zip(a, *(o[name] for o in others))))
+        else:
+            out[name] = fn(a, *(o[name] for o in others))
+    return out
 
 
 def _kv_pool(kv_shape, batch: int, quant_kv: bool,
@@ -161,38 +225,54 @@ def init_paged_cache(cfg: ModelConfig, batch: int, num_blocks: int,
     every request, plus per-lane ``length`` [batch].  Which block holds
     which request's tokens is decided per step by ``decode_step``'s
     ``block_tables``; callers reserve the last physical block as the trash
-    block that retired lanes and masked writes point at."""
+    block that retired lanes and masked writes point at.  Attention
+    families only: recurrent state is O(1) per lane and gains nothing from
+    paging."""
+    if cfg.family in ("ssm", "hybrid"):
+        raise ValueError(
+            f"paged KV cache requires an attention family, got {cfg.family!r}")
     return _kv_pool((cfg.n_layers, num_blocks, block_size, cfg.n_kv,
                      cfg.head_dim), batch, quant_kv, resolve_device(device))
 
 
 def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
             quant_kv: bool = False, lengths=None, device="cuda",
-            moe_mode: str = "dense"):
-    """Process right-padded prompts [B, T]; build their decode cache and
-    return the logits at each prompt's last token ([B, V], cache)."""
+            moe_mode: str = "dense", prefix_embeds=None):
+    """Process right-padded prompts [B, T], after ``prefix_embeds`` [B, P,
+    D] when given; build their decode cache (K/V and recurrent state) and
+    return the logits at each prompt's last token ([B, V], cache).  The
+    cache's ``length`` counts the prefix: ``lengths + P``."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
     lengths = (torch.full((b,), t, dtype=torch.int32, device=dev)
                if lengths is None
                else torch.as_tensor(lengths, dtype=torch.int32, device=dev))
-    x = embed_tokens(params, tokens, cfg)
-    positions = torch.arange(t, device=dev).expand(b, t)
-    ks, vs = [], []
+    x = embed_tokens(params, tokens, cfg, prefix_embeds)
+    tt = x.shape[1]
+    positions = torch.arange(tt, device=dev).expand(b, tt)
+    parts = []
     for _, p_l in iter_layers(params):
         x, _, cache = blk.block_apply_seq(p_l, x, cfg, positions,
                                           moe_mode=moe_mode,
                                           collect_cache=True)
-        ks.append(cache["kv"]["k"])
-        vs.append(cache["kv"]["v"])
+        parts.append(cache)
     x = apply_norm(params["final_norm"], x, cfg)
-    last = x[torch.arange(b, device=dev), (lengths - 1).long()][:, None]
-    logits = lm_logits(params, last, cfg)[:, 0]
+    last = x[torch.arange(b, device=dev), (lengths - 1 + (tt - t)).long()]
+    logits = lm_logits(params, last[:, None], cfg)[:, 0]
+    length = lengths + (tt - t)
+
+    # the recurrent states, stacked over the layers
+    layers = {name: type(st)(*(torch.stack(f) for f in
+                               zip(*(c[name] for c in parts))))
+              for name, st in parts[0].items() if name != "kv"}
+    if cfg.family == "ssm":
+        return logits, {"length": length, "layers": layers}
 
     # assemble the ring cache from the collected per-layer K/V
-    k_new, v_new = torch.stack(ks), torch.stack(vs)    # [L, B, T, KV, Dh]
-    pad = cache_len - t
+    k_new = torch.stack([c["kv"]["k"] for c in parts])  # [L, B, T, KV, Dh]
+    v_new = torch.stack([c["kv"]["v"] for c in parts])
+    pad = cache_len - tt
     if pad >= 0:
         padkv = lambda a: torch.nn.functional.pad(a, (0, 0, 0, 0, 0, pad))
         k_new, v_new = padkv(k_new), padkv(v_new)
@@ -204,32 +284,37 @@ def prefill(params, tokens, cfg: ModelConfig, cache_len: int,
     if quant_kv:
         kq, ksc = quantize_kv(k_new)
         vq, vsc = quantize_kv(v_new)
-        layers = {"k": kq, "v": vq, "k_scale": ksc, "v_scale": vsc}
+        layers.update(k=kq, v=vq, k_scale=ksc, v_scale=vsc)
     else:
-        layers = {"k": k_new.contiguous(), "v": v_new.contiguous()}
-    return logits, {"length": lengths, "layers": layers}
+        layers.update(k=k_new.contiguous(), v=v_new.contiguous())
+    return logits, {"length": length, "layers": layers}
 
 
 def _scatter_slots(pool: Dict[str, Any], fresh: Dict[str, Any],
                    slots: torch.Tensor) -> Dict[str, Any]:
     """Write a freshly prefilled batch-b cache into pool rows ``slots``,
-    in place; untouched slots keep their contents bit for bit."""
-    for name, dst in pool["layers"].items():
-        dst[:, slots] = fresh["layers"][name].to(dst.dtype)
+    in place (recurrent states field by field); untouched slots keep their
+    contents bit for bit."""
+    def put(dst, src):
+        dst[:, slots] = src.to(dst.dtype)
+    _map_layers(put, pool["layers"], fresh["layers"])
     pool["length"][slots] = fresh["length"]
     return pool
 
 
 def prefill_into_slot(params, tokens, cache, slot, cfg: ModelConfig,
-                      quant_kv: bool = False, lengths=None, device="cuda"):
-    """Prefill request(s) and write their KV into rows ``slot`` (int or
-    [b]) of the engine's pool.  Returns (last-token logits [b, V], pool)."""
+                      quant_kv: bool = False, lengths=None, device="cuda",
+                      prefix_embeds=None):
+    """Prefill request(s) and write their KV and recurrent state into rows
+    ``slot`` (int or [b]) of the engine's pool.  Returns (last-token logits
+    [b, V], pool)."""
     dev = resolve_device(device)
     slots = torch.atleast_1d(torch.as_tensor(slot, dtype=torch.int64,
                                              device=dev))
-    cache_len = cache["layers"]["k"].shape[2]
+    cache_len = 0 if cfg.family == "ssm" else cache["layers"]["k"].shape[2]
     logits, fresh = prefill(params, tokens, cfg, cache_len=cache_len,
-                            quant_kv=quant_kv, lengths=lengths, device=dev)
+                            quant_kv=quant_kv, lengths=lengths, device=dev,
+                            prefix_embeds=prefix_embeds)
     return logits, _scatter_slots(cache, fresh, slots)
 
 
@@ -306,7 +391,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
     tokens = _tokens(tokens, dev)
     position = cache["length"]
     x = embed_tokens(params, tokens, cfg)
-    cache_len = cache["layers"]["k"].shape[2]
+    cache_len = 0 if cfg.family == "ssm" else cache["layers"]["k"].shape[2]
     write_at = None
     if block_tables is not None:
         # shape[2] of a [L, NB, BS, KV, Dh] pool is the block size
@@ -316,7 +401,7 @@ def decode_step(params, tokens, cache, cfg: ModelConfig,
     for i, p_l in iter_layers(params):
         if capture_layer_inputs:
             captured.append(x)
-        layer_cache = {name: a[i] for name, a in cache["layers"].items()}
+        layer_cache = _map_layers(lambda a: a[i], cache["layers"])
         x = blk.block_apply_decode(p_l, x, cfg,
                                    layer_cache, position, cache_len,
                                    quant_kv=quant_kv,

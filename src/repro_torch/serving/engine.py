@@ -300,6 +300,13 @@ class Engine:
         if self.paged and ecfg.mode != "continuous":
             raise ValueError("paged KV (kv_block_size) requires "
                              "mode='continuous'")
+        if self.paged and cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                f"paged KV is attention-only; family={cfg.family!r} "
+                "keeps recurrent state, not a block pool")
+        draft = self.plan.draft if self.plan is not None else None
+        if draft is not None:
+            self._check_speculative(draft)
         # the continuous engine's pool; batch mode prefills each cohort
         # into a cache of its own
         if ecfg.mode == "continuous":
@@ -310,9 +317,7 @@ class Engine:
                 self.cache = lm.init_cache(self._mcfg, ecfg.batch_size,
                                            self._clen, self._quant_kv,
                                            device=self.device)
-        draft = self.plan.draft if self.plan is not None else None
         if draft is not None:
-            self._check_speculative(draft)
             # the draft tree requantizes the SAME raw tree aggressively and
             # stays resident beside the served one
             self.spec_decoder = SpeculativeDecoder(params, cfg, draft,
@@ -821,7 +826,11 @@ class Engine:
 
     # --- internals ----------------------------------------------------------
     def _padded_len(self, req: Request) -> int:
-        bucket = max(1, self.ecfg.prompt_bucket)
+        # recurrent families fold every input token into their state, so
+        # they prefill at exact length; attention families bucket (causal
+        # masking and the ring's validity ignore the padding)
+        bucket = (1 if self.cfg.family in ("ssm", "hybrid")
+                  else max(1, self.ecfg.prompt_bucket))
         plen = req.prompt_len
         return max(min(-(-plen // bucket) * bucket,
                        max(self._clen, plen)), plen)

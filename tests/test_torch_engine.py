@@ -93,7 +93,8 @@ def test_engine_streams_and_retires_slots(smoke):
 
 def test_plan_grammar_and_unported_options(smoke):
     """What the planning slice ported serves (uniform, rules and per-path
-    policies); what waits for later slices raises, naming ROADMAP."""
+    policies); the decoder stack refuses the encoder-decoder family, naming
+    the module that serves it."""
     _, tcfg, _, carried = smoke
     for spec, bits in (("uniform:4", (4, None)), ("uniform:3a6", (3, 6)),
                        ("rules:mlp=4,default=3a8", (3, 8))):
@@ -127,9 +128,9 @@ def test_plan_grammar_and_unported_options(smoke):
     with pytest.raises(ValueError, match="needs a process group of 2 ranks"):
         TEngine(carried, tcfg, TEngineConfig(plan="uniform:4,tp=2"),
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="encdec.py"):
         tlm.prefill(carried, [[1, 2]],
-                    dataclasses.replace(tcfg, family="hybrid"), 8,
+                    dataclasses.replace(tcfg, family="encdec"), 8,
                     device="cpu")
 
 

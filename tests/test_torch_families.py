@@ -6,8 +6,8 @@ and LayerNorm biases).  Per config: prefill and 4 decode steps at the reference'
 (2e-4), ``uniform:4`` logits, and the engine's greedy tokens on the ring
 and the paged pool equal to the reference engine's.  Unit by unit: tanh
 GELU, LayerNorm, qk-norm; the attention-bias quirk (the decode step and
-the prefill cache leave the biases out); which configs the port admits;
-``tp_supported`` for every ported config."""
+the prefill cache leave the biases out); every config of the reference
+ported and admitted; ``tp_supported`` for every config."""
 import dataclasses
 
 import jax
@@ -177,26 +177,28 @@ def test_attention_biases_only_in_full_sequence_attention(models):
 
 
 def test_ported_configs_and_refusals():
-    """Every ported arch's configs are the reference's; the port admits the
-    dense and MoE decoders and refuses the hybrid, recurrent,
-    encoder-decoder and vision ones, and unported archs by name."""
+    """Every arch of the reference is ported, in its order, with the
+    reference's full and smoke configs; the decoder stack admits every
+    decoder (dense, MoE, hybrid, recurrent, the vision prefix) and sends
+    whisper's encoder-decoder to models/encdec.py; an unknown arch is
+    refused by name."""
+    assert TC.ARCHS == JC.ARCHS and len(TC.ARCHS) == 13
     for arch in TC.ARCHS:
         assert (dataclasses.asdict(TC.get_config(arch))
                 == dataclasses.asdict(JC.get_config(arch)))
         assert (dataclasses.asdict(TC.get_smoke(arch))
                 == dataclasses.asdict(JC.get_smoke(arch)))
-        tblk.check_supported(TC.get_config(arch))
-    assert TC.ARCHS == [a for a in JC.ARCHS if a in TC.ARCHS]
-    assert len(TC.ARCHS) == 9
-    for arch in ("whisper_large_v3", "phi_3_vision_4_2b", "hymba_1_5b",
-                 "xlstm_350m"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            TC.get_config(arch)
-        with pytest.raises(ValueError, match="ROADMAP"):
-            TC.get_smoke(arch)
-        cfg = TModelConfig(**dataclasses.asdict(JC.get_config(arch)))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tblk.check_supported(cfg)
+        for cfg in (TC.get_config(arch), TC.get_smoke(arch)):
+            if cfg.family == "encdec":
+                with pytest.raises(NotImplementedError, match="encdec.py"):
+                    tblk.check_supported(cfg)
+            else:
+                tblk.check_supported(cfg)
+    with pytest.raises(ValueError, match="unknown arch"):
+        TC.get_config("whisper_tiny")
+    cfg = TModelConfig(**dataclasses.asdict(JC.get_config("llama3_2_1b")))
+    with pytest.raises(NotImplementedError, match="not a decoder"):
+        tblk.check_supported(dataclasses.replace(cfg, pos="learned"))
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])
