@@ -186,6 +186,21 @@ Phases (each passes or the script exits nonzero):
      int8 KV the prefill (whisper: the cross K/V) and the tokens.  Decode
      attention at hymba's shape and at whisper's cross-attention (f32,
      lengths mode, S 1500) beside its plain version, SDPA and its bound.
+ 13. train — (a) tinymistral_248m at full width and depth (248M parameters,
+     f32, remat) trains 20 steps of B 8 x T 512 on SyntheticLM through
+     build_train_step and TrainLoop: every loss finite and the mean of the
+     last 5 below the first 5's; the median step's eager wall time and
+     device span (CUDA events), tokens/s, the step's f32 operations
+     against the 67 TFLOP/s peak, max_memory_allocated.  (b) 2 layers of
+     the same width, B 2 x T 128, 3 steps from the same weights on the card
+     and on the CPU: losses and grad norms within 1e-5 relative, step 1's
+     gradients within 1e-4 of each leaf's max.  (c) 2 layers: 4 steps with
+     checkpoints every 2, then a new loop restores and runs to step 8; its
+     losses against one uninterrupted 8-step run's within 1e-6 relative.
+     (d) the tree trained in (a) served by the engine under uniform:4 (ring,
+     int8 KV, 8 requests of 16 new tokens), every launch held and counted
+     exactly per decode step and prefill pass; its 2-layer cut card against
+     CPU as in phase 11.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -4383,6 +4398,306 @@ def other_attention_rows(torch, timer, res):
     res["attention_rows"] = rows
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "tinymistral_248m"
+TRAIN_B, TRAIN_T, TRAIN_STEPS = 8, 512, 20     # (a): full width and depth
+CUT_B, CUT_T, CUT_LAYERS = 2, 128, 2           # (b), (c): 2 layers
+# (b): the card against the CPU over 3 steps; (c): a resumed run against
+# an uninterrupted one (the card's embedding backward accumulates by
+# atomics, so the two need not be bit-equal)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4        # step 1's gradients, of each leaf's max
+RESUME_RTOL = 1e-6
+
+
+class TimedStep:
+    """A train step timed between two CUDA events on the stream (its
+    device span, idle gaps included) and by the host's clock."""
+
+    def __init__(self, torch, fn):
+        self.torch, self.fn, self.ms, self.wall_ms = torch, fn, [], []
+
+    def __call__(self, params, opt_state, batch):
+        torch = self.torch
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = self.fn(params, opt_state, batch)
+        end.record()
+        end.synchronize()
+        self.wall_ms.append((time.perf_counter() - t0) * 1e3)
+        self.ms.append(start.elapsed_time(end))
+        return out
+
+
+def train_flops(cfg, b, t) -> dict:
+    """f32 operations of one train step under remat: 6 x (the layers'
+    matmul parameters + the head) x tokens, the layers' forward again
+    (remat), and attention over the valid (causal, windowed) key
+    positions: QK and PV, forward, backward (twice) and the recompute."""
+    d, f = cfg.d_model, cfg.d_ff
+    layer = (2 * d * cfg.q_dim + 2 * d * cfg.kv_dim
+             + (3 if cfg.act in ("swiglu", "geglu") else 2) * d * f)
+    head = d * cfg.vocab
+    tokens = b * t
+    w = cfg.window or t
+    pairs = sum(min(i + 1, w) for i in range(t))
+    attn = 4 * b * pairs * cfg.q_dim * cfg.n_layers     # one forward
+    matmul = 6 * (layer * cfg.n_layers + head) * tokens
+    remat = 2 * layer * cfg.n_layers * tokens
+    return dict(matmul=matmul, remat=remat, attention=4 * attn,
+                total=matmul + remat + 4 * attn)
+
+
+def train_data(cfg, b, t):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=t,
+                                  global_batch=b))
+
+
+def train_loop(torch, cfg, params, b, t, steps, ckpt=None, every=10 ** 9,
+               timed=False):
+    """A ``TrainLoop`` over ``build_train_step`` on ``params``' device
+    (log every step); returns the loop and its (timed) step."""
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.training.loop import TrainLoop, TrainLoopConfig
+    dev = params["embed"].device
+    built = build_train_step(cfg, device=dev)
+    step = TimedStep(torch, built.fn) if timed else built.fn
+    loop = TrainLoop(step, params, built.meta["optimizer"].init(params),
+                     train_data(cfg, b, t),
+                     TrainLoopConfig(total_steps=steps, log_every=1,
+                                     checkpoint_every=every,
+                                     checkpoint_dir=ckpt))
+    return loop, step
+
+
+def train_full(torch, res):
+    """(a): full width and depth, 20 steps of B 8 x T 512."""
+    from repro_torch.tree import tree_leaves
+    cfg, params = family_model(torch, TRAIN_ARCH)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop, step = train_loop(torch, cfg, params, TRAIN_B, TRAIN_T,
+                            TRAIN_STEPS, timed=True)
+    t0 = time.perf_counter()
+    result = loop.run()
+    seconds = time.perf_counter() - t0
+    losses = [r["loss"] for r in result["log"]]
+    gnorms = [r["grad_norm"] for r in result["log"]]
+    if (result["final_step"] != TRAIN_STEPS or len(losses) != TRAIN_STEPS
+            or not all(math.isfinite(x) for x in losses)):
+        fail(f"train: {result['final_step']} steps, losses {losses}")
+    first, last = (statistics.mean(losses[:5]),
+                   statistics.mean(losses[-5:]))
+    if not last < first:
+        fail(f"train: the loss did not fall: first 5 {first:.4f}, last 5 "
+             f"{last:.4f} ({losses})")
+    flops = train_flops(cfg, TRAIN_B, TRAIN_T)
+    dev_ms = statistics.median(step.ms[1:])
+    wall_ms = statistics.median(step.wall_ms[1:])
+    bound_s = flops["total"] / F32_OPS_PER_S
+    rec = dict(arch=TRAIN_ARCH, layers=cfg.n_layers, params=n_params,
+               batch=TRAIN_B, seq=TRAIN_T, steps=TRAIN_STEPS,
+               losses=losses, grad_norms=gnorms, first5=first, last5=last,
+               step_device_ms=step.ms, step_wall_ms=step.wall_ms,
+               median_step_device_ms=dev_ms, median_step_wall_ms=wall_ms,
+               first_step_wall_ms=step.wall_ms[0],
+               tok_per_s=TRAIN_B * TRAIN_T / (wall_ms / 1e3),
+               flops=flops, bound_ms=bound_s * 1e3,
+               share_of_f32_peak=bound_s * 1e3 / dev_ms,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, seconds=seconds)
+    res["full"] = rec
+    log(f"[train] (a) {TRAIN_ARCH} full width and depth ({cfg.n_layers} "
+        f"layers, {n_params / 1e6:.1f}M params, f32, remat): "
+        f"{TRAIN_STEPS} steps of B {TRAIN_B} x T {TRAIN_T} in "
+        f"{seconds:.1f} s; loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(mean of first 5 {first:.4f}, last 5 {last:.4f}); median step "
+        f"{wall_ms:.1f} ms eager wall, {dev_ms:.1f} ms device (CUDA events;"
+        f" first step {step.wall_ms[0]:.1f} ms); "
+        f"{rec['tok_per_s']:.0f} tok/s; {flops['total'] / 1e12:.3f} TFLOP "
+        f"per step (matmul {flops['matmul'] / 1e12:.3f}, remat "
+        f"{flops['remat'] / 1e12:.3f}, attention "
+        f"{flops['attention'] / 1e12:.3f}): bound {rec['bound_ms']:.1f} ms "
+        f"at 67 TFLOP/s = {100 * rec['share_of_f32_peak']:.1f}% of f32 "
+        f"peak; max memory allocated "
+        f"{rec['max_memory_allocated_gb']:.2f} GB")
+    return cfg, loop.params
+
+
+def train_card_vs_cpu(torch, res):
+    """(b): 2 layers of the full width, 3 steps of B 2 x T 128 from the
+    same weights on the card and on the CPU."""
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, params = family_model(torch, TRAIN_ARCH, layers=CUT_LAYERS)
+    raw = params_to_numpy(params)
+    batch = {k: torch.from_numpy(v) for k, v in
+             train_data(cfg, CUT_B, CUT_T).next_batch().items()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        p = params_from_numpy(raw, device=dev)
+        fp = tree_map(lambda x: x.detach().requires_grad_(), p)
+        loss, _ = lm.loss_fn(fp, batch, cfg, device=dev)
+        grads = [g.cpu() for g in torch.autograd.grad(loss,
+                                                      tree_leaves(fp))]
+        loop, _ = train_loop(torch, cfg, p, CUT_B, CUT_T, 3)
+        loop.run()
+        out[dev] = (grads, loop.metrics_log,
+                    [x.cpu() for x in tree_leaves(loop.params)])
+    (gc, lc, pc), (gp, lp, pp) = out["cuda"], out["cpu"]
+    grad_err = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(gc, gp))
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(lc, lp))
+    gnorm_err = max(abs(a["grad_norm"] - b["grad_norm"]) / abs(
+        b["grad_norm"]) for a, b in zip(lc, lp))
+    param_err = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    rec = dict(layers=CUT_LAYERS, batch=CUT_B, seq=CUT_T, steps=3,
+               card_losses=[r["loss"] for r in lc],
+               cpu_losses=[r["loss"] for r in lp],
+               loss_rel_err=loss_err, grad_norm_rel_err=gnorm_err,
+               step1_grad_err_of_leaf_max=grad_err,
+               max_param_abs_diff_after_3=param_err)
+    res["card_vs_cpu"] = rec
+    log(f"[train] (b) {CUT_LAYERS} layers, B {CUT_B} x T {CUT_T}, 3 "
+        f"steps, card vs CPU: losses {rec['card_losses']} / "
+        f"{rec['cpu_losses']} (worst {loss_err:.2e} relative, tolerance "
+        f"{TRAIN_LOSS_RTOL}); grad norm worst {gnorm_err:.2e} relative; "
+        f"step 1's gradients worst {grad_err:.2e} of a leaf's max "
+        f"(tolerance {TRAIN_GRAD_TOL}); largest parameter difference "
+        f"after 3 steps {param_err:.3e}")
+    if (loss_err > TRAIN_LOSS_RTOL or gnorm_err > TRAIN_LOSS_RTOL
+            or grad_err > TRAIN_GRAD_TOL):
+        fail("train: the card and the CPU differ beyond the tolerances")
+
+
+def train_resume(torch, res):
+    """(c): 4 steps with checkpoints every 2, then a new loop restores and
+    runs to step 8, against one uninterrupted 8-step run."""
+    ckpt = os.path.join(OUT_DIR, "train_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        cfg, params = family_model(torch, TRAIN_ARCH, layers=CUT_LAYERS)
+        whole, _ = train_loop(torch, cfg, params, CUT_B, CUT_T, 8)
+        want = [r["loss"] for r in whole.run()["log"]]
+        t0 = time.perf_counter()
+        a, _ = train_loop(torch, cfg, params, CUT_B, CUT_T, 4, ckpt=ckpt,
+                          every=2)
+        a.run()
+        _, fresh = family_model(torch, TRAIN_ARCH, layers=CUT_LAYERS)
+        b, _ = train_loop(torch, cfg, fresh, CUT_B, CUT_T, 8, ckpt=ckpt)
+        restored = b.maybe_restore()
+        at = b.step
+        got = [r["loss"] for r in b.run()["log"]]
+        seconds = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    err = max(abs(x - y) / abs(y) for x, y in zip(got, want[4:]))
+    rec = dict(restored=restored, restored_step=at, resumed_losses=got,
+               uninterrupted_losses=want[4:], rel_err=err,
+               bit_equal=got == want[4:], seconds=seconds)
+    res["resume"] = rec
+    log(f"[train] (c) resume on the card: restored at step {at}; steps 5-8 "
+        f"{got} against uninterrupted {want[4:]} (worst {err:.2e} "
+        f"relative, tolerance {RESUME_RTOL}; bit-equal "
+        f"{rec['bit_equal']}); checkpoint runs {seconds:.1f} s")
+    if not restored or at != 4 or len(got) != 4 or err > RESUME_RTOL:
+        fail("train: the resumed run differs from the uninterrupted one")
+
+
+def train_serve(torch, cfg, trained, res):
+    """(d): the tree trained in (a) quantized ``uniform:4`` and served by the
+    engine (ring, int8 KV): 8 requests of 16 new tokens, every launch held
+    and counted exactly; its 2-layer cut card against CPU."""
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, EngineConfig
+    eng = Engine(trained, cfg, EngineConfig(
+        batch_size=8, cache_len=512, quant_kv=True, plan="uniform:4",
+        group_size=128), device="cuda")
+    with Held(torch, "train serve") as held, \
+            HeldAttn(torch, "train serve") as held_attn:
+        got, counts, dt = serve_counted(torch, eng,
+                                        engine_requests(cfg)[:8], 16)
+    st = eng.stats()
+    dec, pre = lut_calls(eng.params)
+    steps, passes = st["decode_iterations"], st["prefill_iterations"]
+    want = dict(lut_matmul=dec * steps + pre * passes,
+                decode_attention=cfg.n_layers * steps)
+    if (len(got) != 8 or any(len(t) != 16 for t in got.values())
+            or any(not 0 <= x < cfg.vocab for t in got.values() for x in t)
+            or any(counts[k] != v for k, v in want.items())
+            or counts["lut_matmul_int"] or counts["decode_attention_table"]):
+        fail(f"train serve: {len(got)} completions, launches {counts}, want "
+             f"{want} ({dec} LUT-GEMV and {cfg.n_layers} attentions per "
+             f"decode step, {pre} LUT-GEMV per prefill pass)")
+    rec = dict(requests=8, max_new=16, seconds=dt, decode_steps=steps,
+               prefill_passes=passes, lut_per_decode_step=dec,
+               lut_per_prefill=pre, attention_per_decode_step=cfg.n_layers,
+               launches=counts, held_lut=sum(held.calls.values()),
+               max_abs_err_lut=held.err["f32"],
+               held_attention=held_attn.calls,
+               max_abs_err_attention=held_attn.err,
+               decode_tok_per_s=st["measured_tps"],
+               first_tokens={u: t[:8] for u, t in sorted(got.items())})
+    log(f"[train] (d) trained tree, uniform:4, ring, int8 KV: 8 requests x "
+        f"16 tokens in {dt:.2f} s ({steps} decode steps, {passes} prefill "
+        f"passes); launches {counts}, exactly {dec} LUT-GEMV and "
+        f"{cfg.n_layers} attentions per decode step and {pre} LUT-GEMV per "
+        f"prefill pass; every launch held ({rec['held_lut']} LUT-GEMV, max "
+        f"abs err {held.err['f32']:.3e}; {held_attn.calls} attentions, "
+        f"{held_attn.err:.3e}); first tokens "
+        f"{[t[:4] for t in rec['first_tokens'].values()]}")
+    cut, cfg2 = cut_layers(trained, cfg, CUT_LAYERS)
+    rec["cut"] = card_vs_cpu(torch, lm, quantize_params_card(cut)[0], cfg2,
+                             f"trained {TRAIN_ARCH} cut to {CUT_LAYERS}")
+    res["serve"] = rec
+
+
+def phase_train(rt):
+    import torch
+    res = rt["train"] = {}
+    seconds = res["seconds"] = {}
+    t0 = time.perf_counter()
+    cfg, trained = train_full(torch, res)
+    seconds["full"] = time.perf_counter() - t0
+    for name, fn in (("card_vs_cpu", lambda: train_card_vs_cpu(torch, res)),
+                     ("resume", lambda: train_resume(torch, res)),
+                     ("serve", lambda: train_serve(torch, cfg, trained,
+                                                   res))):
+        t0 = time.perf_counter()
+        fn()
+        seconds[name] = time.perf_counter() - t0
+    log(f"[train] seconds {seconds}")
+
+
+def train_fields(train: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in phase 13's serving of the trained tree
+    and its held sets' worst errors (training itself launches none)."""
+    serve = train["serve"]
+    out = {"launches_train": {
+        "serve": serve["launches"][name],
+        **{f"cut {kv}": rec["launches"].get(name, 0)
+           for kv, rec in serve["cut"].items()}}}
+    if name == "lut_matmul":
+        out["max_abs_err_train"] = max(
+            [serve["max_abs_err_lut"]] + [r["max_abs_err_lut"]
+                                          for r in serve["cut"].values()])
+    if name == "decode_attention":
+        out["max_abs_err_train"] = max(
+            [serve["max_abs_err_attention"]]
+            + [r["max_abs_err_attention"] for r in serve["cut"].values()])
+    return out
+
+
 def others_fields(others: dict, name: str) -> dict:
     """Kernel ``name``'s launches in phase 12's runs, each held set's worst
     error, and the new paths' step and attention timings."""
@@ -4532,6 +4847,7 @@ def kernels_line(rt) -> dict:
                 if rec["launches"].get(name)}
         entry.update(families_fields(rt["families"], name))
         entry.update(others_fields(rt["others"], name))
+        entry.update(train_fields(rt["train"], name))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -4564,7 +4880,8 @@ def main() -> int:
               ("paged", phase_paged), ("plans", phase_plans),
               ("planner", phase_planner), ("sampling", phase_sampling),
               ("speculation", phase_speculation), ("tp", phase_tp),
-              ("families", phase_families), ("others", phase_others))
+              ("families", phase_families), ("others", phase_others),
+              ("train", phase_train))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--phases"] else None
     for name, fn in phases:
         if only is not None and name not in only:
@@ -4577,7 +4894,7 @@ def main() -> int:
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "phases.json"), "w") as f:
             json.dump({k: rt[k] for k in ("families", "others", "planner",
-                                          "build_s")
+                                          "train", "build_s")
                        if k in rt}, f, indent=1, default=str)
         log(f"phases {only} passed in {time.perf_counter() - t_all:.1f} s")
         return 0
@@ -4590,7 +4907,7 @@ def main() -> int:
                    "sampling": rt["sampling"],
                    "speculation": rt["speculation"], "tp": rt["tp"],
                    "families": rt["families"], "others": rt["others"],
-                   "build_s": rt["build_s"],
+                   "train": rt["train"], "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line))

@@ -8,6 +8,8 @@ and returns the port's tree of tensors on ``device``.  Quantized leaves are reco
 (``packed``, ``scales``, ``codebook``, ``bits``, ``group_size``, ``k``,
 ``abits``), so this module needs neither JAX nor the reference package.
 Packed uint32 words become int32 tensors with the same bit patterns.
+``params_to_numpy`` carries a raw tree (tensors only, as training leaves
+it) back: numpy leaves, the same layout.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.core.quant import QTensor
 from repro_torch.device import resolve_device
 from repro_torch.models.sail_linear import StackedQTensor
+from repro_torch.tree import tree_map
 
 _QFIELDS = ("packed", "scales", "codebook", "bits", "group_size", "k",
             "abits")
@@ -48,3 +51,9 @@ def params_from_numpy(tree, device="cuda"):
         return _tensor(x, dev)
 
     return conv(tree)
+
+
+def params_to_numpy(tree):
+    """Port tree of tensors (raw, unquantized) -> the same layout with
+    numpy leaves on the host."""
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)

@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -110,3 +112,13 @@ class ModelConfig:
         e_all = self.n_experts * 3 * d * self.expert_ffn
         e_act = self.top_k * 3 * d * self.expert_ffn
         return self.param_count() - self.n_layers * (e_all - e_act)
+
+
+def promote(*ts: torch.Tensor):
+    """The tensors in their common dtype, as the reference's products
+    promote mixed operands (training's bf16 weights against f32
+    activations); a tensor already of that dtype is returned as it is."""
+    dtype = ts[0].dtype
+    for t in ts[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return tuple(t.to(dtype) for t in ts)

@@ -19,7 +19,9 @@ mode over the f32 cross K/V with every one of the ``enc_seq`` slots valid
 (the reference's einsum softmax, ``encdec.py:199-207``).  The decode
 position's sinusoidal row is computed alone, equal to the table's row.
 
-The training loss waits for the training slice.  Entry points take
+Training: ``loss_fn``, whisper's teacher-forced loss through
+``lm.chunked_nll`` with the tied head; each encoder and decoder layer runs
+under ``remat`` when ``cfg.remat``.  Entry points take
 ``device=`` (default ``"cuda"``) and raise when CUDA is missing.
 """
 from __future__ import annotations
@@ -32,12 +34,14 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.decode_attn.ops import decode_attention
 from repro_torch.models.blocks import write_and_attend
-from repro_torch.models.common import ModelConfig
-from repro_torch.models.lm import _kv_pool, _tokens, layer_params
+from repro_torch.models.common import ModelConfig, promote
+from repro_torch.models.lm import _kv_pool, _tokens, chunked_nll, \
+    layer_params
 from repro_torch.models.layers import (apply_attention, apply_mlp, apply_norm,
                                        attention_init, dense_init, mlp_init,
                                        norm_init, sinusoidal_positions,
                                        sinusoidal_rows)
+from repro_torch.models.remat import remat
 from repro_torch.models.sail_linear import mm
 
 
@@ -88,12 +92,16 @@ def encode(params, frames, cfg: ModelConfig, device="cuda") -> torch.Tensor:
     b, s, _ = x.shape
     x = x + sinusoidal_positions(s, cfg.d_model, device=dev)[None]
     positions = torch.arange(s, device=dev).expand(b, s)
-    for p_l in _layers(params["enc_blocks"]):
+
+    def body(p_l, x):
         h = apply_norm(p_l["attn_norm"], x, cfg)
         x = x + apply_attention(p_l["attn"], h, cfg, positions=positions,
                                 causal=False)
         h = apply_norm(p_l["mlp_norm"], x, cfg)
-        x = x + apply_mlp(p_l["mlp"], h, cfg)
+        return x + apply_mlp(p_l["mlp"], h, cfg)
+
+    for p_l in _layers(params["enc_blocks"]):
+        x = remat(body, p_l, x, on=cfg.remat)
     return apply_norm(params["enc_norm"], x, cfg)
 
 
@@ -112,15 +120,17 @@ def _cross_kv(p_l, memory: torch.Tensor, cfg: ModelConfig):
 
 
 def decode_forward(params, tokens, memory: torch.Tensor, cfg: ModelConfig,
-                   device="cuda") -> torch.Tensor:
-    """Teacher-forced decoder pass: tokens [B, T] -> logits [B, T, V]."""
+                   device="cuda", return_hidden: bool = False) -> torch.Tensor:
+    """Teacher-forced decoder pass: tokens [B, T] -> logits [B, T, V], or
+    the final hidden states [B, T, D] with ``return_hidden``."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
     x = params["embed"][tokens]
     x = x + sinusoidal_positions(t, cfg.d_model, device=dev)[None]
     positions = torch.arange(t, device=dev).expand(b, t)
-    for p_l in _layers(params["dec_blocks"]):
+
+    def body(p_l, x, memory):
         h = apply_norm(p_l["self_norm"], x, cfg)
         x = x + apply_attention(p_l["self_attn"], h, cfg,
                                 positions=positions, causal=True)
@@ -128,9 +138,30 @@ def decode_forward(params, tokens, memory: torch.Tensor, cfg: ModelConfig,
         x = x + apply_attention(p_l["cross_attn"], h, cfg,
                                 positions=positions, kv_x=memory)
         h = apply_norm(p_l["mlp_norm"], x, cfg)
-        x = x + apply_mlp(p_l["mlp"], h, cfg)
+        return x + apply_mlp(p_l["mlp"], h, cfg)
+
+    for p_l in _layers(params["dec_blocks"]):
+        x = remat(body, p_l, x, memory, on=cfg.remat)
     x = apply_norm(params["dec_norm"], x, cfg)
-    return x @ params["embed"].T
+    if return_hidden:
+        return x
+    x, embed = promote(x, params["embed"])
+    return x @ embed.T
+
+
+def loss_fn(params, batch, cfg: ModelConfig, device="cuda"):
+    """Teacher-forced cross entropy.  batch: ``frames`` [B, S, D] and
+    ``tokens`` [B, T + 1]; the head is tied to the embedding.  Returns
+    (nll, {"nll"})."""
+    dev = resolve_device(device)
+    tokens = _tokens(batch["tokens"], dev)
+    x = decode_forward(params, tokens[:, :-1],
+                       encode(params, batch["frames"], cfg, device=dev), cfg,
+                       device=dev, return_hidden=True)
+    targets = tokens[:, 1:]
+    mask = torch.ones(targets.shape, device=dev)
+    nll = chunked_nll(x, params["embed"], targets, mask, transpose_head=True)
+    return nll, {"nll": nll}
 
 
 def init_dec_cache(cfg: ModelConfig, batch: int, cache_len: int,

@@ -1,6 +1,7 @@
-"""Causal language model serving path (port of ``repro.models.lm``, ring
-and paged KV pools): init, the full-sequence forward, prefill, decode, and
-speculative decoding's k-step draft and multi-token verify.
+"""Causal language model (port of ``repro.models.lm``, ring and paged KV
+pools): init, the full-sequence forward, the training loss
+(``loss_fn``, ``chunked_nll``), prefill, decode, and speculative
+decoding's k-step draft and multi-token verify.
 
 Every decoder family: dense, MoE, hymba's hybrid blocks (a KV pool plus
 per-lane SSM state) and xlstm's recurrent super-blocks (state only; the
@@ -16,7 +17,9 @@ never quantized).  MoE layers run ``moe_mode="dense"`` in prefill, decode
 and verify, and the forward's ``moe_mode`` (``"dispatch"`` by default,
 whose aux loss it returns).
 
-A Python loop over layers replaces the reference's ``lax.scan``; the
+A Python loop over layers replaces the reference's ``lax.scan``; in
+training each layer runs under ``remat`` when ``cfg.remat`` (the scan
+body's ``jax.checkpoint``), and so does each chunk of ``chunked_nll``.  The
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
 on a leading layer axis, quantized leaves as ``StackedQTensor``).  A
 mixed-precision tree carries ``blocks`` as a list of stacked segments
@@ -41,8 +44,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, promote
 from repro_torch.models.layers import apply_norm, dense_init, norm_init
+from repro_torch.models.remat import remat
 from repro_torch.models.sail_linear import mm
 
 
@@ -132,7 +136,8 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
 def lm_logits(params, x: torch.Tensor, cfg: ModelConfig,
               plan_rows: Optional[int] = None) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return x @ params["embed"].T
+        x, embed = promote(x, params["embed"])
+        return x @ embed.T
     return mm(x, params["lm_head"], plan_rows)
 
 
@@ -144,15 +149,103 @@ def forward(params, tokens, cfg: ModelConfig, device="cuda",
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     x = embed_tokens(params, tokens, cfg, prefix_embeds)
-    b, t, _ = x.shape
-    positions = torch.arange(t, device=dev).expand(b, t)
-    aux = 0.0
-    for _, p_l in iter_layers(params):
-        x, a, _ = blk.block_apply_seq(p_l, x, cfg, positions,
-                                      moe_mode=moe_mode)
-        aux = aux + a
+    x, aux = _stack_seq(params, x, cfg, moe_mode)
     x = apply_norm(params["final_norm"], x, cfg)
     return lm_logits(params, x, cfg), aux
+
+
+def _stack_seq(params, x: torch.Tensor, cfg: ModelConfig, moe_mode: str):
+    """Every block over the full sequence x [B, T, D] -> (x, summed aux
+    loss); each block under ``remat`` when ``cfg.remat``."""
+    b, t, _ = x.shape
+    positions = torch.arange(t, device=x.device).expand(b, t)
+
+    def body(p_l, x):
+        y, a, _ = blk.block_apply_seq(p_l, x, cfg, positions,
+                                      moe_mode=moe_mode)
+        return y, a
+
+    aux = 0.0
+    for _, p_l in iter_layers(params):
+        x, a = remat(body, p_l, x, on=cfg.remat)
+        aux = aux + a
+    return x, aux
+
+
+def chunked_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+                mask: torch.Tensor, chunk: int = 1024,
+                transpose_head: bool = False) -> torch.Tensor:
+    """Mean cross entropy without the full [B, T, V] logits: per T-chunk
+    (sum nll, count), each chunk under ``remat`` so the backward pass
+    recomputes its logits.  One dense pass when T <= chunk or chunk does
+    not divide T."""
+    b, t, d = x.shape
+    if t % chunk or t <= chunk:
+        return _nll_dense(x, head, targets, mask, transpose_head)
+    s = torch.zeros((), device=x.device)
+    c = torch.zeros((), device=x.device)
+    for i in range(0, t, chunk):
+        si, ci = remat(
+            lambda xi, hd, ti, mi: _nll_dense(xi, hd, ti, mi, transpose_head,
+                                              reduce_mean=False),
+            x[:, i:i + chunk], head, targets[:, i:i + chunk],
+            mask[:, i:i + chunk])
+        s, c = s + si, c + ci
+    return s / torch.clamp(c, min=1.0)
+
+
+def _nll_dense(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
+               mask: torch.Tensor, transpose_head: bool,
+               reduce_mean: bool = True):
+    if transpose_head:
+        x, head = promote(x, head)
+    logits = (x @ head.T if transpose_head else mm(x, head)).to(
+        torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    s = torch.sum((logz - gold) * mask)
+    c = torch.sum(mask)
+    if reduce_mean:
+        return s / torch.clamp(c, min=1.0)
+    return s, c
+
+
+def _batch_tensor(a, device, dtype=None) -> torch.Tensor:
+    """A batch entry (tensor or numpy array) on ``device``, as ``dtype``
+    when given."""
+    if not isinstance(a, torch.Tensor):
+        a = torch.from_numpy(np.asarray(a))
+    return a.to(device=device, dtype=dtype)
+
+
+def loss_fn(params, batch, cfg: ModelConfig, moe_mode: str = "dispatch",
+            aux_weight: float = 0.01, device="cuda"):
+    """Next-token cross entropy plus ``aux_weight`` times the MoE layers'
+    load-balancing loss.  batch: ``tokens`` [B, T + 1], optionally
+    ``prefix_embeds`` [B, P, D] (whose rows the loss drops) and ``mask``
+    [B, T].  Returns (loss, {"nll", "aux"})."""
+    dev = resolve_device(device)
+    tokens = _tokens(batch["tokens"], dev)
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    prefix = batch.get("prefix_embeds")
+    if prefix is not None:
+        prefix = _batch_tensor(prefix, dev)
+    x = embed_tokens(params, inputs, cfg, prefix)
+    x, aux = _stack_seq(params, x, cfg, moe_mode)
+    x = apply_norm(params["final_norm"], x, cfg)
+    npfx = x.shape[1] - targets.shape[1]
+    if npfx:
+        x = x[:, npfx:]
+    mask = batch.get("mask")
+    mask = (torch.ones(targets.shape, device=dev) if mask is None
+            else _batch_tensor(mask, dev, torch.float32))
+    if cfg.tie_embeddings:
+        nll = chunked_nll(x, params["embed"], targets, mask,
+                          transpose_head=True)
+    else:
+        nll = chunked_nll(x, params["lm_head"], targets, mask)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=dev)
+    return nll + aux_weight * aux, {"nll": nll, "aux": aux}
 
 
 def _tokens(tokens, device) -> torch.Tensor:

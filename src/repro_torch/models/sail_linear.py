@@ -40,6 +40,7 @@ from repro_torch.core.quant import (SUPPORTED_ABITS, SUPPORTED_BITS, QTensor,
                                     _uniform_codebook, dequantize,
                                     nf_codebook, quantize,
                                     quantize_activations)
+from repro_torch.models.common import promote
 
 __all__ = ["ActQuantWeight", "BitAllocation", "QTensor", "QuantPolicy",
            "StackedQTensor", "act_fake_quant", "dequantize_any", "einsum_q",
@@ -90,7 +91,9 @@ def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None,
     """x [..., K] @ w [K, N] with QTensor dispatch (``plan_rows`` and
     ``k_sharded``: see ``kernels.lut_gemv.ops.lut_matmul``).  Only a
     ``QTensor`` (one matrix) takes the LUT-GEMV: a layer's expert stack is
-    a ``StackedQTensor`` and goes through :func:`einsum_q`."""
+    a ``StackedQTensor`` and goes through :func:`einsum_q`.  A plain
+    product of two dtypes runs in the wider one, as the reference's ``x @
+    w`` promotes (training's bf16 weights against f32 activations)."""
     x, w = _apply_act_quant(x, w)
     if isinstance(w, QTensor):
         from repro_torch.kernels.lut_gemv.ops import lut_matmul
@@ -98,6 +101,7 @@ def mm(x: torch.Tensor, w: Any, plan_rows: Optional[int] = None,
         y = lut_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w,
                        plan_rows, k_sharded)
         return y.reshape(*lead, w.n)
+    x, w = promote(x, w)
     return x @ w
 
 

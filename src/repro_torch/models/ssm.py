@@ -22,7 +22,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, promote
 from repro_torch.models.layers import dense_init
 from repro_torch.models.sail_linear import mm
 
@@ -113,7 +113,7 @@ def apply_ssm(p, x: torch.Tensor, cfg: ModelConfig,
     h0 = (state.h if state is not None
           else torch.zeros((b, inner, n), device=x.device))
     h = _ssm_scan(da, dbx, h0)
-    y = torch.einsum("btin,btn->bti", h, cmat) + xs * p["d_skip"]
+    y = torch.einsum("btin,btn->bti", *promote(h, cmat)) + xs * p["d_skip"]
     y = y * F.silu(z)
     out = mm(y, p["w_out"])
     if return_state:

@@ -12,9 +12,10 @@ the same gating.  ``m`` starts at ``-inf``, and the reference's
 ``isfinite`` guards (``xlstm.py:101-114, 156-166``) are kept as they are:
 the first step's forget term is ``exp(-inf) = 0``.
 
-The reference scans over T (``_chunked_scan``, whose chunking only bounds
-training's memory); serving here loops over T, which computes the same
-recurrence in the same order.
+The reference scans over T; here a loop over T computes the same
+recurrence in the same order.  In training ``_chunked_scan`` cuts it into
+rematerialised chunks of 128 steps, as the reference's does, which bounds
+memory and changes no value.
 """
 from __future__ import annotations
 
@@ -22,12 +23,15 @@ from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, promote
 from repro_torch.models.layers import dense_init
+from repro_torch.models.remat import grad_needed
 from repro_torch.models.sail_linear import mm
 
 _NEG_INF = float("-inf")
+CHUNK = 128                 # time steps per rematerialised chunk
 
 
 class MLSTMState(NamedTuple):
@@ -82,10 +86,45 @@ def mlstm_step(c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
     c = fda[..., None, None] * c + ida[..., None, None] * (
         vt[..., :, None] * kt[..., None, :])
     n = fda[..., None] * n + ida[..., None] * kt
-    hn = torch.einsum("bhij,bhj->bhi", c, qt)
-    denom = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", n, qt)),
+    hn = torch.einsum("bhij,bhj->bhi", *promote(c, qt))
+    denom = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh",
+                                               *promote(n, qt))),
                         min=1.0)
     return c, n, m, hn / denom[..., None]
+
+
+def _scan(step, carry, xs, lo: int, hi: int):
+    """``step`` over time steps [lo, hi) of ``xs`` (tensors [B, T, ...]):
+    (final carry, outputs [B, hi - lo, ...])."""
+    outs = []
+    for s in range(lo, hi):
+        carry, out = step(carry, *(a[:, s] for a in xs))
+        outs.append(out)
+    return carry, torch.stack(outs, dim=1)
+
+
+def _chunked_scan(step, carry, xs, chunk: int = CHUNK):
+    """The recurrence over T, rematerialised in chunks of ``chunk`` steps
+    when autograd records it (reference ``xlstm.py:56-75``): only the
+    carries at chunk boundaries are kept, and the backward pass recomputes
+    each chunk's steps.  Without it training would keep mLSTM's
+    [B, H, Dh, Dh] memory at every step.  One plain loop when T <= chunk,
+    when chunk does not divide T, or when no gradient is needed."""
+    t = xs[0].shape[1]
+    if t <= chunk or t % chunk or not grad_needed(carry, xs):
+        return _scan(step, carry, xs, 0, t)
+    k = len(carry)
+
+    def run(lo, *flat):
+        c, y = _scan(step, tuple(flat[:k]), flat[k:], lo, lo + chunk)
+        return (*c, y)
+
+    outs = []
+    for lo in range(0, t, chunk):
+        res = checkpoint(run, lo, *carry, *xs, use_reentrant=False)
+        carry = tuple(res[:k])
+        outs.append(res[k])
+    return carry, torch.cat(outs, dim=1)
 
 
 def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig,
@@ -109,12 +148,13 @@ def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig,
         m = torch.full((b, h), _NEG_INF, device=x.device)
     else:
         c, n, m = state
-    outs = []
-    for s in range(t):
-        c, n, m, out = mlstm_step(c, n, m, q[:, s], k[:, s], v[:, s],
-                                  ig[:, s], fg[:, s])
-        outs.append(out)
-    y = torch.stack(outs, dim=1).reshape(b, t, inner)
+
+    def step(carry, qt, kt, vt, it, ft):
+        c, n, m, out = mlstm_step(*carry, qt, kt, vt, it, ft)
+        return (c, n, m), out
+
+    (c, n, m), y = _chunked_scan(step, (c, n, m), (q, k, v, ig, fg))
+    y = y.reshape(b, t, inner)
     out = mm(y * F.silu(z), p["w_down"])
     if return_state:
         return out, MLSTMState(c=c, n=n, m=m)
@@ -136,13 +176,16 @@ def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig,
         m = torch.full((b, d), _NEG_INF, device=x.device)
     else:
         c, n, m = state
-    outs = []
-    for s in range(t):
-        fda, ida, m = _gates(ft[:, s], it[:, s], m)
-        c = fda * c + ida * zt[:, s]
+
+    def step(carry, z_, i_, f_, o_):
+        c, n, m = carry
+        fda, ida, m = _gates(f_, i_, m)
+        c = fda * c + ida * z_
         n = fda * n + ida
-        outs.append(ot[:, s] * c / torch.clamp(n, min=1.0))
-    y = mm(torch.stack(outs, dim=1), p["w_down"])
+        return (c, n, m), o_ * c / torch.clamp(n, min=1.0)
+
+    (c, n, m), outs = _chunked_scan(step, (c, n, m), (zt, it, ft, ot))
+    y = mm(outs, p["w_down"])
     if return_state:
         return y, SLSTMState(c=c, n=n, m=m)
     return y

@@ -662,3 +662,40 @@ def test_lut_kernels_at_the_llama2_7b_shapes(gen, m, kn):
     torch.testing.assert_close(lut_matmul_int_cuda(xq, xs, qt, 8),
                                lut_ref.lut_matmul_ref_int(xq, xs, qt),
                                rtol=1e-4, atol=atol)
+
+
+def test_train_step_on_the_card_matches_the_cpu(gen):
+    """One ``build_train_step`` step of tinymistral smoke from the same
+    weights on the card and on the CPU: the loss and the grad norm within
+    1e-5 relative, and every updated parameter within two learning rates
+    of the CPU's (an Adam step moves an element by at most about lr, so
+    a gradient near 0 whose sign differs parts by up to 2 lr; TF32 off,
+    as above)."""
+    import repro_torch.configs as TC
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+
+    cfg = TC.get_smoke("tinymistral_248m")
+    raw = params_to_numpy(lm.init_params(
+        cfg, torch.Generator().manual_seed(0), device="cpu"))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=4)).next_batch().items()}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        built = build_train_step(cfg, device=dev)
+        params = params_from_numpy(raw, device=dev)
+        state = built.meta["optimizer"].init(params)
+        params, state, m = built.fn(params, state, batch)
+        out[dev] = (params, {k: float(v) for k, v in m.items()})
+    (pc, mc), (pp, mp) = out["cuda"], out["cpu"]
+    for key in ("loss", "grad_norm"):
+        assert abs(mc[key] - mp[key]) <= 1e-5 * abs(mp[key]), key
+    assert mc["step"] == mp["step"] == 1
+    lr = float(built.meta["optimizer"].lr(torch.tensor(1)))
+    for a, b in zip(tree_leaves(pc), tree_leaves(pp)):
+        assert a.device.type == "cuda" and not a.requires_grad
+        assert float((a.cpu() - b).abs().max()) <= 2 * lr + 1e-6 * float(
+            b.abs().max())
