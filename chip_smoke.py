@@ -201,6 +201,25 @@ Phases (each passes or the script exits nonzero):
      int8 KV, 8 requests of 16 new tokens), every launch held and counted
      exactly per decode step and prefill pass; its 2-layer cut card against
      CPU as in phase 11.
+ 14. dist — (a) the model of phase 13 trained data-parallel by two gloo
+     ranks spawned on the one card (FSDP, B 8 x T 512 global, phase 13's
+     batches and schedule), 3 steps to a checkpoint written by rank 0 and
+     one step more, against the one-device step from the same init:
+     losses, nll and grad norms within 1e-5 relative, the checkpoint's
+     parameters within 1e-4 of each leaf's max; each step's wall time, its
+     all-reduces' time and bytes, max_memory_allocated per rank.  (b) the
+     compressed all-reduce on CUDA tensors over the two ranks, two rounds
+     with error feedback: codes and error state bit-equal to its plain
+     computation on the CPU, the mean within one f32 ulp.  (c) rank 0 saves
+     the checkpointed tree quantized under the engine's uniform:4 plan; it
+     restores from the raw template alone bit-equal to the same tree
+     quantized in memory, with the engine's plan, and serves phase 13's
+     requests with the in-memory tree's tokens, every launch held and
+     counted exactly; its 2-layer cut under a mixed plan with activation
+     bits restores with its two segments and abits and runs card against
+     CPU with equal tokens (the int LUT-GEMV launched).  (d) the dp=2
+     checkpoint resumes on one device; its next step within 1e-5 of the
+     dp=2 run's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -3367,15 +3386,16 @@ class CardDequant:
 
 def held_passes(torch, lm, params, cfg, toks, lengths, steps, name,
                 cache=True, quant_kv=True, attn=None, prefix=None,
-                cache_len=512):
+                cache_len=512, mixed=False):
     """Prefill ``toks`` (after ``prefix`` embeddings when given) and run
     ``steps`` greedy decode steps on the card (int8 KV, or f32),
     every LUT-GEMV and decode-attention launch held against its plain
     version on its own inputs, the launches of each pass counted from 0
-    and checked exactly: ``lut_calls`` per prefill pass and decode step,
-    ``attn`` attentions per step (default one per layer; xlstm has none),
-    nothing else.  Returns (logits [steps + 1, B, V] and tokens on the
-    host, record)."""
+    and checked exactly: ``lut_calls`` per prefill pass and decode step
+    (``mixed``: of the f32 and int LUT-GEMV together, a plan with
+    activation bits), ``attn`` attentions per step (default one per layer;
+    xlstm has none), nothing else.  Returns (logits [steps + 1, B, V] and
+    tokens on the host, record)."""
     from repro_torch.kernels import _build
     dec, pre = lut_calls(params)
     attn = cfg.n_layers if attn is None else attn
@@ -3401,8 +3421,10 @@ def held_passes(torch, lm, params, cfg, toks, lengths, steps, name,
         out_t.append(torch.argmax(logits, dim=-1).cpu())
     for i, c in enumerate(passes):
         want = (pre, 0) if i == 0 else (dec, attn)
-        if ((c["lut_matmul"], c["decode_attention"]) != want
-                or c["lut_matmul_int"] or c["decode_attention_table"]):
+        lut = c["lut_matmul"] + (c["lut_matmul_int"] if mixed else 0)
+        if ((lut, c["decode_attention"]) != want
+                or (c["lut_matmul_int"] and not mixed)
+                or c["decode_attention_table"]):
             fail(f"{name}: pass {i} launched {c}; want LUT-GEMV "
                  f"{want[0]}, decode attention {want[1]} (ring), nothing else")
     rec = dict(lut_per_prefill=pre, lut_per_decode_step=dec,
@@ -3411,6 +3433,7 @@ def held_passes(torch, lm, params, cfg, toks, lengths, steps, name,
                                  collections.Counter())),
                held_lut=sum(held.calls.values()), held_attention=held_attn.calls,
                max_abs_err_lut=held.err["f32"],
+               max_abs_err_lut_int=held.err["int"],
                max_abs_err_attention=held_attn.err)
     return torch.stack(out_l), torch.stack(out_t), rec
 
@@ -4679,6 +4702,584 @@ def phase_train(rt):
     log(f"[train] seconds {seconds}")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: data-parallel training and quantized checkpoints
+# ---------------------------------------------------------------------------
+
+DIST_WORLD = 2
+DIST_STEPS = 3                 # (a): steps to the checkpoint, then one more
+DIST_PARAM_TOL = 1e-4          # (a): parameters after them, of a leaf's max
+# (a): each element's update (after - init) against one device's, within
+# DIST_UPDATE_TOL of its leaf's largest update plus one f32 ulp of the
+# parameter per step; at most DIST_UPDATE_OUTLIERS of a leaf's elements
+# may miss it (Adam's early steps are ~lr * sign(m): where the gradient
+# lies within rounding of 0 the two runs can step apart); a leaf left at
+# its init misses it in most elements
+DIST_UPDATE_TOL = 1e-3
+DIST_UPDATE_OUTLIERS = 1e-2
+# (b): one layer's gradient shapes, two rounds
+COMPRESS_SHAPES = {"wq": (1024, 1024), "w_up": (1024, 4096), "norm": (1024,)}
+# (c): the 2-layer cut's mixed plan: wq at 4 bits in layer 0 and 6 in layer
+# 1 (two segments), w_up's activations at 8 bits (the int LUT-GEMV)
+CUT_ALLOCATION = dict(per_path={"['blocks']['attn']['wq']": (4, 6)},
+                      act_per_path={"['blocks']['mlp']['w_up']": 8})
+SERVE_FIELDS = dict(batch_size=8, cache_len=512, quant_kv=True)
+
+
+class AllReduceLog:
+    """Within the block, every ``torch.distributed.all_reduce`` of this
+    process is timed, the card synchronized on both sides (a gloo
+    all-reduce of CUDA tensors blocks the host anyway), and its bytes
+    counted: [(bytes, seconds, wait seconds)].  A 1-element all-reduce on
+    the same group goes first and is timed apart: the wait for the peers
+    to reach the collective (on one card, their compute), so the seconds
+    are the transfer's own."""
+
+    def __init__(self, torch):
+        import torch.distributed as dist
+        self.torch, self.dist, self.calls = torch, dist, []
+
+    def __enter__(self):
+        self.orig = self.dist.all_reduce
+
+        def timed(t, *args, **kw):
+            group = kw.get("group", args[1] if len(args) > 1 else None)
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            self.orig(self.torch.zeros(1, device=t.device), group=group)
+            t1 = time.perf_counter()
+            out = self.orig(t, *args, **kw)
+            self.torch.cuda.synchronize()
+            self.calls.append((t.numel() * t.element_size(),
+                               time.perf_counter() - t1, t1 - t0))
+            return out
+        self.dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+        return False
+
+
+class MetricsStep:
+    """A step function whose metrics (host floats) are kept per call."""
+
+    def __init__(self, fn):
+        self.fn, self.metrics = fn, []
+
+    def __call__(self, params, opt_state, batch):
+        out = self.fn(params, opt_state, batch)
+        self.metrics.append({k: float(v) for k, v in out[2].items()})
+        return out
+
+
+def compressed_rounds(torch, rank, world, dev, group):
+    """(b): two rounds of ``make_compressed_allreduce`` on CUDA tensors
+    over the data-parallel group, each rank's gradients drawn on the card
+    from its seed; the same rounds computed plainly on the CPU for every
+    rank (the reference's formulas: one scale per tensor, codes rounded
+    half to even, the residual rounded once, the ranks summed in order).
+    The codes and the error state must be bit-equal, the mean within one
+    f32 ulp per element."""
+    import numpy as np
+    from repro_torch.dist.compress import (_quantize, init_error_state,
+                                           make_compressed_allreduce)
+    fn = make_compressed_allreduce(group)
+    err, cpu_err = None, [None] * world
+    rec = dict(rounds=2, shapes=COMPRESS_SHAPES, ms=[], codes_bit_equal=True,
+               err_bit_equal=True, mean_max_ulps=0.0, elements=0)
+    for rd in range(2):
+        grads = []
+        for r in range(world):
+            gen = torch.Generator(device=dev).manual_seed(1000 * rd + r)
+            grads.append({k: torch.randn(s, generator=gen, device=dev) * 1e-3
+                          for k, s in COMPRESS_SHAPES.items()})
+        mine = grads[rank]
+        err = init_error_state(mine) if err is None else err
+        codes = {k: _quantize(mine[k] + err[k])[0] for k in mine}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, err = fn(mine, err)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        ys = []
+        for r in range(world):
+            e = cpu_err[r] or {k: torch.zeros(s) for k, s in
+                               COMPRESS_SHAPES.items()}
+            x = {k: grads[r][k].cpu() + e[k] for k in e}
+            y, cpu_err[r] = {}, {}
+            for k, v in x.items():
+                c, scale = _quantize(v)
+                y[k] = c.to(torch.float32) * scale
+                cpu_err[r][k] = (v.double() - c.double() * scale.double()
+                                 ).to(torch.float32)
+                if r == rank and not torch.equal(codes[k].cpu(), c):
+                    rec["codes_bit_equal"] = False
+            ys.append(y)
+        for k in mine:
+            want = ys[0][k]
+            for r in range(1, world):
+                want = want + ys[r][k]
+            want = want / world
+            got = mean[k].cpu()
+            ulps = ((got - want).abs() / torch.from_numpy(
+                np.spacing(want.abs().numpy()))).max()
+            rec["mean_max_ulps"] = max(rec["mean_max_ulps"], float(ulps))
+            rec["elements"] += want.numel()
+            if not torch.equal(err[k].cpu(), cpu_err[rank][k]):
+                rec["err_bit_equal"] = False
+    if (not rec["codes_bit_equal"] or not rec["err_bit_equal"]
+            or rec["mean_max_ulps"] > 1):
+        fail(f"dist (b): the compressed all-reduce on the card differs from "
+             f"its plain computation: {rec}")
+    return rec
+
+
+def dist_rank(rank, world, out_dir, ckpt, qdir):
+    """One rank of phase 14 (every rank runs this; rank 0 logs and writes
+    ``dist.json``): (a) full-width tinymistral trained data-parallel over
+    gloo, all ranks on the one card, FSDP as ``make_plan`` decides, on the
+    global batches of phase 13, a checkpoint after ``DIST_STEPS`` and one
+    step more; (b) the compressed all-reduce; (c) rank 0 saves the
+    checkpointed tree quantized under the engine's ``uniform:4`` plan."""
+    import torch
+    from repro_torch.checkpoint import save_quantized
+    from repro_torch.launch.mesh import describe, make_mesh, rank_device
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.training.loop import TrainLoop, TrainLoopConfig
+    from repro_torch.tree import tree_leaves
+    t0 = time.perf_counter()
+    seconds = {}
+    dev = rank_device(rank, "cuda")
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((world, 1), ("data", "model"))
+    cfg, params = family_model(torch, TRAIN_ARCH)
+    built = build_train_step(cfg, mesh=mesh, device=dev)
+    dp, plan = built.meta["dp"], built.meta["plan"]
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    params = dp.shard(params)
+    n_local = sum(p.numel() for p in tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timed = TimedStep(torch, built.fn)
+    step = MetricsStep(timed)
+    spans = []            # each step's all-reduces: (first, end) indices
+
+    def marked(p, o, b):
+        first = len(ars.calls)
+        out = step(p, o, b)
+        spans.append((first, len(ars.calls)))
+        return out
+    loop = TrainLoop(marked, params, built.meta["optimizer"].init(params),
+                     train_data(cfg, TRAIN_B, TRAIN_T),
+                     TrainLoopConfig(total_steps=DIST_STEPS, log_every=1,
+                                     checkpoint_every=10 ** 9,
+                                     checkpoint_dir=ckpt), dp=dp)
+    seconds["init"] = time.perf_counter() - t0
+    with AllReduceLog(torch) as ars:
+        t0 = time.perf_counter()
+        loop.run()         # 3 steps, then the checkpoint's gather and write
+        seconds["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, m4 = built.fn(loop.params, loop.opt_state,
+                            loop.data.next_batch())
+        m4 = {k: float(v) for k, v in m4.items()}
+        seconds["step4"] = time.perf_counter() - t0
+    per_step = []
+    for i, (first, end) in enumerate(spans):
+        calls = ars.calls[first:end]
+        ar_s = sum(c[1] for c in calls)
+        wait_s = sum(c[2] for c in calls)
+        per_step.append(dict(
+            wall_ms=timed.wall_ms[i], device_ms=timed.ms[i],
+            allreduces=len(calls), allreduce_ms=ar_s * 1e3,
+            allreduce_share=ar_s * 1e3 / timed.wall_ms[i],
+            wait_ms=wait_s * 1e3, wait_share=wait_s * 1e3 / timed.wall_ms[i],
+            allreduce_bytes=[c[0] for c in calls],
+            allreduce_each_ms=[c[1] * 1e3 for c in calls],
+            wait_each_ms=[c[2] * 1e3 for c in calls]))
+    rec = dict(group=describe(mesh), device=str(dev),
+               plan=dict(dp_axes=plan.dp_axes, tp_axis=plan.tp_axis,
+                         fsdp=plan.fsdp),
+               params=n_params, local_params=n_local,
+               metrics=step.metrics, step4=m4, per_step=per_step,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
+               / 1e9, seconds=seconds)
+    t0 = time.perf_counter()
+    rec["compress"] = compressed_rounds(torch, rank, world, dev, dp.group)
+    seconds["compress"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = dp.gather(loop.params)
+    if rank == 0:
+        eng = Engine(full, cfg, EngineConfig(**SERVE_FIELDS, plan="uniform:4",
+                                             group_size=128), device=dev)
+        save_quantized(qdir, DIST_STEPS, eng.params, eng.quant_policy,
+                       plan=eng.plan)
+    seconds["save_quantized"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"dist_rank{rank}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+
+
+def dist_reference(torch, res):
+    """Phase 13's one-device step from the same init on the same global
+    batches: DIST_STEPS steps (their metrics; the init, the parameters and
+    AdamW's moments after them, on the host), then one more."""
+    from repro_torch.tree import tree_leaves
+    cfg, params = family_model(torch, TRAIN_ARCH)
+    ref = dict(init=[x.cpu() for x in tree_leaves(params)])
+    loop, step = train_loop(torch, cfg, params, TRAIN_B, TRAIN_T,
+                            DIST_STEPS)
+    step = MetricsStep(step)
+    loop.step_fn = step
+    loop.run()
+    ref.update(after=[x.cpu() for x in tree_leaves(loop.params)],
+               mu=[x.cpu() for x in tree_leaves(loop.opt_state.mu)],
+               nu=[x.cpu() for x in tree_leaves(loop.opt_state.nu)])
+    loop.lcfg.total_steps = DIST_STEPS + 1
+    loop.run()
+    res["one_device"] = dict(metrics=step.metrics)
+    return ref
+
+
+def update_agreement(torch, params, opt, ref) -> dict:
+    """(a): per leaf, the dp run's update (after - init) against one
+    device's on the same init: the fraction of elements outside
+    DIST_UPDATE_TOL of the leaf's largest update plus DIST_STEPS ulps, the
+    same fraction for the parameters left at their init (what a run that
+    never wrote its parameters back would read), and the worst element
+    with both runs' updates and AdamW moments."""
+    from repro_torch.tree import tree_flatten_with_path, tree_leaves
+    inf = torch.tensor(float("inf"), device="cuda")
+    leaves = []
+    for i, ((path, p), mu, nu) in enumerate(zip(
+            tree_flatten_with_path(params), tree_leaves(opt.mu),
+            tree_leaves(opt.nu))):
+        p0, w = ref["init"][i].cuda(), ref["after"][i].cuda()
+        top = (w - p0).abs().amax()
+        tol = (DIST_UPDATE_TOL * top
+               + DIST_STEPS * (torch.nextafter(w.abs(), inf) - w.abs()))
+        r = ((p - w).abs() / tol).flatten()
+        j = int(r.argmax())
+        leaves.append(dict(
+            leaf=path, elements=r.numel(), largest_update=float(top),
+            outside=int((r > 1).sum()),
+            outside_fraction=float((r > 1).float().mean()),
+            unchanged_fraction=float(((p0 - w).abs() > tol).float().mean()),
+            worst_over_tol=float(r[j]), index=j,
+            update_one=float((w - p0).flatten()[j]),
+            update_dp=float((p - p0).flatten()[j]),
+            mu_one=float(ref["mu"][i].flatten()[j]),
+            mu_dp=float(mu.flatten()[j]),
+            sqrt_nu_one=float(ref["nu"][i].flatten()[j].sqrt()),
+            sqrt_nu_dp=float(nu.flatten()[j].sqrt())))
+    worst = max(leaves, key=lambda x: x["worst_over_tol"])
+    return dict(
+        tol=DIST_UPDATE_TOL, outliers_allowed=DIST_UPDATE_OUTLIERS,
+        outside=sum(x["outside"] for x in leaves),
+        elements=sum(x["elements"] for x in leaves),
+        worst_fraction=max(leaves, key=lambda x: x["outside_fraction"]),
+        worst_element=worst,
+        unchanged_least=min(leaves, key=lambda x: x["unchanged_fraction"]),
+        leaves_outside=[x for x in leaves if x["outside"]])
+
+
+def dist_hold(torch, res, ranks, ref, ckpt, phase13=None):
+    """(a): each rank's metrics against the one-device step's, the
+    checkpoint's parameters and updates against its (phase 13's first
+    losses recorded beside them when it ran)."""
+    from repro_torch.checkpoint import restore
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import tree_flatten_with_path
+    import repro_torch.configs as C
+    one = res["one_device"]["metrics"]
+    worst = 0.0
+    for r, rec in enumerate(ranks):
+        for m, w in zip(rec["metrics"] + [rec["step4"]], one):
+            if m["step"] != w["step"]:
+                fail(f"dist (a): rank {r} step {m['step']} against "
+                     f"{w['step']}")
+            for key in ("loss", "nll", "grad_norm"):
+                worst = max(worst, abs(m[key] - w[key]) / abs(w[key]))
+    cfg = C.get_config(TRAIN_ARCH)
+    raw = lm.init_params(cfg, None, device="meta")
+    step0 = torch.zeros((), dtype=torch.int32, device="meta")
+    (params, opt), extras = restore(ckpt, (raw, AdamWState(step0, raw, raw)),
+                                    step=DIST_STEPS, device="cuda")
+    param_err, param_leaf = max(
+        (float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30),
+         path) for (path, a), b in zip(tree_flatten_with_path(params),
+                                       ref["after"]))
+    upd = update_agreement(torch, params, opt, ref)
+    del opt
+    res["hold"] = dict(metrics_rel_err=worst, param_err_of_leaf_max=param_err,
+                       param_err_leaf=param_leaf, updates=upd,
+                       checkpoint_step=extras["step"])
+    if phase13 is not None:
+        res["hold"]["phase13_losses"] = phase13["full"]["losses"][
+            :DIST_STEPS + 1]
+    log(f"[dist] (a) dp={DIST_WORLD} against the one-device step, "
+        f"{DIST_STEPS + 1} steps: loss / nll / grad norm worst "
+        f"{worst:.2e} relative (tolerance {TRAIN_LOSS_RTOL}); parameters "
+        f"after {DIST_STEPS} steps (rank 0's checkpoint, full arrays) worst "
+        f"{param_err:.2e} of a leaf's max in {param_leaf} (tolerance "
+        f"{DIST_PARAM_TOL})")
+    wf, we, wu = (upd["worst_fraction"], upd["worst_element"],
+                  upd["unchanged_least"])
+    log(f"[dist] (a) updates (after - init) against one device's, within "
+        f"{DIST_UPDATE_TOL} of each leaf's largest update + {DIST_STEPS} "
+        f"ulps: {upd['outside']} of {upd['elements']} elements outside; "
+        f"worst leaf {wf['leaf']} {wf['outside']} of {wf['elements']} "
+        f"({wf['outside_fraction']:.2e}, allowed {DIST_UPDATE_OUTLIERS}); "
+        f"worst element {we['leaf']}[{we['index']}] at {we['worst_over_tol']:.3g}"
+        f"x the tolerance: update {we['update_one']:.4e} (one device) / "
+        f"{we['update_dp']:.4e} (dp), largest in its leaf "
+        f"{we['largest_update']:.4e}, AdamW mu {we['mu_one']:.4e} / "
+        f"{we['mu_dp']:.4e} against sqrt(nu) {we['sqrt_nu_one']:.4e} / "
+        f"{we['sqrt_nu_dp']:.4e}; parameters left at their init would have "
+        f"at least {wu['unchanged_fraction']:.3f} of a leaf's elements "
+        f"outside ({wu['leaf']})")
+    if worst > TRAIN_LOSS_RTOL or param_err > DIST_PARAM_TOL \
+            or wf["outside_fraction"] > DIST_UPDATE_OUTLIERS \
+            or extras["step"] != DIST_STEPS:
+        fail("dist (a): the data-parallel run differs from one device")
+    return cfg, params
+
+
+def dist_serve(torch, res, cfg, trained, qdir):
+    """(c): the tree rank 0 saved, restored from the raw template alone,
+    bit-equal to the same tree quantized in memory, its plan the engine's;
+    both served (ring, int8 KV, 8 of phase 4's requests x 16 tokens), the
+    restored one with every launch held and counted exactly."""
+    from repro_torch.checkpoint import restore_quantized, restored_plan
+    from repro_torch.models import lm
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.tree import tree_flatten_with_path
+    prompts = engine_requests(cfg)[:8]
+    mem = Engine(trained, cfg, EngineConfig(**SERVE_FIELDS, plan="uniform:4",
+                                            group_size=128), device="cuda")
+    t0 = time.perf_counter()
+    back, extras = restore_quantized(
+        qdir, lm.init_params(cfg, None, device="meta"), device="cuda")
+    restore_s = time.perf_counter() - t0
+    a, b = tree_flatten_with_path(mem.params), tree_flatten_with_path(back)
+    bit_equal = ([p for p, _ in a] == [p for p, _ in b] and all(
+        x.dtype == y.dtype and torch.equal(x, y) for (_, x), (_, y) in
+        zip(a, b)))
+    plan = restored_plan(extras)
+    plan_equal = plan == mem.plan and plan.spec_hash == mem.plan.spec_hash
+    want_tokens, _, _ = serve_counted(torch, mem, prompts, 16)
+    del mem
+    eng = Engine(back, cfg, EngineConfig(**SERVE_FIELDS, quantize=False),
+                 device="cuda")
+    with Held(torch, "dist serve") as held, \
+            HeldAttn(torch, "dist serve") as held_attn:
+        got, counts, dt = serve_counted(torch, eng, prompts, 16)
+    st = eng.stats()
+    dec, pre = lut_calls(eng.params)
+    steps, passes = st["decode_iterations"], st["prefill_iterations"]
+    want = dict(lut_matmul=dec * steps + pre * passes,
+                decode_attention=cfg.n_layers * steps)
+    rec = dict(leaves=len(b), bit_equal=bit_equal, plan_equal=plan_equal,
+               spec_hash=plan.spec_hash, restore_s=restore_s,
+               tokens_equal=[got[u] for u in sorted(got)]
+               == [want_tokens[u] for u in sorted(want_tokens)], seconds=dt,
+               decode_steps=steps, prefill_passes=passes,
+               lut_per_decode_step=dec, lut_per_prefill=pre,
+               attention_per_decode_step=cfg.n_layers, launches=counts,
+               held_lut=sum(held.calls.values()),
+               max_abs_err_lut=held.err["f32"],
+               held_attention=held_attn.calls,
+               max_abs_err_attention=held_attn.err,
+               first_tokens={u: t[:4] for u, t in sorted(got.items())})
+    res["serve"] = rec
+    log(f"[dist] (c) uniform:4 tree saved by rank 0, restored from the raw "
+        f"template in {restore_s:.2f} s: {len(b)} leaves bit-equal "
+        f"{bit_equal}, plan {plan.spec_hash} equal {plan_equal}; served 8 x "
+        f"16 tokens ({steps} decode steps, {passes} prefill passes): tokens "
+        f"equal to the in-memory tree's {rec['tokens_equal']}; launches "
+        f"{counts}, want {dec} LUT-GEMV and {cfg.n_layers} attentions per "
+        f"decode step, {pre} per prefill pass; every launch held "
+        f"({rec['held_lut']} LUT-GEMV, max abs err {held.err['f32']:.3e}; "
+        f"{held_attn.calls} attentions, {held_attn.err:.3e})")
+    if (not bit_equal or not plan_equal or not rec["tokens_equal"]
+            or len(got) != 8 or any(len(t) != 16 for t in got.values())
+            or any(counts[k] != v for k, v in want.items())
+            or counts["lut_matmul_int"] or counts["decode_attention_table"]):
+        fail(f"dist (c): restored tree served wrongly: {rec}")
+
+
+def dist_cut(torch, res, cfg, trained, qdir):
+    """(c): the 2-layer cut under a mixed plan with activation bits (two
+    segments, w_up's int LUT-GEMV), saved, restored from the raw template
+    alone with its segmentation and abits, and run card against CPU."""
+    from repro_torch.checkpoint import restore_quantized, save_quantized
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import (BitAllocation, QTensor,
+                                                QuantPolicy, StackedQTensor,
+                                                map_tensors, quantize_params)
+    from repro_torch.tree import tree_flatten_with_path
+    cut, cfg2 = cut_layers(trained, cfg, CUT_LAYERS)
+    pol = QuantPolicy(bits=4, group_size=128,
+                      allocation=BitAllocation(**CUT_ALLOCATION))
+    q, _, _ = quantize_params(cut, pol)
+    save_quantized(qdir, 0, q, pol)
+    back, extras = restore_quantized(
+        qdir, lm.init_params(cfg2, None, device="meta"), device="cuda")
+    a, b = tree_flatten_with_path(q), tree_flatten_with_path(back)
+    bit_equal = ([p for p, _ in a] == [p for p, _ in b] and all(
+        torch.equal(x, y) for (_, x), (_, y) in zip(a, b)))
+
+    def statics(tree):
+        out = {}
+        for i, seg in enumerate(tree["blocks"]):
+            for name, sub in seg.items():
+                for k, w in (sub.items() if isinstance(sub, dict) else ()):
+                    if isinstance(w, (QTensor, StackedQTensor)):
+                        out[f"[{i}]['{name}']['{k}']"] = [w.bits, w.abits]
+        return out
+    segments = len(back["blocks"]) if isinstance(back["blocks"], list) else 1
+    toks, lengths = model_prompts(cfg2)
+    gl, gt, rec = held_passes(torch, lm, back, cfg2, toks, lengths, 4,
+                              "dist cut a8", mixed=True)
+    with CardDequant(torch):
+        cl, ct = run_greedy(torch, lm, map_tensors(back, lambda t: t.cpu()),
+                            cfg2, toks, lengths, 4, "cpu")
+    rec.update(bit_equal=bit_equal, segments=segments,
+               statics=statics(back), statics_equal=statics(back) ==
+               statics(q), policy=extras["quant_policy"],
+               tokens_equal=bool(torch.equal(gt, ct)),
+               card_tokens=gt.T.tolist(), cpu_tokens=ct.T.tolist(),
+               logits_err_per_pass=(gl - cl).abs().amax(dim=(1, 2)).tolist())
+    res["cut"] = rec
+    log(f"[dist] (c) {CUT_LAYERS}-layer cut under {CUT_ALLOCATION}: "
+        f"restored bit-equal {bit_equal}, {segments} segments, (bits, abits) "
+        f"{rec['statics']}; card vs CPU greedy tokens equal "
+        f"{rec['tokens_equal']} ({rec['card_tokens']}), logits max abs err "
+        f"per pass {', '.join(f'{e:.3e}' for e in rec['logits_err_per_pass'])}"
+        f"; launches {rec['launches']} (int LUT-GEMV max abs err "
+        f"{rec['max_abs_err_lut_int']:.3e}, f32 {rec['max_abs_err_lut']:.3e})")
+    if (not bit_equal or segments != 2 or not rec["statics_equal"]
+            or not rec["tokens_equal"] or not rec["launches"].get(
+                "lut_matmul_int") or not torch.isfinite(gl).all()):
+        fail(f"dist (c): the restored a8 cut is wrong: {rec}")
+
+
+def dist_resume(torch, res, ranks, ckpt):
+    """(d): the dp=2 checkpoint resumed on one device: its next step's
+    metrics against the dp=2 run continued."""
+    cfg, fresh = family_model(torch, TRAIN_ARCH)
+    loop, step = train_loop(torch, cfg, fresh, TRAIN_B, TRAIN_T,
+                            DIST_STEPS + 1, ckpt=ckpt)
+    step = MetricsStep(step)
+    loop.step_fn = step
+    restored = loop.maybe_restore()
+    at = loop.step
+    loop.run()
+    got, want = step.metrics[-1], ranks[0]["step4"]
+    err = max(abs(got[k] - want[k]) / abs(want[k])
+              for k in ("loss", "nll", "grad_norm"))
+    res["resume"] = dict(restored=restored, restored_step=at, step=got,
+                         dp_step=want, rel_err=err)
+    log(f"[dist] (d) the dp={DIST_WORLD} checkpoint resumed on one device at "
+        f"step {at}: step {got['step']} loss {got['loss']:.6f} against the "
+        f"dp={DIST_WORLD} run's {want['loss']:.6f} (worst {err:.2e} "
+        f"relative, tolerance {TRAIN_LOSS_RTOL})")
+    if not restored or at != DIST_STEPS or got["step"] != DIST_STEPS + 1 \
+            or err > TRAIN_LOSS_RTOL:
+        fail("dist (d): the resumed step differs from the dp=2 run's")
+
+
+def phase_dist(rt):
+    import torch
+    from repro_torch.launch.mesh import run_ranks
+    res = rt["dist"] = {}
+    seconds = res["seconds"] = {}
+    ckpt = os.path.join(OUT_DIR, "dist_ckpt")
+    qdir = os.path.join(OUT_DIR, "dist_quant")
+    cut_dir = os.path.join(OUT_DIR, "dist_quant_cut")
+    for d in (ckpt, qdir, cut_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    try:
+        t0 = time.perf_counter()
+        ref = dist_reference(torch, res)
+        torch.cuda.empty_cache()
+        seconds["one_device"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_ranks(dist_rank, DIST_WORLD,
+                  args=(DIST_WORLD, OUT_DIR, ckpt, qdir))
+        seconds["ranks"] = time.perf_counter() - t0
+        ranks = []
+        for r in range(DIST_WORLD):
+            with open(os.path.join(OUT_DIR, f"dist_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        res["ranks"] = ranks
+        r0 = ranks[0]
+        log(f"[dist] {r0['group']}, every rank on {r0['device']} "
+            f"({card_line()}), plan {r0['plan']}: each rank holds "
+            f"{r0['local_params'] / 1e6:.1f}M of {r0['params'] / 1e6:.1f}M "
+            f"parameters; B {TRAIN_B} x T {TRAIN_T} global, "
+            f"{TRAIN_B // DIST_WORLD} rows per rank; per step (rank 0) "
+            + "; ".join(f"{s['wall_ms']:.1f} ms wall, {s['device_ms']:.1f} "
+                        f"ms device, {s['allreduces']} all-reduces "
+                        f"{s['allreduce_ms']:.1f} ms "
+                        f"({100 * s['allreduce_share']:.1f}%) after waiting "
+                        f"{s['wait_ms']:.1f} ms "
+                        f"({100 * s['wait_share']:.1f}%) for the peer"
+                        for s in r0["per_step"])
+            + f"; all-reduce bytes in the last step "
+            f"{r0['per_step'][-1]['allreduce_bytes']}; max memory allocated "
+            f"per rank "
+            f"{[round(r['max_memory_allocated_gb'], 2) for r in ranks]} GB; "
+            f"compressed all-reduce {r0['compress']['elements']} elements x 2 "
+            f"rounds {[round(x, 2) for x in r0['compress']['ms']]} ms, codes "
+            f"and error state bit-equal, mean within "
+            f"{r0['compress']['mean_max_ulps']:.1f} ulp")
+        t0 = time.perf_counter()
+        cfg, trained = dist_hold(torch, res, ranks, ref, ckpt,
+                                 rt.get("train"))
+        del ref
+        seconds["hold"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist_serve(torch, res, cfg, trained, qdir)
+        seconds["serve"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dist_cut(torch, res, cfg, trained, cut_dir)
+        seconds["cut"] = time.perf_counter() - t0
+        del trained
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        dist_resume(torch, res, ranks, ckpt)
+        seconds["resume"] = time.perf_counter() - t0
+    finally:
+        for d in (ckpt, qdir, cut_dir):
+            shutil.rmtree(d, ignore_errors=True)
+    log(f"[dist] seconds {seconds}")
+
+
+def dist_fields(dist: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in phase 14's serving of the restored
+    trees and its held sets' worst errors (training launches none)."""
+    serve, cut = dist["serve"], dist["cut"]
+    out = {"launches_dist": {"restored uniform:4": serve["launches"][name],
+                             "restored a8 cut": cut["launches"].get(name,
+                                                                    0)}}
+    if name == "lut_matmul":
+        out["max_abs_err_dist"] = max(serve["max_abs_err_lut"],
+                                      cut["max_abs_err_lut"])
+    if name == "lut_matmul_int":
+        out["max_abs_err_dist"] = cut["max_abs_err_lut_int"]
+    if name == "decode_attention":
+        out["max_abs_err_dist"] = max(serve["max_abs_err_attention"],
+                                      cut["max_abs_err_attention"])
+    return out
+
+
 def train_fields(train: dict, name: str) -> dict:
     """Kernel ``name``'s launches in phase 13's serving of the trained tree
     and its held sets' worst errors (training itself launches none)."""
@@ -4848,6 +5449,7 @@ def kernels_line(rt) -> dict:
         entry.update(families_fields(rt["families"], name))
         entry.update(others_fields(rt["others"], name))
         entry.update(train_fields(rt["train"], name))
+        entry.update(dist_fields(rt["dist"], name))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -4881,7 +5483,7 @@ def main() -> int:
               ("planner", phase_planner), ("sampling", phase_sampling),
               ("speculation", phase_speculation), ("tp", phase_tp),
               ("families", phase_families), ("others", phase_others),
-              ("train", phase_train))
+              ("train", phase_train), ("dist", phase_dist))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--phases"] else None
     for name, fn in phases:
         if only is not None and name not in only:
@@ -4894,7 +5496,7 @@ def main() -> int:
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "phases.json"), "w") as f:
             json.dump({k: rt[k] for k in ("families", "others", "planner",
-                                          "train", "build_s")
+                                          "train", "dist", "build_s")
                        if k in rt}, f, indent=1, default=str)
         log(f"phases {only} passed in {time.perf_counter() - t_all:.1f} s")
         return 0
@@ -4907,7 +5509,8 @@ def main() -> int:
                    "sampling": rt["sampling"],
                    "speculation": rt["speculation"], "tp": rt["tp"],
                    "families": rt["families"], "others": rt["others"],
-                   "train": rt["train"], "build_s": rt["build_s"],
+                   "train": rt["train"], "dist": rt["dist"],
+                   "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line))

@@ -1,4 +1,8 @@
-"""Checkpoints of parameter trees (port of ``repro.checkpoint``; the
-quantized-tree functions are still to port)."""
+"""Checkpoints of parameter trees, raw and quantized (port of
+``repro.checkpoint``)."""
 from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer, keep_last,
-                                               latest_step, restore, save)
+                                               latest_step,
+                                               quantized_template, restore,
+                                               restore_quantized,
+                                               restored_plan, save,
+                                               save_quantized)

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from repro_torch.dist.sharding import tp_axis_max
+from repro_torch.tree import register_dataclass
 
 SUPPORTED_BITS = (2, 3, 4, 5, 6, 8)
 
@@ -165,6 +166,10 @@ class QTensor:
     def nbytes(self) -> int:
         return 4 * (self.packed.numel() + self.scales.numel()
                     + self.codebook.numel())
+
+
+# a tree node, as the reference's ``jax.tree_util.register_dataclass``
+register_dataclass(QTensor, ("packed", "scales", "codebook"))
 
 
 def _uniform_codebook(bits: int, device=None) -> torch.Tensor:

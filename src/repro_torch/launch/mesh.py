@@ -1,10 +1,17 @@
-"""The tensor-parallel process group (the serving role of
-``repro.launch.mesh``).
+"""Meshes over ``torch.distributed`` process groups (port of
+``repro.launch.mesh``) and the ranks that make them.
 
-The reference's ``(1, M)`` mesh becomes a ``torch.distributed`` group of M
-ranks, one shard each.  ``run_ranks`` starts them as processes (start
-method ``spawn``), each joining the group through a ``file://`` rendezvous
-in a temporary directory, so no TCP port is needed.
+The reference's device mesh becomes a grid of processes, one rank per
+device.  ``make_mesh(shape, axes)`` lays the running group's ranks out
+row-major over ``shape`` and gives each axis the process group of this
+rank's line along it (``Mesh.groups``): ``(D, 1)`` over
+``("data", "model")`` is data parallelism over D ranks, ``(1, M)``
+tensor parallelism over M.  With no process group initialised it is one
+process, a mesh of size 1.
+
+``run_ranks`` starts ranks as processes (start method ``spawn``), each
+joining the group through a ``file://`` rendezvous in a temporary
+directory, so no TCP port is needed.
 
 Transport: gloo, for every rank, on the CPU and on the card.  On a host
 with one GPU all ranks share it, and NCCL refuses two ranks on one
@@ -13,24 +20,94 @@ per GPU is ROADMAP work.  Every group has a timeout, so a rank that
 issues a different sequence of collectives fails instead of hanging.
 
 The reference's ``make_production_mesh`` (the 512-device pod) waits for
-the port's dry-run tools (ROADMAP, Queue 1 item 6).
+the port's dry-run tools (ROADMAP, Queue 1 item 6c).
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import itertools
+import math
 import os
 import tempfile
-from typing import Any, Callable, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 TIMEOUT_S = 120.0
 
 
-def describe(group=None) -> str:
-    return (f"tp group of {dist.get_world_size(group)} ranks over "
-            f"{dist.get_backend(group)} (this rank {dist.get_rank(group)})")
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A grid of ranks: ``ranks[i, j, ...]`` is the rank at those axis
+    coordinates, ``groups[axis]`` the process group of this rank's line
+    along ``axis`` (None when the axis has size 1: no collective), and
+    ``rank`` this process's rank."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+    ranks: np.ndarray
+    groups: Dict[str, Any]
+    rank: int
+
+    @property
+    def size(self) -> int:
+        return int(self.ranks.size)
+
+    def coord(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        where = np.argwhere(self.ranks == self.rank)[0]
+        return int(where[self.axis_names.index(axis)])
+
+    def axis_size(self, axis: str) -> int:
+        return dict(zip(self.axis_names, self.shape)).get(axis, 1)
+
+
+def make_mesh(shape, axes) -> Mesh:
+    """A mesh of ``shape`` over the running process group (its world size
+    must be the mesh's size), or over this one process when no group is
+    initialised (the mesh's size must be 1).  Every rank must call it,
+    in the same order: it creates the axes' process groups."""
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} and axes {axes} differ in rank")
+    n = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n != world:
+        raise ValueError(f"a mesh of {n} ranks {dict(zip(axes, shape))} "
+                         f"needs a process group of {n}, got {world}")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    ranks = np.arange(n).reshape(shape)
+    groups: Dict[str, Any] = {}
+    for i, axis in enumerate(axes):
+        if shape[i] == 1:
+            groups[axis] = None
+            continue
+        if shape[i] == n:
+            groups[axis] = dist.group.WORLD
+            continue
+        others = [range(m) for j, m in enumerate(shape) if j != i]
+        for rest in itertools.product(*others):
+            index = list(rest)
+            index.insert(i, slice(None))
+            line = [int(r) for r in ranks[tuple(index)]]
+            group = dist.new_group(line)
+            if rank in line:
+                groups[axis] = group
+    return Mesh(axis_names=axes, shape=shape, ranks=ranks, groups=groups,
+                rank=rank)
+
+
+def describe(mesh=None) -> str:
+    """A mesh's axes and transport; given a process group (None: the
+    default one) instead, that group's."""
+    if isinstance(mesh, Mesh):
+        backend = dist.get_backend() if dist.is_initialized() else "none"
+        return (f"mesh {dict(zip(mesh.axis_names, mesh.shape))} on "
+                f"{mesh.size} ranks ({backend}; this rank {mesh.rank})")
+    return (f"tp group of {dist.get_world_size(mesh)} ranks over "
+            f"{dist.get_backend(mesh)} (this rank {dist.get_rank(mesh)})")
 
 
 def rank_device(rank: int, device) -> torch.device:

@@ -41,6 +41,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.quant import quantize_kv
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import dp_sum
 from repro_torch.models import blocks as blk
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
@@ -178,10 +179,14 @@ def chunked_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
     """Mean cross entropy without the full [B, T, V] logits: per T-chunk
     (sum nll, count), each chunk under ``remat`` so the backward pass
     recomputes its logits.  One dense pass when T <= chunk or chunk does
-    not divide T."""
+    not divide T.  Under a ``dp_context`` the count is the whole data
+    axis's (``dp_sum``), so each rank returns its share of the global
+    batch's mean and the shares sum to it."""
     b, t, d = x.shape
     if t % chunk or t <= chunk:
-        return _nll_dense(x, head, targets, mask, transpose_head)
+        s, c = _nll_dense(x, head, targets, mask, transpose_head,
+                          reduce_mean=False)
+        return s / torch.clamp(dp_sum(c), min=1.0)
     s = torch.zeros((), device=x.device)
     c = torch.zeros((), device=x.device)
     for i in range(0, t, chunk):
@@ -191,7 +196,7 @@ def chunked_nll(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,
             x[:, i:i + chunk], head, targets[:, i:i + chunk],
             mask[:, i:i + chunk])
         s, c = s + si, c + ci
-    return s / torch.clamp(c, min=1.0)
+    return s / torch.clamp(dp_sum(c), min=1.0)
 
 
 def _nll_dense(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor,

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dist.sharding import dp_sum
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import dense_init, gelu
 from repro_torch.models.sail_linear import einsum_q, mm
@@ -133,10 +134,17 @@ def apply_moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig):
 def _aux_loss(logits: torch.Tensor, comb: torch.Tensor,
               cfg: ModelConfig) -> torch.Tensor:
     """Switch-style load-balancing loss: E * sum(tokens routed share *
-    mean router probability) over the experts."""
+    mean router probability) over the experts.  Under a ``dp_context``
+    both fractions are over the whole data axis's tokens (``dp_sum``), so
+    each rank returns its share of the global batch's loss."""
     probs = torch.softmax(logits, dim=-1)
-    frac_tokens = (comb > 0).to(torch.float32).mean(0)
-    return cfg.n_experts * torch.sum(frac_tokens * probs.mean(0))
+    hits = (comb > 0).to(torch.float32)
+    # the count is filled on the device, not copied from the host, so a
+    # decode step that computes this term stays capturable as a CUDA graph
+    count = hits.new_full((1,), hits.shape[0])
+    total = dp_sum(torch.cat([hits.sum(0), count]))
+    n = total[-1]
+    return cfg.n_experts * torch.sum(total[:-1] / n * (probs.sum(0) / n))
 
 
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, mode: str = "dispatch"):

@@ -39,13 +39,14 @@ import torch
 from repro_torch.core.quant import (SUPPORTED_ABITS, SUPPORTED_BITS, QTensor,
                                     _uniform_codebook, dequantize,
                                     nf_codebook, quantize,
-                                    quantize_activations)
+                                    quantize_activations, words_per_group)
 from repro_torch.models.common import promote
+from repro_torch.tree import register_dataclass
 
 __all__ = ["ActQuantWeight", "BitAllocation", "QTensor", "QuantPolicy",
            "StackedQTensor", "act_fake_quant", "dequantize_any", "einsum_q",
-           "mm", "nf_codebook", "quantize_params", "map_tensors",
-           "flatten_with_paths"]
+           "mm", "nf_codebook", "quantize_params", "quantized_shapes",
+           "map_tensors", "flatten_with_paths"]
 
 
 def act_fake_quant(x: torch.Tensor, abits: int) -> torch.Tensor:
@@ -136,6 +137,9 @@ class StackedQTensor:
     def shape(self) -> Tuple[int, ...]:
         """Logical (unquantized) weight shape."""
         return tuple(self.packed.shape[:-2]) + (self.k, self.n)
+
+
+register_dataclass(StackedQTensor, ("packed", "scales", "codebook"))
 
 
 # above this many weights a stack is dequantized one matrix at a time
@@ -458,11 +462,35 @@ def map_tensors(tree, fn: Callable[[torch.Tensor], torch.Tensor]):
     return _walk(tree, leaf)
 
 
-def _quantize_tree(params, policy: QuantPolicy, offset: int = 0):
+def _abstract_quantized(w: torch.Tensor, bits: int, policy: QuantPolicy,
+                        abits: Optional[int], stacked: bool):
+    """The ``QTensor`` (``StackedQTensor``) that quantizing ``w`` would
+    give, its tensors empty on the meta device: the shapes and dtypes of
+    ``quantize`` / ``_quantize_stacked``."""
+    *lead, k, n = w.shape
+    groups = k // policy.group_size
+    cb = policy.codebook_for(bits)
+    levels = (1 << bits) if cb is None else cb.shape[-1]
+    meta = lambda shape, dt=torch.float32: torch.empty(
+        tuple(shape), dtype=dt, device="meta")
+    fields = dict(bits=bits, group_size=policy.group_size, k=k, abits=abits)
+    packed = meta(lead + [groups * words_per_group(bits, policy.group_size),
+                          n], torch.int32)
+    scales = meta(lead + [groups, n])
+    if not stacked:
+        return QTensor(packed=packed, scales=scales, codebook=meta([levels]),
+                       **fields)
+    return StackedQTensor(packed=packed, scales=scales,
+                          codebook=meta([lead[0], levels]), **fields)
+
+
+def _quantize_tree(params, policy: QuantPolicy, offset: int = 0,
+                   abstract: bool = False):
     """Quantize one tree whose resolved bits are uniform per leaf.
 
     ``offset`` is the absolute layer index of stacked leaves' first slice
-    (nonzero when quantizing a blocks segment).  Returns (tree,
+    (nonzero when quantizing a blocks segment); ``abstract``: build each
+    quantized leaf's shapes only (``_abstract_quantized``).  Returns (tree,
     bytes_before, bytes_after)."""
     sizes = [0, 0]
 
@@ -472,9 +500,12 @@ def _quantize_tree(params, policy: QuantPolicy, offset: int = 0):
             b = _scalar_bits(policy.bits_for(pstr), pstr, 0, None)
             ab = _scalar_bits(policy.abits_for(pstr), pstr, 0, None,
                               check=_check_abits)
-            qt = quantize(w, b, policy.group_size,
-                          codebook=policy.codebook_for(b))
-            qt = dataclasses.replace(qt, abits=ab)
+            if abstract:
+                qt = _abstract_quantized(w, b, policy, ab, stacked=False)
+            else:
+                qt = quantize(w, b, policy.group_size,
+                              codebook=policy.codebook_for(b))
+                qt = dataclasses.replace(qt, abits=ab)
             sizes[1] += qt.nbytes()
             return qt
         if _should_quantize_stacked(pstr, w, policy):
@@ -482,7 +513,8 @@ def _quantize_tree(params, policy: QuantPolicy, offset: int = 0):
                              w.shape[0])
             ab = _scalar_bits(policy.abits_for(pstr), pstr, offset,
                               w.shape[0], check=_check_abits)
-            st = _quantize_stacked(w, b, policy, abits=ab)
+            st = (_abstract_quantized(w, b, policy, ab, stacked=True)
+                  if abstract else _quantize_stacked(w, b, policy, abits=ab))
             sizes[1] += 4 * (st.packed.numel() + st.scales.numel())
             return st
         sizes[1] += w.numel() * w.element_size()
@@ -539,15 +571,30 @@ def quantize_params(params, policy: QuantPolicy = QuantPolicy()):
     and the returned tree carries ``params["blocks"]`` as a list of
     stacked trees (layers ``[a, b)`` each, sliced from the raw stack).
     Returns (quantized tree, bytes_before, bytes_after)."""
+    return _quantize_params(params, policy, abstract=False)
+
+
+def quantized_shapes(params, policy: QuantPolicy = QuantPolicy()):
+    """The tree ``quantize_params(params, policy)[0]`` would give, by the
+    same rules, with every tensor empty on the meta device (the
+    reference's ``jax.eval_shape`` of it): ``params`` may be real or meta
+    tensors."""
+    meta = _walk(params, lambda _, w: torch.empty(
+        tuple(w.shape), dtype=w.dtype, device="meta"))
+    return _quantize_params(meta, policy, abstract=True)[0]
+
+
+def _quantize_params(params, policy: QuantPolicy, abstract: bool):
     bounds = _segment_bounds(params, policy)
     if bounds is None:
-        return _quantize_tree(params, policy)
+        return _quantize_tree(params, policy, abstract=abstract)
     rest = {k: v for k, v in params.items() if k != "blocks"}
-    out, before, after = _quantize_tree(rest, policy)
+    out, before, after = _quantize_tree(rest, policy, abstract=abstract)
     segments = []
     for a, b in zip(bounds[:-1], bounds[1:]):
         sub = _walk(params["blocks"], lambda _, x: x[a:b])
-        qseg, sb, sa = _quantize_tree({"blocks": sub}, policy, offset=a)
+        qseg, sb, sa = _quantize_tree({"blocks": sub}, policy, offset=a,
+                                      abstract=abstract)
         segments.append(qseg["blocks"])
         before += sb
         after += sa

@@ -52,9 +52,12 @@ class AdamW:
         return self.learning_rate
 
     @torch.no_grad()
-    def update(self, grads, state: AdamWState, params):
+    def update(self, grads, state: AdamWState, params, gnorm=None):
+        """``gnorm``: the global norm of the whole gradient when ``grads``
+        is this rank's slice of it (FSDP); None takes ``grads``' own."""
         step = state.step + 1
-        gnorm = global_norm(grads)
+        if gnorm is None:
+            gnorm = global_norm(grads)
         if self.clip_norm is not None:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
             grads = tree_map(lambda g: g * scale, grads)

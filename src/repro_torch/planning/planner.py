@@ -273,8 +273,9 @@ class Planner:
     def _resolve_tp(self, plan: PlanSpec, slo: Optional[Slo]) -> PlanSpec:
         """Resolve ``tp="auto"`` to the smallest shard count whose modeled
         tokens/s (the plan's anchor precision under the three-term model)
-        meets the SLO; without an SLO, ``tp=1``.  Pricing only: the engine
-        serves ``tp=1`` and refuses more (ROADMAP, Queue 1 item 3)."""
+        meets the SLO; without an SLO, ``tp=1``.  Pricing only: an engine
+        serves the chosen ``tp`` when each of that many ranks builds it
+        inside their process group (``serving.distributed``)."""
         if slo is None:
             return dataclasses.replace(plan, tp=1)
         anchor = self._anchor_policy(plan)

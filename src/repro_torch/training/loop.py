@@ -7,7 +7,16 @@
   * straggler watchdog: a step longer than ``watchdog_factor`` times the
     median of the trailing 20 is reported;
   * NaN guard: a non-finite loss skips its update, and once more than
-    ``max_nan_skips`` were skipped the loop raises ``FloatingPointError``.
+    ``max_nan_skips`` were skipped the loop raises ``FloatingPointError``;
+  * elastic restore under data parallelism (``dp``, the step's
+    ``DataParallel``): checkpoints hold full arrays in the reference's
+    layout, written by rank 0 after the FSDP slices are gathered, and
+    every rank restores the full tree and keeps its slice, so a directory
+    written at any data-parallel width (or by the reference) resumes at
+    any other.  The ranks agree after every step (one small all-reduce)
+    on the stop signal and the step's duration, and the loss is the
+    global batch's, so SIGTERM, the watchdog and the NaN budget decide
+    alike on every rank and no rank leaves the collectives alone.
 
 Batches go to the device the parameters live on.
 """
@@ -23,6 +32,7 @@ import torch
 
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.tree import tree_leaves
 
 
@@ -39,20 +49,32 @@ class TrainLoopConfig:
 
 class TrainLoop:
     def __init__(self, step_fn: Callable, params, opt_state,
-                 data: SyntheticLM, lcfg: TrainLoopConfig):
+                 data: SyntheticLM, lcfg: TrainLoopConfig, dp=None):
         self.step_fn = step_fn
         self.params = params
         self.opt_state = opt_state
         self.data = data
         self.lcfg = lcfg
+        self.dp = dp
         self.step = 0
         self.metrics_log: list = []
-        self._preempted = False
+        self._preempted = False          # this rank's signal
+        self._stop = False               # any rank's, agreed after a step
+        self._lead = dp is None or dp.mesh.rank == 0
         self._ckpt = (AsyncCheckpointer(lcfg.checkpoint_dir,
                                         lcfg.keep_checkpoints)
-                      if lcfg.checkpoint_dir else None)
+                      if lcfg.checkpoint_dir and self._lead else None)
         self._nan_skips = 0
         self._durations: list = []
+
+    def _stopping(self) -> bool:
+        """This rank's signal on one device; every rank's, as agreed after
+        the last step, under data parallelism."""
+        return self._preempted if self.dp is None else self._stop
+
+    def _say(self, msg: str) -> None:
+        if self._lead:
+            print(msg)
 
     # --- preemption --------------------------------------------------------
     def install_signal_handlers(self) -> None:
@@ -66,15 +88,31 @@ class TrainLoop:
         d = self.lcfg.checkpoint_dir
         if not d or latest_step(d) is None:
             return False
-        (self.params, self.opt_state), extras = restore(
-            d, (self.params, self.opt_state))
+        if self.dp is None:
+            (self.params, self.opt_state), extras = restore(
+                d, (self.params, self.opt_state))
+        else:
+            # the full tree's template, then this rank's slices
+            dp = self.dp
+            step = torch.zeros((), dtype=torch.int32, device="meta")
+            (params, state), extras = restore(
+                d, (dp.template, AdamWState(step, dp.template, dp.template)),
+                device=dp.device)
+            self.params, self.opt_state = (dp.shard(params),
+                                           dp.shard_state(state))
         self.step = int(extras.get("step", 0))
         self.data.load_state_dict(extras.get("data", {"step": self.step}))
         return True
 
     def save(self) -> None:
+        if not self.lcfg.checkpoint_dir:
+            return
+        tree = (self.params, self.opt_state)
+        if self.dp is not None:          # every rank joins the gather
+            tree = (self.dp.gather(self.params),
+                    self.dp.gather_state(self.opt_state))
         if self._ckpt:
-            self._ckpt.save(self.step, (self.params, self.opt_state),
+            self._ckpt.save(self.step, tree,
                             extras={"step": self.step,
                                     "data": self.data.state_dict()})
 
@@ -83,7 +121,7 @@ class TrainLoop:
         lcfg = self.lcfg
         dev = tree_leaves(self.params)[0].device
         it = iter(self.data)
-        while self.step < lcfg.total_steps and not self._preempted:
+        while self.step < lcfg.total_steps and not self._stopping():
             batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
                      for k, v in next(it).items()}
             t0 = time.time()
@@ -91,12 +129,15 @@ class TrainLoop:
                 self.params, self.opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0
+            if self.dp is not None:
+                stop, dt = self.dp.all_max([float(self._preempted), dt])
+                self._stop = stop > 0
 
             if not np.isfinite(loss):
                 self._nan_skips += 1
-                print(f"[train] step {self.step}: non-finite loss "
-                      f"({loss}); skipping update "
-                      f"({self._nan_skips}/{lcfg.max_nan_skips})")
+                self._say(f"[train] step {self.step}: non-finite loss "
+                          f"({loss}); skipping update "
+                          f"({self._nan_skips}/{lcfg.max_nan_skips})")
                 if self._nan_skips > lcfg.max_nan_skips:
                     raise FloatingPointError(
                         "too many non-finite losses; aborting")
@@ -108,24 +149,26 @@ class TrainLoop:
             if len(self._durations) > 20:
                 med = float(np.median(self._durations[-20:]))
                 if dt > lcfg.watchdog_factor * med and med > 0:
-                    print(f"[watchdog] step {self.step} took {dt:.2f}s "
-                          f"(median {med:.2f}s) — straggler suspected")
+                    self._say(f"[watchdog] step {self.step} took "
+                              f"{dt:.2f}s (median {med:.2f}s) — straggler "
+                              "suspected")
 
             if self.step % lcfg.log_every == 0:
                 rec = {"step": self.step, "loss": loss,
                        "grad_norm": float(metrics["grad_norm"]),
                        "sec_per_step": dt}
                 self.metrics_log.append(rec)
-                print(f"[train] step {self.step}: loss {loss:.4f} "
+                self._say(f"[train] step {self.step}: loss {loss:.4f} "
                       f"gnorm {rec['grad_norm']:.2f} {dt:.2f}s/step")
             if lcfg.checkpoint_dir and \
                     self.step % lcfg.checkpoint_every == 0:
                 self.save()
 
-        if self._preempted:
-            print("[train] preemption signal received — final checkpoint")
+        if self._stopping():
+            self._say("[train] preemption signal received — final "
+                      "checkpoint")
         self.save()
         if self._ckpt:
             self._ckpt.wait()
-        return {"final_step": self.step, "preempted": self._preempted,
+        return {"final_step": self.step, "preempted": self._stopping(),
                 "log": self.metrics_log}
