@@ -152,13 +152,20 @@ Phases (each passes or the script exits nonzero):
      granite_moe_1b_a400m the same way at full depth, with its MoE
      layers' and dense expert einsums' share of the step.  (c)
      llama2_13b, llama3_2_1b, qwen3_0_6b, h2o_danube_3_4b, starcoder2_7b
-     and mixtral_8x7b at full width cut to 2 layers: four requests on the
+     and mixtral_8x7b at full width cut to 2 layers (mixtral to 1, for
+     the run's time): four requests on the
      ring and phase 3's prompts card against CPU, every launch held.  (d)
      the smoke configs with narrow heads (D 20 and D 12) on the ring and
      the paged pool, every launch held, tokens equal to the CPU engine's;
      decode attention timed at D 20 beside D 128.  The CPU's dequantized
      weights come from the card (bit-equal, checked), its products stay
-     on the CPU.
+     on the CPU.  (e) the quantizers card against CPU on seeded inputs:
+     ``quantize_kv`` on a [8, 512, 8, 128] K tensor, ``quantize_activations``
+     on [8, 4096] at 4 and 8 bits, ``quantize_int`` on one [4096, 4096]
+     weight at 2-8 bits and ``quantize``'s codes, scales and codebook at
+     every supported width, every uniform and NF codebook: codes, scales
+     and codebooks bit-equal, beside the count of elements the formula
+     before true division (a Python-scalar divisor) put apart on the card.
  12. others — the hybrid, recurrent, vision and encoder-decoder families,
      uniform:4, int8 KV, random weights made on the card, at full width
      and depth.  (a) hymba_1_5b (group 128: only w_down is quantized, the
@@ -219,7 +226,18 @@ Phases (each passes or the script exits nonzero):
      bits restores with its two segments and abits and runs card against
      CPU with equal tokens (the int LUT-GEMV launched).  (d) the dp=2
      checkpoint resumes on one device; its next step within 1e-5 of the
-     dp=2 run's.
+     dp=2 run's.  (e) the model of (a) trained tensor-parallel at mesh
+     (1, 2): two gloo ranks on the one card, 3 steps of (a)'s batches to a
+     checkpoint written by rank 0 (gathered over both axes), against (a)'s
+     one-device steps from the same init: losses, nll and grad norms within
+     1e-5 relative, the parameter updates under (a)'s check, the leaves
+     the model axis leaves whole (the final norm) bit-equal on both ranks;
+     each step's wall time, its all-reduces' time and bytes by kind (the
+     activations' sums, the vocabulary and norm gathers, the data axis),
+     max_memory_allocated per rank.  (f) the same at (2, 2), four ranks
+     with FSDP, cut to 2 layers, against the one-device run of the cut;
+     its checkpoint resumes on one device, the next step within 1e-5 of
+     the uninterrupted one-device run's.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -3280,6 +3298,11 @@ def phase_tp(rt):
 # (llama2_13b's D 20 at G 1, starcoder2_7b's D 12 at G 3)
 FAMILY_CUT = ("llama2_13b", "llama3_2_1b", "qwen3_0_6b", "h2o_danube_3_4b",
               "starcoder2_7b", "mixtral_8x7b")
+# (c)'s depth: 2 layers, mixtral's 1: its CPU side (8 dequantized experts
+# of 4096 x 14336 a layer) made it the phase's slowest part, 37.7 s of the
+# whole run's 839 s at 2 layers, which phase 14 (e)-(f) brought near 1000 s
+# on a slower host
+FAMILY_CUT_LAYERS = {"mixtral_8x7b": 1}
 NARROW = ("llama2_13b", "starcoder2_7b")
 # phase 5 run A's pool: 8 lanes x 32 blocks of 16, no sharing, so admission
 # and prefill groups are the ring engine's
@@ -3718,27 +3741,29 @@ def step_log(arch, cfg, rec):
 
 
 def family_cut(torch, arch, res):
-    """(c): ``arch`` at full width cut to 2 layers: four of phase 4's
-    requests (8 new tokens) on the ring with every launch held, and the
-    card against the CPU."""
+    """(c): ``arch`` at full width cut to 2 layers (FAMILY_CUT_LAYERS):
+    four of phase 4's requests (8 new tokens) on the ring with every
+    launch held, and the card against the CPU."""
     import gc
     from repro_torch.models import lm
     from repro_torch.serving.engine import Engine, EngineConfig
     rec = res[arch] = {}
-    cfg, raw = family_model(torch, arch, layers=2)
+    layers = FAMILY_CUT_LAYERS.get(arch, 2)
+    depth = f"{layers} layer{'s' if layers > 1 else ''}"
+    cfg, raw = family_model(torch, arch, layers=layers)
     eng = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
     del raw
     gc.collect()
     with Held(torch, arch) as held, HeldAttn(torch, arch) as held_attn:
         _, rec["ring"] = serve_families(torch, eng, engine_requests(cfg)[:4],
-                                        cfg, f"{arch} (2 layers) ring", 8,
+                                        cfg, f"{arch} ({depth}) ring", 8,
                                         table=False)
     rec["ring"].update(held_lut=sum(held.calls.values()),
                        held_attention=held_attn.calls,
                        max_abs_err_lut=held.err["f32"],
                        max_abs_err_attention=held_attn.err)
     rec["card_vs_cpu"] = card_vs_cpu(torch, lm, eng.params, cfg,
-                                     f"{arch} at 2 layers")
+                                     f"{arch} at {depth}")
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3805,6 +3830,87 @@ def narrow_timing(torch, timer, res):
     res["narrow_timing"] = rows
 
 
+# (e): the quantizers' seeded inputs
+QUANT_KV_SHAPE = (8, 512, 8, 128)
+QUANT_ACT_SHAPE = (8, 4096)
+QUANT_W_SHAPE = (4096, 4096)
+QUANT_GROUP = 128
+
+
+def quant_card_vs_cpu(torch, res):
+    """(e): each quantizer on the card against the CPU on the same seeded
+    inputs, codes, scales and codebooks bit-equal; beside, the elements
+    the formula before true division (the absmax, or the codebook grid,
+    divided by a Python scalar, which CUDA turns into a product with the
+    reciprocal) put apart on the card."""
+    from repro_torch.core import quant as Q
+    gen = torch.Generator().manual_seed(11)
+    kv = torch.randn(QUANT_KV_SHAPE, generator=gen)
+    act = torch.randn(QUANT_ACT_SHAPE, generator=gen) * 3.0
+    w = torch.randn(QUANT_W_SHAPE, generator=gen) * 0.02
+    rows = {}
+
+    def nonzero(absmax):
+        return torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+
+    def parent_codebook(bits):
+        if bits == 1:
+            return Q._uniform_codebook(1, device="cuda")
+        grid = (torch.arange(1 << bits, dtype=torch.float32, device="cuda")
+                - float(1 << (bits - 1)))
+        return grid / float(max((1 << (bits - 1)) - 1, 1))
+
+    def row(name, card, cpu, parent):
+        rows[name] = dict(
+            elements=sum(b.numel() for b in cpu),
+            differ=sum(int((a.cpu() != b).sum()) for a, b in zip(card, cpu)),
+            differ_parent=sum(int((a.cpu() != b).sum())
+                              for a, b in zip(parent, cpu)))
+
+    k = kv.cuda()
+    scale = nonzero(k.abs().amax(dim=-1, keepdim=True)) / 127.0
+    row("quantize_kv", Q.quantize_kv(k), Q.quantize_kv(kv),
+        (torch.clamp(torch.round(k / scale), -127, 127).to(torch.int8),
+         scale))
+    x = act.cuda()
+    for bits in (4, 8):
+        qmax = (1 << (bits - 1)) - 1
+        scale = nonzero(x.abs().amax(dim=-1, keepdim=True)) / qmax
+        row(f"quantize_activations a{bits}", Q.quantize_activations(x, bits),
+            Q.quantize_activations(act, bits),
+            (torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32),
+             scale))
+    wc = w.cuda()
+    wg = wc.reshape(-1, QUANT_GROUP, wc.shape[1])
+    for bits in range(2, 9):
+        qmax = (1 << (bits - 1)) - 1
+        scale = nonzero(wg.abs().amax(dim=1)) / qmax
+        codes = torch.clamp(torch.round(wg / scale[:, None, :]), -qmax - 1,
+                            qmax).reshape(wc.shape).to(torch.int32)
+        row(f"quantize_int b{bits}", Q.quantize_int(wc, bits, QUANT_GROUP),
+            Q.quantize_int(w, bits, QUANT_GROUP), (codes, scale))
+    for bits in Q.SUPPORTED_BITS:
+        row(f"quantize b{bits}", Q._group_codes(wc, bits, QUANT_GROUP, None),
+            Q._group_codes(w, bits, QUANT_GROUP, None),
+            Q._group_codes(wc, bits, QUANT_GROUP, parent_codebook(bits)))
+    for bits in range(1, 9):
+        row(f"uniform codebook b{bits}",
+            (Q._uniform_codebook(bits, device="cuda"),),
+            (Q._uniform_codebook(bits),), (parent_codebook(bits),))
+        row(f"nf codebook b{bits}", (Q.nf_codebook(bits, device="cuda"),),
+            (Q.nf_codebook(bits),), (Q.nf_codebook(bits, device="cuda"),))
+    res["quantizers"] = rows
+    apart = {k: v for k, v in rows.items() if v["differ"]}
+    log(f"[families] (e) quantizers card vs CPU: "
+        f"{sum(v['elements'] for v in rows.values())} elements over "
+        f"{len(rows)} outputs, {sum(v['differ'] for v in rows.values())} "
+        f"apart; the formula before true division: "
+        + ", ".join(f"{k} {v['differ_parent']} of {v['elements']}"
+                    for k, v in rows.items() if v["differ_parent"]))
+    if apart:
+        fail(f"families (e): quantizers differ on the card: {apart}")
+
+
 def phase_families(rt):
     import torch
     timer = Timer(torch)
@@ -3814,11 +3920,12 @@ def phase_families(rt):
                                               res)),
             ("granite_moe_1b_a400m", lambda: family_full(
                 torch, timer, "granite_moe_1b_a400m", res))]
-    subs += [(f"{a} (2 layers)", lambda a=a: family_cut(torch, a, res))
+    subs += [(f"{a} (cut)", lambda a=a: family_cut(torch, a, res))
              for a in FAMILY_CUT]
     subs += [(f"{a} smoke", lambda a=a: family_narrow(torch, timer, a, res))
              for a in NARROW]
     subs.append(("narrow timing", lambda: narrow_timing(torch, timer, res)))
+    subs.append(("quantizers", lambda: quant_card_vs_cpu(torch, res)))
     for name, fn in subs:
         t0 = time.perf_counter()
         fn()
@@ -4703,7 +4810,7 @@ def phase_train(rt):
 
 
 # ---------------------------------------------------------------------------
-# phase 14: data-parallel training and quantized checkpoints
+# phase 14: data- and tensor-parallel training, quantized checkpoints
 # ---------------------------------------------------------------------------
 
 DIST_WORLD = 2
@@ -4724,6 +4831,9 @@ COMPRESS_SHAPES = {"wq": (1024, 1024), "w_up": (1024, 4096), "norm": (1024,)}
 CUT_ALLOCATION = dict(per_path={"['blocks']['attn']['wq']": (4, 6)},
                       act_per_path={"['blocks']['mlp']['w_up']": 8})
 SERVE_FIELDS = dict(batch_size=8, cache_len=512, quant_kv=True)
+# (e), (f): the tensor-parallel runs' mesh (data, model) and depth (None:
+# full depth)
+TP_TRAIN = {"e": ((1, 2), None), "f": ((2, 2), CUT_LAYERS)}
 
 
 class AllReduceLog:
@@ -4738,6 +4848,7 @@ class AllReduceLog:
     def __init__(self, torch):
         import torch.distributed as dist
         self.torch, self.dist, self.calls = torch, dist, []
+        self.groups = []            # each call's process group
 
     def __enter__(self):
         self.orig = self.dist.all_reduce
@@ -4752,6 +4863,7 @@ class AllReduceLog:
             self.torch.cuda.synchronize()
             self.calls.append((t.numel() * t.element_size(),
                                time.perf_counter() - t1, t1 - t0))
+            self.groups.append(group)
             return out
         self.dist.all_reduce = timed
         return self
@@ -4835,30 +4947,27 @@ def compressed_rounds(torch, rank, world, dev, group):
     return rec
 
 
-def dist_rank(rank, world, out_dir, ckpt, qdir):
-    """One rank of phase 14 (every rank runs this; rank 0 logs and writes
-    ``dist.json``): (a) full-width tinymistral trained data-parallel over
-    gloo, all ranks on the one card, FSDP as ``make_plan`` decides, on the
-    global batches of phase 13, a checkpoint after ``DIST_STEPS`` and one
-    step more; (b) the compressed all-reduce; (c) rank 0 saves the
-    checkpointed tree quantized under the engine's ``uniform:4`` plan."""
-    import torch
-    from repro_torch.checkpoint import save_quantized
-    from repro_torch.launch.mesh import describe, make_mesh, rank_device
+def mesh_rank_train(torch, rank, shape, layers, ckpt):
+    """Phase 14's rank set-up: tinymistral at full width (cut to
+    ``layers``; None: full depth) made on this rank's card from seed 0,
+    its ``build_train_step`` over a ``(data, model)`` mesh of ``shape``
+    (FSDP as ``make_plan`` decides), this rank's slices, and a
+    ``TrainLoop`` of DIST_STEPS timed steps on phase 13's global batches
+    whose final checkpoint goes to ``ckpt``.  Run the loop inside ``with
+    ars:`` and each step's all-reduces land in ``spans``.  Returns a dict
+    of those objects and the parameter counts."""
+    from repro_torch.launch.mesh import make_mesh, rank_device
     from repro_torch.launch.steps import build_train_step
-    from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.training.loop import TrainLoop, TrainLoopConfig
     from repro_torch.tree import tree_leaves
-    t0 = time.perf_counter()
-    seconds = {}
     dev = rank_device(rank, "cuda")
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    mesh = make_mesh((world, 1), ("data", "model"))
-    cfg, params = family_model(torch, TRAIN_ARCH)
+    mesh = make_mesh(shape, ("data", "model"))
+    cfg, params = family_model(torch, TRAIN_ARCH, layers=layers)
     built = build_train_step(cfg, mesh=mesh, device=dev)
-    dp, plan = built.meta["dp"], built.meta["plan"]
+    dp = built.meta["dp"]
     n_params = sum(p.numel() for p in tree_leaves(params))
     params = dp.shard(params)
     n_local = sum(p.numel() for p in tree_leaves(params))
@@ -4867,7 +4976,7 @@ def dist_rank(rank, world, out_dir, ckpt, qdir):
     torch.cuda.reset_peak_memory_stats(dev)
     timed = TimedStep(torch, built.fn)
     step = MetricsStep(timed)
-    spans = []            # each step's all-reduces: (first, end) indices
+    ars, spans = AllReduceLog(torch), []
 
     def marked(p, o, b):
         first = len(ars.calls)
@@ -4879,8 +4988,58 @@ def dist_rank(rank, world, out_dir, ckpt, qdir):
                      TrainLoopConfig(total_steps=DIST_STEPS, log_every=1,
                                      checkpoint_every=10 ** 9,
                                      checkpoint_dir=ckpt), dp=dp)
+    return dict(dev=dev, mesh=mesh, cfg=cfg, built=built, dp=dp,
+                plan=built.meta["plan"], loop=loop, timed=timed, step=step,
+                ars=ars, spans=spans, params=n_params, local_params=n_local)
+
+
+def step_records(run, kind=None) -> list:
+    """Each step's wall time and device span, and its all-reduces: time,
+    share of the step, the wait for the peers, bytes each; with ``kind``
+    (call index -> name) their count, bytes and time by kind."""
+    timed, ars = run["timed"], run["ars"]
+    out = []
+    for i, (first, end) in enumerate(run["spans"]):
+        calls = ars.calls[first:end]
+        ar_s = sum(c[1] for c in calls)
+        wait_s = sum(c[2] for c in calls)
+        rec = dict(
+            wall_ms=timed.wall_ms[i], device_ms=timed.ms[i],
+            allreduces=len(calls), allreduce_ms=ar_s * 1e3,
+            allreduce_share=ar_s * 1e3 / timed.wall_ms[i],
+            wait_ms=wait_s * 1e3, wait_share=wait_s * 1e3 / timed.wall_ms[i],
+            allreduce_bytes=[c[0] for c in calls],
+            allreduce_each_ms=[c[1] * 1e3 for c in calls],
+            wait_each_ms=[c[2] * 1e3 for c in calls])
+        if kind is not None:
+            kinds = rec["kinds"] = {}
+            for j in range(first, end):
+                k = kinds.setdefault(kind(j), dict(count=0, bytes=0, ms=0.0))
+                k["count"] += 1
+                k["bytes"] += ars.calls[j][0]
+                k["ms"] += ars.calls[j][1] * 1e3
+        out.append(rec)
+    return out
+
+
+def dist_rank(rank, world, out_dir, ckpt, qdir):
+    """One rank of phase 14 (every rank runs this; rank 0 logs and writes
+    ``dist.json``): (a) full-width tinymistral trained data-parallel over
+    gloo, all ranks on the one card, FSDP as ``make_plan`` decides, on the
+    global batches of phase 13, a checkpoint after ``DIST_STEPS`` and one
+    step more; (b) the compressed all-reduce; (c) rank 0 saves the
+    checkpointed tree quantized under the engine's ``uniform:4`` plan."""
+    import torch
+    from repro_torch.checkpoint import save_quantized
+    from repro_torch.launch.mesh import describe
+    from repro_torch.serving.engine import Engine, EngineConfig
+    t0 = time.perf_counter()
+    seconds = {}
+    run = mesh_rank_train(torch, rank, (world, 1), None, ckpt)
+    dev, dp, loop, built = run["dev"], run["dp"], run["loop"], run["built"]
+    plan, cfg = run["plan"], run["cfg"]
     seconds["init"] = time.perf_counter() - t0
-    with AllReduceLog(torch) as ars:
+    with run["ars"]:
         t0 = time.perf_counter()
         loop.run()         # 3 steps, then the checkpoint's gather and write
         seconds["train"] = time.perf_counter() - t0
@@ -4889,24 +5048,12 @@ def dist_rank(rank, world, out_dir, ckpt, qdir):
                             loop.data.next_batch())
         m4 = {k: float(v) for k, v in m4.items()}
         seconds["step4"] = time.perf_counter() - t0
-    per_step = []
-    for i, (first, end) in enumerate(spans):
-        calls = ars.calls[first:end]
-        ar_s = sum(c[1] for c in calls)
-        wait_s = sum(c[2] for c in calls)
-        per_step.append(dict(
-            wall_ms=timed.wall_ms[i], device_ms=timed.ms[i],
-            allreduces=len(calls), allreduce_ms=ar_s * 1e3,
-            allreduce_share=ar_s * 1e3 / timed.wall_ms[i],
-            wait_ms=wait_s * 1e3, wait_share=wait_s * 1e3 / timed.wall_ms[i],
-            allreduce_bytes=[c[0] for c in calls],
-            allreduce_each_ms=[c[1] * 1e3 for c in calls],
-            wait_each_ms=[c[2] * 1e3 for c in calls]))
-    rec = dict(group=describe(mesh), device=str(dev),
+    rec = dict(group=describe(run["mesh"]), device=str(dev),
                plan=dict(dp_axes=plan.dp_axes, tp_axis=plan.tp_axis,
                          fsdp=plan.fsdp),
-               params=n_params, local_params=n_local,
-               metrics=step.metrics, step4=m4, per_step=per_step,
+               params=run["params"], local_params=run["local_params"],
+               metrics=run["step"].metrics, step4=m4,
+               per_step=step_records(run),
                max_memory_allocated_gb=torch.cuda.max_memory_allocated(dev)
                / 1e9, seconds=seconds)
     t0 = time.perf_counter()
@@ -4924,12 +5071,13 @@ def dist_rank(rank, world, out_dir, ckpt, qdir):
         json.dump(rec, f, indent=1)
 
 
-def dist_reference(torch, res):
-    """Phase 13's one-device step from the same init on the same global
-    batches: DIST_STEPS steps (their metrics; the init, the parameters and
-    AdamW's moments after them, on the host), then one more."""
+def one_device_run(torch, layers=None):
+    """Phase 13's one-device step (cut to ``layers``) from the mesh runs'
+    init on the same global batches: DIST_STEPS steps (the init, the
+    parameters and AdamW's moments after them, on the host), then one
+    more; (that record, the four steps' metrics)."""
     from repro_torch.tree import tree_leaves
-    cfg, params = family_model(torch, TRAIN_ARCH)
+    cfg, params = family_model(torch, TRAIN_ARCH, layers=layers)
     ref = dict(init=[x.cpu() for x in tree_leaves(params)])
     loop, step = train_loop(torch, cfg, params, TRAIN_B, TRAIN_T,
                             DIST_STEPS)
@@ -4941,7 +5089,13 @@ def dist_reference(torch, res):
                nu=[x.cpu() for x in tree_leaves(loop.opt_state.nu)])
     loop.lcfg.total_steps = DIST_STEPS + 1
     loop.run()
-    res["one_device"] = dict(metrics=step.metrics)
+    return ref, step.metrics
+
+
+def dist_reference(torch, res):
+    """(a)'s and (e)'s reference: the one-device run at full depth."""
+    ref, metrics = one_device_run(torch)
+    res["one_device"] = dict(metrics=metrics)
     return ref
 
 
@@ -5194,6 +5348,170 @@ def dist_resume(torch, res, ranks, ckpt):
         fail("dist (d): the resumed step differs from the dp=2 run's")
 
 
+def tp_train_rank(rank, part, out_dir, ckpt):
+    """One rank of (e) or (f): tinymistral at full width (depth as
+    TP_TRAIN says) trained over the part's (data, model) mesh, every rank
+    on the one card, FSDP as ``make_plan`` decides, on phase 13's global
+    batches; DIST_STEPS steps, then the loop's final checkpoint (gathered
+    over both axes, written by rank 0).  Rank r writes
+    ``tp_<part>_rank<r>.json``: metrics, each step's wall time and device
+    span, its all-reduces by kind, the digest of the leaves the model axis
+    leaves whole, max_memory_allocated."""
+    import hashlib
+    import torch
+    from repro_torch.launch.mesh import describe
+    from repro_torch.tree import tree_leaves
+    shape, layers = TP_TRAIN[part]
+    t0 = time.perf_counter()
+    seconds = {}
+    run = mesh_rank_train(torch, rank, shape, layers, ckpt)
+    dp, loop, ars, cfg = run["dp"], run["loop"], run["ars"], run["cfg"]
+    seconds["init"] = time.perf_counter() - t0
+    with ars:
+        t0 = time.perf_counter()
+        loop.run()            # the steps, then the gather and rank 0's write
+        seconds["train"] = time.perf_counter() - t0
+    act = TRAIN_B // shape[0] * TRAIN_T * cfg.d_model * 4
+
+    def kind(i):
+        nbytes, group = ars.calls[i][0], ars.groups[i]
+        if group is not None and group is dp.tp_group:
+            if nbytes == act:
+                return "activations"
+            return "model gathers" if nbytes > 64 else "model scalars"
+        if group is not None and group is dp.group:
+            return "data axis"
+        return "other"
+    whole = [p for p, m in zip(tree_leaves(loop.params), dp.model_dims)
+             if m is None]
+    digest = hashlib.sha256(b"".join(
+        p.cpu().numpy().tobytes() for p in whole)).hexdigest()
+    plan, mesh = run["plan"], run["mesh"]
+    rec = dict(part=part, shape=shape, layers=cfg.n_layers,
+               group=describe(mesh), device=str(run["dev"]),
+               coords=(mesh.coord("data"), mesh.coord("model")),
+               plan=dict(dp_axes=plan.dp_axes, tp_axis=plan.tp_axis,
+                         fsdp=plan.fsdp),
+               params=run["params"], local_params=run["local_params"],
+               metrics=run["step"].metrics,
+               per_step=step_records(run, kind), activation_bytes=act,
+               whole_leaves=len(whole),
+               whole_elements=sum(p.numel() for p in whole),
+               whole_digest=digest,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated(
+                   run["dev"]) / 1e9, seconds=seconds)
+    with open(os.path.join(out_dir, f"tp_{part}_rank{rank}.json"), "w") as f:
+        json.dump(rec, f, indent=1)
+
+
+def tp_train_hold(torch, res, part, ref, one, ckpt):
+    """(e), (f): the ranks' metrics against the one-device run's ``one``
+    (within TRAIN_LOSS_RTOL), the whole leaves' digests equal across each
+    data coordinate's model ranks, the checkpoint's parameters and updates
+    against ``ref`` under (a)'s checks."""
+    import dataclasses
+    import repro_torch.configs as C
+    from repro_torch.checkpoint import restore
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.tree import tree_flatten_with_path
+    shape, layers = TP_TRAIN[part]
+    world = shape[0] * shape[1]
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(OUT_DIR, f"tp_{part}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    worst = 0.0
+    for rec in ranks:
+        for m, w in zip(rec["metrics"], one):
+            if m["step"] != w["step"]:
+                fail(f"dist ({part}): step {m['step']} against {w['step']}")
+            for key in ("loss", "nll", "grad_norm"):
+                worst = max(worst, abs(m[key] - w[key]) / abs(w[key]))
+    digests = collections.defaultdict(set)
+    for rec in ranks:
+        digests[rec["coords"][0]].add(rec["whole_digest"])
+    whole_equal = all(len(d) == 1 for d in digests.values())
+    cfg = C.get_config(TRAIN_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    raw = lm.init_params(cfg, None, device="meta")
+    step0 = torch.zeros((), dtype=torch.int32, device="meta")
+    (params, opt), extras = restore(ckpt, (raw, AdamWState(step0, raw, raw)),
+                                    step=DIST_STEPS, device="cuda")
+    param_err, param_leaf = max(
+        (float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30),
+         path) for (path, a), b in zip(tree_flatten_with_path(params),
+                                       ref["after"]))
+    upd = update_agreement(torch, params, opt, ref)
+    del params, opt
+    r0 = ranks[0]
+    hold = dict(metrics_rel_err=worst, whole_leaves_equal=whole_equal,
+                param_err_of_leaf_max=param_err, param_err_leaf=param_leaf,
+                updates=upd, checkpoint_step=extras["step"])
+    res[f"tp_{part}"] = dict(ranks=ranks, hold=hold)
+    wf = upd["worst_fraction"]
+    log(f"[dist] ({part}) {r0['group']}, {r0['layers']} layers, every rank "
+        f"on {r0['device']} ({card_line()}), plan {r0['plan']}: each rank "
+        f"holds {r0['local_params'] / 1e6:.1f}M of "
+        f"{r0['params'] / 1e6:.1f}M parameters; per step (rank 0) "
+        + "; ".join(f"{s['wall_ms']:.1f} ms wall, {s['device_ms']:.1f} ms "
+                    f"device, {s['allreduces']} all-reduces "
+                    f"{s['allreduce_ms']:.1f} ms "
+                    f"({100 * s['allreduce_share']:.1f}%, "
+                    f"{sum(s['allreduce_bytes']) / 1e6:.1f} MB) after waiting "
+                    f"{s['wait_ms']:.1f} ms ({100 * s['wait_share']:.1f}%)"
+                    for s in r0["per_step"])
+        + "; by kind in the last step "
+        + ", ".join(f"{k} {v['count']} x {v['bytes'] / 1e6:.1f} MB "
+                    f"{v['ms']:.1f} ms"
+                    for k, v in r0["per_step"][-1]["kinds"].items())
+        + f"; max memory allocated per rank "
+        f"{[round(r['max_memory_allocated_gb'], 2) for r in ranks]} GB")
+    log(f"[dist] ({part}) against one device, {DIST_STEPS} steps: loss / "
+        f"nll / grad norm worst {worst:.2e} relative (tolerance "
+        f"{TRAIN_LOSS_RTOL}); the {r0['whole_leaves']} leaves the model axis "
+        f"leaves whole ({r0['whole_elements']} elements) bit-equal across "
+        f"model ranks {whole_equal}; parameters (rank 0's checkpoint) worst "
+        f"{param_err:.2e} of a leaf's max in {param_leaf}; updates "
+        f"{upd['outside']} of {upd['elements']} elements outside, worst leaf "
+        f"{wf['leaf']} {wf['outside_fraction']:.2e} (allowed "
+        f"{DIST_UPDATE_OUTLIERS})")
+    if worst > TRAIN_LOSS_RTOL or not whole_equal \
+            or param_err > DIST_PARAM_TOL \
+            or wf["outside_fraction"] > DIST_UPDATE_OUTLIERS \
+            or extras["step"] != DIST_STEPS \
+            or len(ranks[0]["metrics"]) != DIST_STEPS:
+        fail(f"dist ({part}): the tensor-parallel run differs from one "
+             f"device")
+
+
+def tp_train_resume(torch, res, ckpt, one):
+    """(f): the (2, 2) checkpoint resumed on one device: its next step's
+    metrics against the uninterrupted one-device run's."""
+    _, layers = TP_TRAIN["f"]
+    cfg, fresh = family_model(torch, TRAIN_ARCH, layers=layers)
+    loop, step = train_loop(torch, cfg, fresh, TRAIN_B, TRAIN_T,
+                            DIST_STEPS + 1, ckpt=ckpt)
+    step = MetricsStep(step)
+    loop.step_fn = step
+    restored = loop.maybe_restore()
+    at = loop.step
+    loop.run()
+    got, want = step.metrics[-1], one[DIST_STEPS]
+    err = max(abs(got[k] - want[k]) / abs(want[k])
+              for k in ("loss", "nll", "grad_norm"))
+    res["tp_f"]["resume"] = dict(restored=restored, restored_step=at,
+                                 step=got, one_device_step=want, rel_err=err)
+    log(f"[dist] (f) the (2, 2) checkpoint resumed on one device at step "
+        f"{at}: step {got['step']} loss {got['loss']:.6f} against the "
+        f"uninterrupted one-device run's {want['loss']:.6f} (worst "
+        f"{err:.2e} relative, tolerance {TRAIN_LOSS_RTOL})")
+    if not restored or at != DIST_STEPS or got["step"] != DIST_STEPS + 1 \
+            or err > TRAIN_LOSS_RTOL:
+        fail("dist (f): the resumed step differs from one device's")
+
+
 def phase_dist(rt):
     import torch
     from repro_torch.launch.mesh import run_ranks
@@ -5202,7 +5520,10 @@ def phase_dist(rt):
     ckpt = os.path.join(OUT_DIR, "dist_ckpt")
     qdir = os.path.join(OUT_DIR, "dist_quant")
     cut_dir = os.path.join(OUT_DIR, "dist_quant_cut")
-    for d in (ckpt, qdir, cut_dir):
+    tp_dirs = {part: os.path.join(OUT_DIR, f"tp_{part}_ckpt")
+               for part in TP_TRAIN}
+    dirs = (ckpt, qdir, cut_dir) + tuple(tp_dirs.values())
+    for d in dirs:
         shutil.rmtree(d, ignore_errors=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     try:
@@ -5243,8 +5564,15 @@ def phase_dist(rt):
         t0 = time.perf_counter()
         cfg, trained = dist_hold(torch, res, ranks, ref, ckpt,
                                  rt.get("train"))
-        del ref
         seconds["hold"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_ranks(tp_train_rank, 2, args=("e", OUT_DIR, tp_dirs["e"]))
+        seconds["tp (1, 2) ranks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp_train_hold(torch, res, "e", ref, res["one_device"]["metrics"],
+                      tp_dirs["e"])
+        del ref
+        seconds["tp (1, 2) hold"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         dist_serve(torch, res, cfg, trained, qdir)
         seconds["serve"] = time.perf_counter() - t0
@@ -5256,8 +5584,15 @@ def phase_dist(rt):
         t0 = time.perf_counter()
         dist_resume(torch, res, ranks, ckpt)
         seconds["resume"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref, one = one_device_run(torch, TP_TRAIN["f"][1])
+        torch.cuda.empty_cache()
+        run_ranks(tp_train_rank, 4, args=("f", OUT_DIR, tp_dirs["f"]))
+        tp_train_hold(torch, res, "f", ref, one, tp_dirs["f"])
+        tp_train_resume(torch, res, tp_dirs["f"], one)
+        seconds["tp (2, 2)"] = time.perf_counter() - t0
     finally:
-        for d in (ckpt, qdir, cut_dir):
+        for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
     log(f"[dist] seconds {seconds}")
 
@@ -5345,7 +5680,7 @@ def families_fields(families: dict, name: str) -> dict:
     int LUT-GEMV and typeconv are on none of them), each held set's worst
     error, and the llama2_7b step's and the narrow heads' timings."""
     fam = {k: v for k, v in families.items()
-           if k not in ("seconds", "narrow_timing")}
+           if k not in ("seconds", "narrow_timing", "quantizers")}
     out = {"launches_families": {
         f"{arch} {run}": rec[run]["launches"][name]
         for arch, rec in fam.items() for run in ("ring", "paged")

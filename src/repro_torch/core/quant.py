@@ -15,6 +15,13 @@ Packed words are carried as ``torch.int32`` bit patterns: PyTorch on the
 CPU has no shifts on ``torch.uint32``, so shifts run on int64 copies
 masked to 32 bits, and the CUDA kernels reinterpret the same words as
 ``uint32_t``.
+
+Every divisor on the way to codes, scales and codebooks is a tensor on
+the operand's device: torch's CUDA division by a Python scalar multiplies
+by the scalar's reciprocal, one rounding off the true quotient that XLA
+and torch on the CPU compute.  The divisor is filled on the device
+(``new_full``), not copied from the host, so a decode step that
+quantizes still captures as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -179,7 +186,7 @@ def _uniform_codebook(bits: int, device=None) -> torch.Tensor:
     qmax = (1 << (bits - 1)) - 1
     grid = (torch.arange(1 << bits, dtype=torch.float32, device=device)
             - float(1 << (bits - 1)))
-    return grid / float(max(qmax, 1))
+    return grid / grid.new_full((), float(max(qmax, 1)))
 
 
 def nf_codebook(bits: int, device=None) -> torch.Tensor:
@@ -288,7 +295,7 @@ def quantize_int(w: torch.Tensor, bits: int, group_size: int = 128):
     wg = w.to(torch.float32).reshape(k // group_size, group_size, n)
     absmax = wg.abs().amax(dim=1)
     absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
-    scale = absmax / qmax
+    scale = absmax / absmax.new_full((), float(qmax))
     wq = torch.clamp(torch.round(wg / scale[:, None, :]), -qmax - 1, qmax)
     return wq.reshape(k, n).to(torch.int32), scale
 
@@ -310,7 +317,7 @@ def quantize_activations(x: torch.Tensor, bits: int = 8,
     if k_sharded:
         absmax = tp_axis_max(absmax)
     absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
-    scale = absmax / qmax
+    scale = absmax / absmax.new_full((), float(qmax))
     xq = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
     return xq, scale
 
@@ -320,7 +327,7 @@ def quantize_kv(x: torch.Tensor, axis: int = -1):
     Returns (int8 codes, f32 scales broadcastable against codes)."""
     absmax = x.abs().amax(dim=axis, keepdim=True)
     absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
-    scale = absmax / 127.0
+    scale = absmax / absmax.new_full((), 127.0)
     codes = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return codes, scale.to(torch.float32)
 

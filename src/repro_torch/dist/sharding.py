@@ -22,16 +22,35 @@ reference), and a leaf of the port's trees.  ``_trim_spec`` drops every
 axis that the mesh lacks or that does not divide its dim.
 
 **Collectives.**  Model code stays unaware of the shard count.  Under
-tensor-parallel serving, row-parallel matmuls (``wo``, ``w_down``) pass
-their partial sums through ``tp_all_reduce`` and the activation
-quantization of their K-sharded inputs passes its per-token absmax
-through ``tp_axis_max``.  Under data-parallel training, the loss's
-denominators (``lm.chunked_nll``'s token count, the MoE load-balancing
-fractions) pass through ``dp_sum``, so each rank's loss is its share of
-the global batch's.  Outside a ``tp_context`` / ``dp_context`` all three
-are the identity, so single-device code launches exactly what it
-launched before; inside, each is one ``torch.distributed`` all-reduce
-over the context's process group.
+tensor parallelism, row-parallel matmuls (``wo``, ``w_down``) pass their
+partial sums through ``tp_all_reduce``, a replicated tensor passes
+through ``tp_copy`` where it meets this rank's shard (the activation
+entering the column-parallel ``wq / wk / wv`` and ``w_gate / w_up``, the
+qk-norm scales applied to this rank's heads), and the activation
+quantization of a K-sharded input passes its per-token absmax through
+``tp_axis_max``.
+Under data-parallel training, the loss's denominators
+(``lm.chunked_nll``'s token count, the MoE load-balancing fractions)
+pass through ``dp_sum``, so each rank's loss is its share of the global
+batch's.  Outside a ``tp_context`` / ``dp_context`` all four are the
+identity, so single-device code launches exactly what it launched
+before; inside, each is one ``torch.distributed`` all-reduce over the
+context's process group, or none.
+
+Tensor-parallel training differentiates through Megatron's pair of
+operators (``torch.autograd.Function``s), taken only where autograd
+records the call (grad mode on and the input requiring grad):
+``tp_all_reduce`` sums in the forward pass and passes the gradient
+through; ``tp_copy`` passes the activation through and sums its gradient
+over the group in the backward pass.  So the gradient of every
+replicated activation, and of every replicated leaf (norms, embeddings,
+the qk-norm scales), is whole and the same on every rank.  Serving records
+nothing and takes the plain paths: ``tp_copy`` launches nothing, and
+``tp_all_reduce`` sums in place, at wire 8 or 32.  A backward pass that
+recomputes a layer (``models.remat``) issues that layer's forward
+collectives again, in the same order on every rank, up to the last
+tensor the backward pass needs (in a block, ``wo``'s sum and not
+``w_down``'s).
 
 The reference's ``maybe_constrain`` (a sharding hint to XLA) is a no-op
 without an XLA mesh, and the port omits its calls.
@@ -210,18 +229,75 @@ def tp_active() -> bool:
     return bool(_TP_STATE)
 
 
+def _records(x: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``x`` (training, not serving)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _SumForward(torch.autograd.Function):
+    """Forward: the sum over ``group``; backward: the gradient as is."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _SumBackward(torch.autograd.Function):
+    """Forward: the identity; backward: the gradient's sum over
+    ``group`` (the group of the forward call, whatever context the
+    backward pass runs in)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
 def tp_all_reduce(x: torch.Tensor) -> torch.Tensor:
     """Sum row-parallel partial results over the group (identity outside
     a ``tp_context``).  At wire 8 each rank sends its partial sums
     quantize-dequantized to int8 codes with one scale for the whole
     tensor (``dist.compress``): no error feedback, since inference has
-    no next iteration to carry a residual into."""
+    no next iteration to carry a residual into.  Where autograd records
+    the call (training) the sum is a new tensor whose gradient passes
+    through unchanged, at wire 32 only."""
     if not tp_active():
         return x
     group, wire = _TP_STATE[-1]
+    if _records(x):
+        if wire != 32:
+            raise ValueError(
+                f"tensor-parallel training sums at wire 32, not {wire}: "
+                "the int8 wire has no gradient")
+        return _SumForward.apply(x, group)
     x = _quantize_dequantize(x) if wire == 8 else x.contiguous()
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     return x
+
+
+def tp_copy(x: torch.Tensor) -> torch.Tensor:
+    """A replicated tensor meeting this rank's shard (an activation
+    entering column-parallel matmuls, a scale applied to this rank's
+    heads): the identity, whose gradient is summed over the group where
+    autograd records the call (each rank's shard gives a partial
+    gradient).
+    Launches nothing in the forward pass; the identity outside a
+    ``tp_context`` and wherever autograd records nothing (serving)."""
+    if not tp_active() or not _records(x):
+        return x
+    return _SumBackward.apply(x, _TP_STATE[-1][0])
 
 
 def tp_axis_max(x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """The train step (port of the train part of ``repro.launch.steps``), on
-one device or data-parallel over a mesh.
+one device or over a ``(data, model)`` mesh of ranks.
 
 ``build_train_step`` returns ``fn(params, opt_state, batch) -> (params,
 opt_state, metrics)``: the loss and its gradients (averaged over
@@ -16,23 +16,39 @@ So a trained tree goes straight into ``sail_linear.quantize_params`` and
 the ``Engine``, where a tree that required grad would record autograd
 graphs through the KV pool's in-place writes.
 
-**Data parallelism** (``mesh``, a ``launch.mesh.Mesh`` of shape (D, 1)
-over ``("data", "model")``): the step computes the reference's step over
-the global batch, which the reference's ``jit`` runs as one program.
-Each rank takes its rows (``DataParallel.rows``) and runs the model under
+**Over a mesh** (``mesh``, a ``launch.mesh.Mesh`` over ``("data",
+"model")``) the step computes the reference's step over the global
+batch, which the reference's ``jit`` runs as one program on the mesh.
+Each rank stores its ``param_spec`` slice of the masters and of both
+AdamW moments, on both axes (``MeshRank.shard``).
+
+*Data axis.*  Each rank takes the rows of its data coordinate
+(``MeshRank.rows``) and runs the model under
 ``dist.sharding.dp_context``, where the loss's denominators are the whole
 batch's: its loss is its share of the global batch's loss, a ``mask``
 that differs across ranks and the MoE load-balancing term included, and
-the shares' gradients sum to the global gradient.  One all-reduce per
-step sums them (every gradient leaf and the loss in one flat buffer).
-Under FSDP (``make_plan``'s default for D > 1) each rank keeps only its
-slice of every parameter and AdamW moment (the data entry of
-``param_spec``, trimmed) and gathers the full tree for the forward pass;
-the gathered gradient's norm clips every rank's slice alike.  gloo on
-CUDA tensors offers ``all_reduce`` and ``broadcast`` only, so the gather
-is an all-reduce of zero-filled buffers: exact, since each element has
-one nonzero term.  A model axis larger than 1 (tensor-parallel training)
-is refused.
+the shares' gradients sum to the global gradient.  One all-reduce over
+the data axis per step sums them (every gradient leaf and the loss in one
+flat buffer).  Under FSDP (``make_plan``'s default for D > 1) the step
+gathers the data axis's slices for the forward pass and keeps its slice
+of the summed gradient.  gloo on CUDA tensors offers ``all_reduce`` and
+``broadcast`` only, so a gather is an all-reduce of zero-filled buffers:
+exact, since each element has one nonzero term.
+
+*Model axis* (M > 1, tensor parallelism, Megatron style; the configs
+``serving.distributed.tp_supported`` accepts: dense, no biases, heads,
+KV heads and ``d_ff`` divisible by M).  The seven block matrices stay
+sharded: the model runs ``local_config(cfg, M)`` over this rank's heads
+and FFN slice inside ``tp_context`` (wire 32), whose differentiable
+collectives make the gradient of every replicated activation whole.
+Every other leaf the model axis shards (the embedding's and
+``lm_head``'s vocabulary, the stacked norms' width) is gathered over the
+model axis too, so the embedding, the norms, the logits and the loss run
+replicated, as in tensor-parallel serving; their gradients come out whole
+and the same on every model rank, which keeps its slice.  The global
+gradient norm sums the model-sharded leaves' squares over the model axis
+and adds the others' once.  The M ranks of a data coordinate see the
+same rows, and the metrics are the same on every rank.
 
 The serving steps (``build_prefill_step``, ``build_serve_step``) and
 ``auto_microbatches`` are built on the reference's mesh and shape specs;
@@ -49,13 +65,17 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import (dp_context, make_plan,
-                                       param_shardings)
+                                       param_shardings, tp_context)
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import MOE_GROUP_TOKENS
 from repro_torch.optim.adamw import (AdamW, AdamWState, cosine_schedule,
                                      global_norm)
-from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.serving.distributed import (local_config,
+                                             serving_param_spec,
+                                             tp_supported)
+from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
+                              tree_unflatten)
 
 
 @dataclasses.dataclass
@@ -76,10 +96,38 @@ def _dispatch_group(tokens: int) -> int:
     return tokens if tokens % tg else tg
 
 
-class DataParallel:
-    """One rank's view of data parallelism over ``mesh``'s data axis:
-    its rows of a batch, its slices of the FSDP-sharded trees, and the
-    collectives of the step and the loop over the axis's group."""
+def _all_sum(tensors: List[torch.Tensor], group) -> None:
+    """Sum ``tensors`` over ``group`` in place: one all-reduce of one flat
+    buffer per dtype."""
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        same = [t for t in tensors if t.dtype == dtype]
+        flat = torch.cat([t.reshape(-1) for t in same])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        off = 0
+        for t in same:
+            t.copy_(flat[off:off + t.numel()].view(t.shape))
+            off += t.numel()
+
+
+def _narrow(x, dim, index: int, size: int):
+    """Slice ``index`` of ``size`` along ``dim`` (``x`` itself at None)."""
+    if dim is None:
+        return x
+    n = x.shape[dim] // size
+    return x.narrow(dim, index * n, n).clone()
+
+
+def _first(spec, axis) -> Optional[int]:
+    return next((i for i, e in enumerate(spec) if e == axis), None) \
+        if axis is not None else None
+
+
+class MeshRank:
+    """One rank's view of a training mesh: data parallelism over its data
+    axis (its rows of a batch, its FSDP slices, the gradient sum) and
+    tensor parallelism over its model axis (its shards of the trees, the
+    gathers the forward pass needs, the gradient norm); the loop's
+    checkpoints gather and shard through it."""
 
     def __init__(self, mesh, cfg: ModelConfig, plan, init, device):
         if len(plan.dp_axes) != 1:
@@ -88,18 +136,35 @@ class DataParallel:
         self.mesh, self.cfg, self.plan = mesh, cfg, plan
         self.group = mesh.groups.get(axis)
         self.size, self.index = mesh.axis_size(axis), mesh.coord(axis)
+        tp = plan.tp_axis
+        self.tp_group = mesh.groups.get(tp) if tp else None
+        self.tp_size = mesh.axis_size(tp) if tp else 1
+        self.tp_index = mesh.coord(tp) if tp else 0
         self.device = device
-        # the full tree's shapes, and where each leaf's data axis lies
+        # the full tree's shapes; per leaf, the dim its data-axis slice
+        # (FSDP) and its model-axis shard lie on, and whether the model
+        # computes on the shard (a block matrix) or on the whole leaf
         self.template = init(cfg, None, device="meta")
+        flat = tree_flatten_with_path(self.template)
         specs = tree_leaves(param_shardings(mesh, self.template, cfg, plan))
         self.dims: List[Optional[int]] = [
-            next((i for i, e in enumerate(s) if e == plan.dp), None)
-            if plan.fsdp else None for s in specs]
+            _first(s, plan.dp) if plan.fsdp else None for s in specs]
+        self.model_dims: List[Optional[int]] = [
+            _first(s, tp) if self.tp_size > 1 else None for s in specs]
+        self.sharded: List[bool] = []
+        for (path, leaf), dim in zip(flat, self.model_dims):
+            local = _first(serving_param_spec(path, tuple(leaf.shape)),
+                           "model") if self.tp_size > 1 else None
+            if local is not None and local != dim:
+                raise ValueError(f"{path}: the model axis shards dim {dim}, "
+                                 f"the tensor-parallel model dim {local}")
+            self.sharded.append(local is not None)
 
     # --- rows ---------------------------------------------------------
     def rows(self, batch, microbatches: int = 1):
-        """This rank's rows of a global batch: its 1/D of each of the
-        ``microbatches`` consecutive row blocks (all its rows at 1)."""
+        """This rank's rows of a global batch: its data coordinate's 1/D
+        of each of the ``microbatches`` consecutive row blocks (all its
+        rows at 1)."""
         def one(v):
             b = v.shape[0]
             if b % (microbatches * self.size):
@@ -130,40 +195,75 @@ class DataParallel:
                 f"microbatch: give each rank a multiple of "
                 f"{_dispatch_group(whole)} tokens")
 
-    # --- FSDP slices --------------------------------------------------
-    def _slice(self, x, dim):
-        if dim is None:
-            return x
-        n = x.shape[dim] // self.size
-        return x.narrow(dim, self.index * n, n).clone()
-
+    # --- slices -------------------------------------------------------
     def shard(self, tree):
         """This rank's slice of every leaf of a full parameter-shaped
-        tree (identity without FSDP)."""
-        if not self.plan.fsdp:
+        tree, on both axes (identity on a mesh that shards nothing)."""
+        if not self.plan.fsdp and self.tp_size == 1:
             return tree
-        return tree_unflatten(tree, [self._slice(x, d) for x, d in
-                                     zip(tree_leaves(tree), self.dims)])
+        return tree_unflatten(tree, [
+            _narrow(_narrow(x, m, self.tp_index, self.tp_size), d,
+                    self.index, self.size)
+            for x, d, m in zip(tree_leaves(tree), self.dims,
+                               self.model_dims)])
 
-    def gather(self, tree):
-        """The full tree from every rank's slices (a collective; identity
-        without FSDP)."""
-        if not self.plan.fsdp or self.size == 1:
-            return tree
-        leaves = tree_leaves(tree)
+    def _gather(self, leaves, dims, size, index, group):
+        """Each leaf with a dim in ``dims`` made whole along it from the
+        ``size`` ranks of ``group`` (zero-filled buffers, one
+        all-reduce)."""
         full = []
-        for x, d in zip(leaves, self.dims):
+        for x, d in zip(leaves, dims):
             if d is None:
                 full.append(x)
                 continue
             shape = list(x.shape)
-            shape[d] *= self.size
+            shape[d] *= size
             buf = x.new_zeros(shape)
             n = x.shape[d]
-            buf.narrow(d, self.index * n, n).copy_(x)
+            buf.narrow(d, index * n, n).copy_(x)
             full.append(buf)
-        self.all_sum([t for t, d in zip(full, self.dims) if d is not None])
-        return tree_unflatten(tree, full)
+        _all_sum([t for t, d in zip(full, dims) if d is not None], group)
+        return full
+
+    def _gather_data(self, tree):
+        if not self.plan.fsdp or self.size == 1:
+            return tree
+        return tree_unflatten(tree, self._gather(
+            tree_leaves(tree), self.dims, self.size, self.index, self.group))
+
+    def _gather_model(self, tree, dims):
+        if self.tp_size == 1:
+            return tree
+        return tree_unflatten(tree, self._gather(
+            tree_leaves(tree), dims, self.tp_size, self.tp_index,
+            self.tp_group))
+
+    def gather(self, tree):
+        """The full tree from every rank's slices (a collective on both
+        axes; identity on a mesh that shards nothing)."""
+        return self._gather_model(self._gather_data(tree), self.model_dims)
+
+    def forward_view(self, tree):
+        """What the forward pass runs on: every leaf whole along the data
+        axis, and along the model axis too but for the block matrices,
+        which stay this rank's shards."""
+        return self._gather_model(self._gather_data(tree), [
+            None if s else m for m, s in zip(self.model_dims, self.sharded)])
+
+    def model_slices(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The gradients of ``forward_view``'s leaves cut to this rank's
+        model shards: the leaves gathered over the model axis got whole
+        gradients, the same on every model rank."""
+        return [g if s else _narrow(g, m, self.tp_index, self.tp_size)
+                for g, m, s in zip(grads, self.model_dims, self.sharded)]
+
+    def data_slices(self, tree):
+        """This rank's FSDP slice of every leaf (identity without FSDP)."""
+        if not self.plan.fsdp:
+            return tree
+        return tree_unflatten(tree, [
+            _narrow(x, d, self.index, self.size)
+            for x, d in zip(tree_leaves(tree), self.dims)])
 
     def shard_state(self, state: AdamWState) -> AdamWState:
         return AdamWState(step=state.step, mu=self.shard(state.mu),
@@ -175,33 +275,44 @@ class DataParallel:
 
     # --- collectives --------------------------------------------------
     def context(self):
-        """``dp_context`` over the data axis (none for one rank)."""
-        if self.size == 1:
-            return contextlib.nullcontext()
-        return dp_context(self.group)
+        """``dp_context`` over the data axis and ``tp_context`` (wire 32)
+        over the model axis, where each is larger than 1."""
+        stack = contextlib.ExitStack()
+        if self.size > 1:
+            stack.enter_context(dp_context(self.group))
+        if self.tp_size > 1:
+            stack.enter_context(tp_context(self.tp_group, 32))
+        return stack
 
     def all_sum(self, tensors: List[torch.Tensor]) -> None:
         """Sum ``tensors`` over the data axis in place: one all-reduce of
         one flat buffer per dtype."""
         if self.size == 1 or not tensors:
             return
-        for dtype in dict.fromkeys(t.dtype for t in tensors):
-            group = [t for t in tensors if t.dtype == dtype]
-            flat = torch.cat([t.reshape(-1) for t in group])
-            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
-            off = 0
-            for t in group:
-                t.copy_(flat[off:off + t.numel()].view(t.shape))
-                off += t.numel()
+        _all_sum(tensors, self.group)
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """The global norm of gradients whole along the data axis and cut
+        to this rank's model shards: the model-sharded leaves' squares
+        summed over the model axis, the others' counted once."""
+        if self.tp_size == 1:
+            return global_norm(grads)
+        sq = [torch.sum(torch.square(g.to(torch.float32))) for g in grads]
+        shards = torch.stack([q for q, m in zip(sq, self.model_dims)
+                              if m is not None]).sum()
+        dist.all_reduce(shards, op=dist.ReduceOp.SUM, group=self.tp_group)
+        whole = [q for q, m in zip(sq, self.model_dims) if m is None]
+        return torch.sqrt(shards + torch.stack(whole).sum()
+                          if whole else shards)
 
     def all_max(self, values: List[float]) -> List[float]:
-        """The data axis's maximum of each of ``values`` (host floats)."""
-        if self.size == 1:
+        """Every rank's maximum of each of ``values`` (host floats)."""
+        if self.mesh.size == 1:
             return list(values)
         t = torch.tensor(values, dtype=torch.float64)
-        if dist.get_backend(self.group) != "gloo":
+        if dist.get_backend() != "gloo":
             t = t.to(self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
         return t.tolist()
 
 
@@ -210,19 +321,28 @@ def build_train_step(cfg: ModelConfig, mesh=None, fsdp: Optional[bool] = None,
                      peak_lr: float = 3e-4, device="cuda",
                      local_batch: bool = False) -> BuiltStep:
     """The train step on ``device``; over ``mesh`` (None: one device) it is
-    one rank's part of the data-parallel step, which takes the global
-    batch and keeps its rows, or, with ``local_batch``, takes this rank's
-    rows as given (each host's own stream, as ``--distributed`` reads
-    it).  ``meta``: ``optimizer``, ``init``, and over a mesh ``plan`` and
-    ``dp`` (the ``DataParallel`` that shards the trees and the loop's
-    checkpoints)."""
+    one rank's part of the mesh step, which takes the global batch and
+    keeps its data coordinate's rows, or, with ``local_batch``, takes
+    this rank's rows as given (each host's own stream, as
+    ``--distributed`` reads it).  A model axis larger than 1 takes the
+    configs ``tp_supported`` accepts and raises ``NotImplementedError``
+    for the others.  ``meta``: ``optimizer``, ``init``, and over a mesh
+    ``plan`` and ``dp`` (the ``MeshRank`` that shards the trees and the
+    loop's checkpoints)."""
     dev = resolve_device(device)
+    tp = mesh.axis_size("model") if mesh is not None else 1
+    reason = tp_supported(cfg, tp)
+    if reason is not None:
+        raise NotImplementedError(
+            f"tensor-parallel training of {cfg.name} over a model axis of "
+            f"{tp}: {reason} (ROADMAP, Queue 1)")
+    run_cfg = local_config(cfg, tp)       # this rank's heads and FFN slice
     opt = AdamW(learning_rate=cosine_schedule(peak_lr, 100, 10000))
     if cfg.family == "encdec":
-        base_loss = lambda p, b: encdec.loss_fn(p, b, cfg, device=dev)
+        base_loss = lambda p, b: encdec.loss_fn(p, b, run_cfg, device=dev)
         init = encdec.init_params
     else:
-        base_loss = lambda p, b: lm.loss_fn(p, b, cfg, device=dev)
+        base_loss = lambda p, b: lm.loss_fn(p, b, run_cfg, device=dev)
         init = lm.init_params
 
     def loss_fn(params, batch):
@@ -285,26 +405,24 @@ def build_train_step(cfg: ModelConfig, mesh=None, fsdp: Optional[bool] = None,
     if mesh is None:
         return BuiltStep(fn=train_step, meta=meta)
 
-    if mesh.axis_size("model") > 1:
-        raise NotImplementedError(
-            "tensor-parallel training (a model axis larger than 1) is not "
-            "ported: ROADMAP, Queue 1")
     plan = make_plan(mesh, cfg, fsdp)
-    dp = DataParallel(mesh, cfg, plan, init, dev)
+    dp = MeshRank(mesh, cfg, plan, init, dev)
 
-    def dp_train_step(params, opt_state, batch):
+    def mesh_train_step(params, opt_state, batch):
         batch = as_device(batch)
         if not local_batch:
             batch = dp.rows(batch, microbatches)
         dp.check_dispatch(batch, microbatches)
-        full = dp.gather(params)
+        view = dp.forward_view(params)
         with dp.context():
-            loss, nll, gs = loss_and_grads(full, batch)
+            loss, nll, gs = loss_and_grads(view, batch)
+        gs = dp.model_slices(gs)
         loss, nll = loss.to(torch.float32), nll.to(torch.float32)
         dp.all_sum(gs + [loss, nll])
-        grads = tree_unflatten(full, gs)
-        return finish(params, opt_state, dp.shard(grads), loss, nll,
-                      gnorm=global_norm(grads))
+        gnorm = dp.grad_norm(gs)
+        return finish(params, opt_state,
+                      dp.data_slices(tree_unflatten(params, gs)), loss, nll,
+                      gnorm=gnorm)
 
     meta.update(plan=plan, dp=dp)
-    return BuiltStep(fn=dp_train_step, meta=meta)
+    return BuiltStep(fn=mesh_train_step, meta=meta)

@@ -5,18 +5,21 @@
         [--mesh DxM] [--distributed]
 
 Runs on the card unless ``--device cpu``.  Without ``--mesh`` it trains
-on one device.  ``--mesh Dx1`` trains data-parallel over D ranks (FSDP,
-as ``make_plan`` decides): without ``--distributed`` the launcher spawns
-them itself (``launch.mesh.run_ranks``, gloo), sharing the named
-device's cards round robin (``rank_device``); each rank draws the
-single-process global batch and keeps its rows, so the run is the
-reference launcher's on one host with D devices.  ``--distributed``
-joins the group that torchrun's environment describes (``env://``:
-``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) instead,
-one process per host: each draws its own host's batch (``n_hosts`` =
-the world size, ``host_id`` = the rank), as the reference's
-``jax.process_count()`` / ``process_index()`` do.  A model axis M > 1
-(tensor-parallel training) is refused.
+on one device.  ``--mesh DxM`` trains over D x M ranks: data-parallel
+over D (FSDP, as ``make_plan`` decides) and tensor-parallel over M (the
+configs ``serving.distributed.tp_supported`` accepts; any other raises
+``NotImplementedError`` before a rank starts).  Without
+``--distributed`` the launcher spawns the ranks itself
+(``launch.mesh.run_ranks``, gloo), sharing the named device's cards
+round robin (``rank_device``); each rank draws the single-process global
+batch and keeps its data coordinate's rows, so the run is the reference
+launcher's on one host with D x M devices.  ``--distributed`` joins the
+group that torchrun's environment describes (``env://``: ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) instead, one process
+per device: each data coordinate draws its own host's batch
+(``n_hosts`` = D, ``host_id`` = the rank's data coordinate, rank
+``d * M + m``), as the reference's ``jax.process_count()`` /
+``process_index()`` do with one process per host.
 
 Fault tolerance comes from ``repro_torch.training.loop``: periodic
 checkpoints under ``--ckpt`` (full arrays, the reference's layout), a
@@ -51,21 +54,35 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _config(args):
+    import repro_torch.configs as C
+    return C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+
+
 def _mesh_shape(text):
     if text is None:
         return None
     d, m = (int(x) for x in text.lower().split("x"))
-    if m > 1:
-        raise NotImplementedError(
-            f"--mesh {text}: tensor-parallel training (a model axis larger "
-            "than 1) is not ported: ROADMAP, Queue 1")
     return d, m
+
+
+def _check_model_axis(args, shape) -> None:
+    """Refuse a model axis the config cannot shard, before any rank
+    starts."""
+    from repro_torch.serving.distributed import tp_supported
+    m = shape[1] if shape else 1
+    reason = tp_supported(_config(args), m)
+    if reason is not None:
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: tensor-parallel training of {args.arch}: "
+            f"{reason} (ROADMAP, Queue 1)")
 
 
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
     args = _parser().parse_args(argv)
     shape = _mesh_shape(args.mesh)
+    _check_model_axis(args, shape)
 
     import torch.distributed as dist
 
@@ -78,21 +95,20 @@ def main(argv=None) -> None:
             "gloo", init_method="env://",
             timeout=datetime.timedelta(seconds=TIMEOUT_S))
         try:
-            world = dist.get_world_size()
-            _train(args, shape or (world, 1), n_hosts=world,
-                   host_id=dist.get_rank(),
+            d, m = shape or (dist.get_world_size(), 1)
+            _train(args, (d, m), n_hosts=d, host_id=dist.get_rank() // m,
                    local_rank=int(os.environ.get("LOCAL_RANK",
                                                  dist.get_rank())))
         finally:
             dist.destroy_process_group()
-    elif shape is not None and shape[0] > 1:
-        run_ranks(_rank_main, shape[0], args=(argv,))
+    elif shape is not None and shape[0] * shape[1] > 1:
+        run_ranks(_rank_main, shape[0] * shape[1], args=(argv,))
     else:
         _train(args, shape)
 
 
 def _rank_main(rank: int, argv) -> None:
-    """One spawned rank of ``--mesh Dx1``."""
+    """One spawned rank of ``--mesh DxM``."""
     args = _parser().parse_args(argv)
     _train(args, _mesh_shape(args.mesh), local_rank=rank)
 
@@ -101,7 +117,6 @@ def _train(args, shape, n_hosts: int = 1, host_id: int = 0,
            local_rank: int = 0) -> None:
     import torch
 
-    import repro_torch.configs as C
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.mesh import describe, make_mesh, rank_device
     from repro_torch.launch.steps import build_train_step
@@ -113,7 +128,7 @@ def _train(args, shape, n_hosts: int = 1, host_id: int = 0,
         torch.cuda.set_device(dev)
     mesh = make_mesh(shape, ("data", "model")) if shape else None
     say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
-    cfg = C.get_smoke(args.arch) if args.smoke else C.get_config(args.arch)
+    cfg = _config(args)
     if mesh is None:
         say(f"one device: {dev}"
             + (f" ({torch.cuda.get_device_name(dev)})"

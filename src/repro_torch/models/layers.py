@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import tp_all_reduce
+from repro_torch.dist.sharding import tp_all_reduce, tp_copy
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.sail_linear import mm
 
@@ -51,7 +51,11 @@ def apply_norm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def qk_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm over a head's width (qwen3's q_norm / k_norm), before RoPE."""
+    """RMSNorm over a head's width (qwen3's q_norm / k_norm), before RoPE.
+    Under tensor parallelism ``x`` holds this rank's heads only, so the
+    replicated ``scale`` passes ``tp_copy``: its gradient sums the ranks'
+    heads."""
+    scale = tp_copy(scale)
     var = (x.to(torch.float32) ** 2).mean(-1, keepdim=True)
     return (x * torch.rsqrt(var + eps) * scale).to(x.dtype)
 
@@ -177,7 +181,8 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     the attention biases: the decode and verify steps and the prefill
     cache's K/V leave them out, as the reference's do."""
     b, t, _ = x.shape
-    src = kv_x if kv_x is not None else x
+    x = tp_copy(x)
+    src = tp_copy(kv_x) if kv_x is not None else x
     q, k, v = mm(x, p["wq"]), mm(src, p["wk"]), mm(src, p["wv"])
     if cfg.attention_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
@@ -213,7 +218,9 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig,
     """SwiGLU, GeGLU or GELU (``plan_rows``: see ``sail_linear.mm``).
     ``w_down`` is row-parallel under tensor parallelism: its partial sums
     are summed over the group (``dist.sharding.tp_all_reduce``), as
-    ``wo``'s are."""
+    ``wo``'s are; ``x`` enters the column-parallel ``w_gate`` / ``w_up``
+    through ``tp_copy``, as attention's input enters ``wq / wk / wv``."""
+    x = tp_copy(x)
     if cfg.act == "swiglu":
         h = F.silu(mm(x, p["w_gate"], plan_rows)) * mm(x, p["w_up"],
                                                        plan_rows)

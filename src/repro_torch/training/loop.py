@@ -8,15 +8,16 @@
     median of the trailing 20 is reported;
   * NaN guard: a non-finite loss skips its update, and once more than
     ``max_nan_skips`` were skipped the loop raises ``FloatingPointError``;
-  * elastic restore under data parallelism (``dp``, the step's
-    ``DataParallel``): checkpoints hold full arrays in the reference's
-    layout, written by rank 0 after the FSDP slices are gathered, and
-    every rank restores the full tree and keeps its slice, so a directory
-    written at any data-parallel width (or by the reference) resumes at
-    any other.  The ranks agree after every step (one small all-reduce)
-    on the stop signal and the step's duration, and the loss is the
-    global batch's, so SIGTERM, the watchdog and the NaN budget decide
-    alike on every rank and no rank leaves the collectives alone.
+  * elastic restore over a mesh (``dp``, the step's ``MeshRank``):
+    checkpoints hold full arrays in the reference's layout, written by
+    rank 0 after the slices are gathered over both axes (FSDP's and the
+    model axis's), and every rank restores the full tree and keeps its
+    slice, so a directory written on any ``(data, model)`` mesh (or by
+    the reference) resumes on any other.  Every rank of the mesh agrees
+    after every step (one small all-reduce) on the stop signal and the
+    step's duration, and the loss is the global batch's, so SIGTERM, the
+    watchdog and the NaN budget decide alike on every rank and no rank
+    leaves the collectives alone.
 
 Batches go to the device the parameters live on.
 """
@@ -69,7 +70,7 @@ class TrainLoop:
 
     def _stopping(self) -> bool:
         """This rank's signal on one device; every rank's, as agreed after
-        the last step, under data parallelism."""
+        the last step, over a mesh."""
         return self._preempted if self.dp is None else self._stop
 
     def _say(self, msg: str) -> None:

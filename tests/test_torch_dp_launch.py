@@ -1,7 +1,8 @@
 """The training launcher's ``--mesh`` and ``--distributed`` on the CPU:
 ``--mesh 2x1`` spawns two gloo ranks whose run equals the one-device
 launcher's on the same global batches; its checkpoint (full arrays,
-written by rank 0) resumes at dp 1 and dp 4; a model axis is refused;
+written by rank 0) resumes at dp 1 and dp 4; a model axis over a config
+tensor parallelism cannot shard is refused;
 ``--distributed`` joins the group that torchrun's environment describes
 (two processes on 127.0.0.1), each drawing its own host's batch."""
 import os
@@ -124,8 +125,13 @@ def test_resumes_at_dp1_and_dp4(runs):
 
 
 def test_model_axis_is_refused():
+    """A model axis over a config tensor parallelism cannot shard
+    (starcoder2's attention and MLP biases) is refused before any rank
+    starts."""
+    args = ARGS[:]
+    args[args.index("tinymistral_248m")] = "starcoder2_7b"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(ARGS + ["--mesh", "1x2", "--steps", "1"])
+        ttrain.main(args + ["--mesh", "1x2", "--steps", "1"])
 
 
 def test_distributed_joins_the_environments_group(tmp_path):
