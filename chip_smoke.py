@@ -34,6 +34,9 @@ Phases (each passes or the script exits nonzero):
      and views at odd offsets, and is timed at [64, 4096] and [4096, 4096]
      (n = 8) and at [4096, 4096] (n = 16, 25) beside two bounds: its bytes
      and its SASS's integer instructions at the integer rate;
+  Phases 3-10 serve tinymistral_248m at its full width cut to its first
+  SERVE_LAYERS (4) of 12 layers; "85" and "12" below are its counts at
+  full depth (7 weight matmuls a layer and lm_head, one attention a layer).
   3. model  — full-width tinymistral_248m (random weights, seed 0, int8 KV):
      one prefill of 2 prompts and 4 greedy decode steps on the card through
      the kernels and on the CPU through the plain versions.  Under uniform:4
@@ -65,7 +68,7 @@ Phases (each passes or the script exits nonzero):
      one segment: w_gate/w_up 2 bits, w_down 3, wq/wk/wv 6 with 6-bit
      activations, wo 5 with 4-bit, lm_head 8) on the ring pool with int8
      KV, every LUT-GEMV launch held against its plain version; plan S (a
-     solved auto plan in three segments, layers 0-3 / 4-9 / 10-11, f32 KV)
+     solved auto plan in three segments, layers 0 / 1-2 / 3, f32 KV)
      greedy card against CPU with phase 3's prompts and steps, and ring
      against paged engine (phase 5 run A's admission); plan S-a (S with
      4/6/8-bit activations on the MLP), held launch by launch, ring against
@@ -101,10 +104,12 @@ Phases (each passes or the script exits nonzero):
      max(|g|, 1), the tokens equal; its device time as a graph beside the
      uniform:4 step's.  mode="batch" (cohorts of 8, one lm.prefill each,
      unmasked decode in ring mode): greedy tokens equal phase 4's
-     continuous run, the LUT-GEMV's launches counted at each cohort
-     prefill's M.  quantize=False (f32 weights, int8 KV) on phase 3's
-     prompts and steps: tokens equal on card and CPU, decode attention
-     launched and the LUT-GEMV not; one full-pool step timed;
+     continuous run, or part from it at a near-tie by phase 10's rule (its
+     cohort prefills run the LUT-GEMV at other M, so in another summation
+     order), the LUT-GEMV's launches counted at each cohort prefill's M.
+     quantize=False (f32 weights, int8 KV) on phase 3's prompts and steps:
+     tokens equal on card and CPU, decode attention launched and the
+     LUT-GEMV not; one full-pool step timed;
   9. speculation — self-speculative decoding under uniform:4,draft=q2:k4
      on phase 4's requests: greedy tokens equal phase 4's on the ring and
      the paged pool (run A's admission), with rejected drafts and, on the
@@ -237,7 +242,21 @@ Phases (each passes or the script exits nonzero):
      max_memory_allocated per rank.  (f) the same at (2, 2), four ranks
      with FSDP, cut to 2 layers, against the one-device run of the cut;
      its checkpoint resumes on one device, the next step within 1e-5 of
-     the uninterrupted one-device run's.
+     the uninterrupted one-device run's.  (g) the other decoders that
+     train tensor-parallel, at (1, 2) as in (e), each against its
+     one-device run from the same init: granite (MoE: experts split on F,
+     router gathered) at full width and depth, 3 steps of B 8 x T 512;
+     starcoder2 (attention biases sharded with their heads) at full width
+     cut to 1 layer (its attention biases drawn nonzero), 2 steps of B 4
+     x T 512; no checkpoint (each rank's slices and first moment come back
+     as a file).  The ranks run first; the one-device run then routes by
+     their top-k experts, since a summation order that moves a router
+     logit by an ulp flips a near-tie (the tokens whose own top-k differs,
+     and their largest logit margin, are counted).  (e)'s checks and
+     figures (a key bias's updates held through its first moment:
+     KEY_BIAS), the all-reduces also by the routing weights' gradient,
+     granite's routing equal on both ranks, and the kernels the steps
+     launched (none).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -248,6 +267,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import gc
 import json
 import math
 import os
@@ -1128,15 +1148,28 @@ def phase_kernels(rt):
 # phase 3: full-width model, card vs CPU
 # ---------------------------------------------------------------------------
 
-def full_model(rt):
+# phases 3-10 serve tinymistral_248m at its full width cut to this many of
+# its 12 layers: their eager decode steps are host-bound, so a run's time
+# grows with the depth, and at 12 layers the script passed 1000 s
+SERVE_LAYERS = 4
+
+
+def serving_model(device):
+    """Phases 3-10's model: tinymistral_248m (random weights, seed 0) at full
+    width, its first SERVE_LAYERS layers; (cfg, raw tree)."""
     import torch
     import repro_torch.configs as C
     from repro_torch.models import lm
+    cfg = C.get_config("tinymistral_248m")
+    raw = lm.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                         device=device)
+    raw, cfg = cut_layers(raw, cfg, SERVE_LAYERS)
+    return cfg, raw
+
+
+def full_model(rt):
     if "raw" not in rt:
-        cfg = C.get_config("tinymistral_248m")
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        rt["cfg"] = cfg
-        rt["raw"] = lm.init_params(cfg, gen, device="cuda")
+        rt["cfg"], rt["raw"] = serving_model("cuda")
     return rt["cfg"], rt["raw"]
 
 
@@ -1215,7 +1248,8 @@ def phase_model(rt):
             # itself with f32-rounding-sized noise shows how large), so the
             # card is held to its plain version launch by launch, on the
             # card's own inputs, instead of end to end
-            # prefill and 4 decode steps, 85 weight matmuls each
+            # prefill and 4 decode steps, each layer's 7 weight matmuls
+            # and lm_head each
             calls = sum(held.calls.values())
             if calls < 5 * ((len(MATMULS) - 1) * cfg.n_layers + 1):
                 fail(f"{plan}: only {calls} int LUT-GEMV launches")
@@ -1317,9 +1351,9 @@ def phase_engine(rt):
         one_step = lambda: lm.decode_step(eng.params, tok, eng.cache, cfg,
                                           quant_kv=True, device="cuda")
         step_dev, step_wall = timer(one_step), timer.call_ms(one_step)
-        # the step's 12 attention launches as one graph (no flush, as the
-        # LUT-GEMV's step graph in phase 2) on the engine's own cache and
-        # positions
+        # the step's attention launches (one a layer) as one graph (no
+        # flush, as the LUT-GEMV's step graph in phase 2) on the engine's
+        # own cache and positions
         layers = eng.cache["layers"]
         pos = eng.cache["length"].to(torch.int32)
         qa = torch.randn((8, cfg.n_heads, cfg.head_dim), device="cuda")
@@ -1389,8 +1423,8 @@ def serve_counted(torch, eng, prompts, max_new=32):
 
 def check_paged_launches(name, st, counts, cfg):
     """Every decode step: each layer's attention through the table mode
-    and none through ring mode, the 85 weight matmuls through the f32
-    LUT-GEMV and none through the int one."""
+    and none through ring mode, the weight matmuls (7 a layer and
+    lm_head) through the f32 LUT-GEMV and none through the int one."""
     steps = st["decode_iterations"]
     ring = counts["decode_attention"] - counts["decode_attention_table"]
     need_lut = steps * ((len(MATMULS) - 1) * cfg.n_layers + 1)
@@ -1552,8 +1586,8 @@ def phase_paged(rt):
 # plan R: per-path rules, one segment; lm_head falls to the default 8 bits
 # with f32 activations
 PLAN_R = "rules:w_gate|w_up=2,w_down=3,wq|wk|wv=6a6,wo=5a4,default=8"
-# plan S's three segments of the 12 layers
-SEGMENTS = ((0, 4), (4, 10), (10, 12))
+# plan S's three segments of the SERVE_LAYERS layers
+SEGMENTS = ((0, 1), (1, 3), (3, 4))
 RING6 = dict(batch_size=8, cache_len=512, quant_kv=True, group_size=128)
 # f32 launches are held at the reference tests' LUT-GEMV tolerance, int
 # launches at phase 2's tolerance for quantized data
@@ -2221,7 +2255,8 @@ def phase_planner(rt):
             f"card run within tolerance of their plain version on the same "
             f"inputs (max abs err f32 {held.err['f32']:.3e}, int "
             f"{held.err['int']:.3e}){noise}")
-        if not torch.isfinite(gl).all() or rec["held"] < 5 * 85:
+        if not torch.isfinite(gl).all() or rec["held"] < 5 * (
+                (len(MATMULS) - 1) * cfg.n_layers + 1):
             fail(f"plan {name}: card logits not finite, or only "
                  f"{rec['held']} LUT-GEMV launches held")
         if name == "Q4" and not (rec["tokens_equal"] and torch.allclose(
@@ -2235,7 +2270,8 @@ def phase_planner(rt):
 
     # (d) live replan and (e) the cost model refit on the card, with its SLO
     # solve, at full width cut to LIVE_LAYERS layers: A8 solved again there
-    # (the joint solve's time grows with the units, 85 at 12 layers)
+    # (the joint solve's time grows with the units: 85 at 12 layers took
+    # 57 s on the card's host)
     raw_cut, cfg_cut = cut_layers(raw, cfg, LIVE_LAYERS)
     planner_cut, r_cut = solve_on_card(
         torch, planning.Planner, base, raw_cut, cfg_cut, "auto:q4a8,kv=auto",
@@ -2282,8 +2318,8 @@ class CountByM:
 
 def check_ring_launches(name, st, counts, cfg, lut, other):
     """Every decode step: each layer's attention through ring mode (none
-    through table mode), the 85 weight matmuls through ``lut`` and none
-    through ``other``."""
+    through table mode), the weight matmuls (7 a layer and lm_head)
+    through ``lut`` and none through ``other``."""
     steps = st["decode_iterations"]
     need_lut = steps * ((len(MATMULS) - 1) * cfg.n_layers + 1)
     if (counts["decode_attention"] < steps * cfg.n_layers
@@ -2415,12 +2451,13 @@ def phase_sampling(rt):
 
     # (c) run-to-completion: phase 4's requests in cohorts of 8, greedy
     eng = Engine(raw, cfg, EngineConfig(**RING, mode="batch"), device="cuda")
+    rows = Recorder(eng)
     with CountByM() as by:
         got, counts, dt = serve_counted(torch, eng, prompts)
     st = record("batch", eng, got, counts, dt)
     check_ring_launches("batch", st, counts, cfg, "lut_matmul",
                         "lut_matmul_int")
-    # each cohort prefill: 12 layers x 9 launches (wk, wv twice) at M =
+    # each cohort prefill: 9 launches a layer (wk, wv twice) at M =
     # cohort x its longest prompt, lm_head at M = cohort
     per_prefill = sum(expected_instances(eng.params, lm, 0, 1).values()) - 1
     want_m = collections.Counter()
@@ -2436,15 +2473,38 @@ def phase_sampling(rt):
         f"{st['decode_iterations']} steps; f32 LUT-GEMV launches by M "
         f"{dict(sorted(by.by_m.items()))}, at the cohort prefills' M "
         f"{got_m} (need {dict(want_m)})")
-    if got != greedy:
-        fail(f"batch mode: tokens differ from the continuous engine's ({same}"
-             " of 16 equal)")
+    # a cohort prefill runs the LUT-GEMV at other M than the continuous
+    # engine's prefill groups (another K split, another summation order):
+    # a request may part from it only at a near-tie, by phase 10's rule
+    # against a continuous engine's logits on the same requests
+    ties = {}
+    parted = first_parting(got, greedy)
+    if parted:
+        del eng
+        ref = Engine(raw, cfg, EngineConfig(**RING), device="cuda")
+        ref_rows = Recorder(ref)
+        again, _, _ = serve_counted(torch, ref, prompts)
+        if again != greedy:
+            fail("batch mode: the continuous rerun's tokens differ from "
+                 "phase 4's")
+        del ref
+        for uid, step_j in parted.items():
+            tie = ties[str(uid)] = near_tie(torch, rows.rows, ref_rows.rows,
+                                            int(uid), step_j)
+            log(f"[sampling] batch mode: request {uid} parts at token "
+                f"{step_j}: the continuous engine's top-2 gap "
+                f"{tie['gap']:.3e}, batch vs continuous logits differ by "
+                f"{tie['diff']:.3e} there and by {tie['err_before']:.3e} "
+                "before")
+            if not tie["explained"]:
+                fail(f"batch mode: request {uid} parts from the continuous "
+                     f"engine at token {step_j} and no near-tie explains it")
     if got_m != dict(want_m) or sum(by.by_m.values()) != counts["lut_matmul"]:
         fail("batch mode: LUT-GEMV launches at the cohort prefills' M "
              f"{got_m}, need {dict(want_m)}")
     res["runs"]["batch"].update(lut_launches_by_m=dict(by.by_m),
-                                equal_to_continuous=same)
-    del eng
+                                equal_to_continuous=same, near_ties=ties)
+    eng = None
 
     # (d) unquantized: the raw f32 tree, int8 KV, phase 3's prompts and
     # steps (prefill + 4 decode steps), card against CPU
@@ -2492,10 +2552,11 @@ RUN_A = dict(PAGED, kv_pool_blocks=8 * 32, share_prefix=False)
 
 
 def spec_launch_check(name, st, counts, by_m, inst, cfg, draft_key, paged):
-    """Every round: the draft's k steps, 85 LUT-GEMV launches each at M 8
-    under the draft's instance; verify's 85 at M = 8 x (k + 1) under the
-    served b4 instance; decode attention 12 x k times for the draft and 12
-    x (k + 1) for verify, all in ring or all in table mode."""
+    """Every round: the draft's k steps, a pass's LUT-GEMV launches (7 a
+    layer and lm_head) each at M 8 under the draft's instance; verify's
+    pass at M = 8 x (k + 1) under the served b4 instance; decode attention
+    layers x k times for the draft and layers x (k + 1) for verify, all in
+    ring or all in table mode."""
     rounds = st["speculative"]["rounds"]
     per_pass = (len(MATMULS) - 1) * cfg.n_layers + 1
     m_verify = 8 * (SPEC_K + 1)
@@ -2511,7 +2572,8 @@ def spec_launch_check(name, st, counts, by_m, inst, cfg, draft_key, paged):
         f"{m_verify}: {by_m.get(m_verify, 0)}, need {rounds * per_pass}; "
         f"draft {instance_name(draft_key)}: {inst.get(draft_key, 0)}, need "
         f"{rounds * SPEC_K * per_pass}); decode attention "
-        f"{counts['decode_attention']} (need {attn} = rounds x 12 x (2k + 1))"
+        f"{counts['decode_attention']} (need {attn} = rounds x "
+        f"{cfg.n_layers} x (2k + 1))"
         f", {table} in table mode")
     if not ok:
         fail(f"{name}: launches do not match the rounds run")
@@ -3044,10 +3106,10 @@ def near_tie(torch, rows, ref_rows, uid, step):
 
 def check_tp_launches(name, tp, st, counts, cfg, flavour, paged):
     """Exact launch counts on this rank: every decode step sends its
-    12 x 7 sharded weight matmuls and lm_head (85) through the plan's
+    layers x 7 sharded weight matmuls and lm_head through the plan's
     LUT-GEMV flavour, every prefill pass those and each layer's wk and wv
-    again (the cache's K/V are recomputed: 109), none through the other
-    flavour; every decode step its 12 attentions through the
+    again (the cache's K/V are recomputed), none through the other
+    flavour; every decode step its attention per layer through the
     decode-attention kernel (table mode on the paged pool).  Returns the
     LUT-GEMV count the passes need."""
     layers = cfg.n_layers
@@ -3066,7 +3128,7 @@ def check_tp_launches(name, tp, st, counts, cfg, flavour, paged):
 
 
 def tp_step_graph(torch, timer, eng, cfg, gen):
-    """One rank's 85 LUT-GEMV calls of a decode step (M 8) at the sharded
+    """One rank's LUT-GEMV calls of a decode step (M 8) at the sharded
     shapes of ``eng``'s tree as one CUDA graph: each call first held
     against its plain version, then the step timed beside torch.matmul on
     the dequantized weights and its bytes bound."""
@@ -3106,7 +3168,6 @@ def tp_rank(rank, tp, want, out_dir):
     card."""
     import torch
     import torch.distributed as dist
-    import repro_torch.configs as C
     from repro_torch.dist.sharding import tp_all_reduce, tp_context
     from repro_torch.launch.mesh import describe, rank_device
     from repro_torch.models import lm
@@ -3115,9 +3176,7 @@ def tp_rank(rank, tp, want, out_dir):
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     say = log if rank == 0 else (lambda msg: None)
-    cfg = C.get_config("tinymistral_248m")
-    raw = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
-                         device=dev)
+    cfg, raw = serving_model(dev)
     prompts = engine_requests(cfg)
     res = {"group": describe(), "runs": {}}
     say(f"[tp] tp={tp}: {res['group']}, every rank on {dev} "
@@ -3176,10 +3235,13 @@ def tp_rank(rank, tp, want, out_dir):
             f"{run['equal_tokens']} of 512 tokens equal phase 4's "
             f"{'uniform:4' if held_to else 'uniform:4a8'}"
             + (f" (first parting {run['parted']})" if parted else "")
-            + f"; per rank {counts[flavour]} {flavour} launches = 85 x "
-            f"{st['decode_iterations']} decode steps + 109 x "
+            + f"; per rank {counts[flavour]} {flavour} launches = "
+            f"{len(TP_BLOCK) * cfg.n_layers + 1} x "
+            f"{st['decode_iterations']} decode steps + "
+            f"{(len(TP_BLOCK) + 2) * cfg.n_layers + 1} x "
             f"{st['prefill_iterations']} prefill passes, "
-            f"{counts['decode_attention']} decode attention = 12 x "
+            f"{counts['decode_attention']} decode attention = "
+            f"{cfg.n_layers} x "
             f"{st['decode_iterations']} steps"
             + (f" ({counts['decode_attention_table']} in table mode)"
                if eng.paged else "")
@@ -3197,7 +3259,8 @@ def tp_rank(rank, tp, want, out_dir):
             del eng
 
     # where a tp step's time goes: the eager step (every rank at once, on
-    # the one card) against its 24 all-reduces alone, at the step's shape
+    # the one card) against its 2 all-reduces a layer alone, at the step's
+    # shape
     timer = Timer(torch)
     tok = torch.zeros((8, 1), dtype=torch.int64, device=dev)
 
@@ -3306,6 +3369,9 @@ FAMILY_CUT_LAYERS = {"mixtral_8x7b": 1}
 NARROW = ("llama2_13b", "starcoder2_7b")
 # phase 5 run A's pool: 8 lanes x 32 blocks of 16, no sharing, so admission
 # and prefill groups are the ring engine's
+# (a), (b) and phase 12's serves at full depth: phase 4's 16 requests, 16
+# new tokens each (two waves of 8 lanes; host-bound eager steps)
+FAMILY_NEW = 16
 FAMILY_PAGED = dict(kv_block_size=16, kv_pool_blocks=8 * 32,
                     share_prefix=False)
 # the smoke configs' widths (64-80) take groups of 8
@@ -3646,9 +3712,11 @@ def family_full(torch, timer, arch, res):
         f"weights and KV pools")
     prompts = engine_requests(cfg)
     got, rec["ring"] = serve_families(torch, ring, prompts, cfg,
-                                      f"{arch} ring", 32, table=False)
+                                      f"{arch} ring", FAMILY_NEW,
+                                      table=False)
     pg, rec["paged"] = serve_families(torch, paged, prompts, cfg,
-                                      f"{arch} paged", 32, table=True)
+                                      f"{arch} paged", FAMILY_NEW,
+                                      table=True)
     same = sum(pg[u] == got[u] for u in got)
     rec["paged_equal_ring"] = same
     log(f"[families] {arch}: {same} of {len(got)} paged completions equal "
@@ -4045,7 +4113,7 @@ def recurrent_full(torch, timer, arch, res):
         f" {attn} attentions")
     prompts = engine_requests(cfg)
     _, rec["ring"] = serve_families(torch, ring, prompts, cfg,
-                                    f"{arch} ring", 32, table=False,
+                                    f"{arch} ring", FAMILY_NEW, table=False,
                                     attn=attn)
     toks, lengths = model_prompts(cfg)
     t0 = time.perf_counter()
@@ -4102,7 +4170,8 @@ def recurrent_full(torch, timer, arch, res):
     if a8 is not None:
         with Held(torch, f"{arch} uniform:4a8") as held:
             got8, rec["ring 4a8"] = serve_families(
-                torch, a8, prompts, cfg, f"{arch} ring uniform:4a8", 32,
+                torch, a8, prompts, cfg, f"{arch} ring uniform:4a8",
+                FAMILY_NEW,
                 table=False, attn=attn, lut="lut_matmul_int")
         rec["ring 4a8"].update(held_lut=sum(held.calls.values()),
                                max_abs_err_lut=held.err["int"])
@@ -4160,11 +4229,11 @@ def vision_full(torch, timer, res):
     torch.cuda.empty_cache()
     prompts = engine_requests(cfg)
     got, rec["ring"] = serve_families(torch, ring, prompts, cfg,
-                                      f"{VISION} ring (text only)", 32,
-                                      table=False)
+                                      f"{VISION} ring (text only)",
+                                      FAMILY_NEW, table=False)
     pg, rec["paged"] = serve_families(torch, paged, prompts, cfg,
-                                      f"{VISION} paged (text only)", 32,
-                                      table=True)
+                                      f"{VISION} paged (text only)",
+                                      FAMILY_NEW, table=True)
     rec["paged_equal_ring"] = sum(pg[u] == got[u] for u in got)
     if pg != got:
         fail(f"{VISION}: paged tokens differ from the ring engine's")
@@ -4834,6 +4903,24 @@ SERVE_FIELDS = dict(batch_size=8, cache_len=512, quant_kv=True)
 # (e), (f): the tensor-parallel runs' mesh (data, model) and depth (None:
 # full depth)
 TP_TRAIN = {"e": ((1, 2), None), "f": ((2, 2), CUT_LAYERS)}
+# (g): the other decoders trained tensor-parallel at (1, 2), full width,
+# without a checkpoint (each rank's slices come back as a file): (config,
+# depth (None: full), B, T, steps).  starcoder2's full depth is ~115 GB of
+# f32 training state on one card, so its one-device reference forces the
+# cut to 1 layer; mixtral's one full-width layer is ~27 GB for that
+# reference alone, and its tensor-parallel path is granite's code, so it is
+# held on the CPU only (tests/test_torch_tp_train.py)
+TP_OTHERS = {"g_granite": ("granite_moe_1b_a400m", None, 8, 512, 3),
+             "g_starcoder2": ("starcoder2_7b", 1, 4, 512, 2)}
+# (g): a key bias's gradient is what is left once softmax cancels the part
+# shared by every key of a query (only RoPE's rotation of the bias differs
+# by key position, and its slow frequencies barely turn over T 512), so
+# many of its elements lie within rounding of 0, where Adam's first steps
+# (~lr * sign(m)) part two runs.  Its updates may miss the update check
+# where its first moment (the gradients' average) is one device's within
+# TRAIN_GRAD_TOL of the tree's largest, as tests/test_torch_train.py holds
+# a key bias's gradient at the tree's largest gradient
+KEY_BIAS = "['bk']"
 
 
 class AllReduceLog:
@@ -4883,6 +4970,102 @@ class MetricsStep:
         out = self.fn(params, opt_state, batch)
         self.metrics.append({k: float(v) for k, v in out[2].items()})
         return out
+
+
+class DispatchLog:
+    """Within the block, the top-k experts of every MoE router call of this
+    process are kept on the card (a copy each, no host sync inside the
+    step); ``digest()`` hashes them in call order.
+
+    With ``replay`` (another run's top-k experts, call by call) each call
+    routes to the replayed experts instead, weighted by this run's own
+    router logits (so the router's gradient is this run's), and counts
+    the tokens whose own top-k set differs from the replayed one, with
+    the largest margin between their k-th and (k+1)-th logits: a
+    summation order that moves a logit by an ulp flips a near-tie, and
+    capacity dispatch then reshuffles the experts' buffers, so two runs
+    of the same model part without any fault; replaying one run's
+    routing holds the rest of the other to it."""
+
+    def __init__(self, replay=None):
+        self.topi, self.replay = [], replay
+        self.flips, self.margins = [], []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.moe, self.orig = moe, moe._router_probs
+
+        def kept(p, x, cfg):
+            out = self.orig(p, x, cfg)
+            logits, topi = out[0], out[2]
+            self.topi.append(topi.detach().clone())
+            if self.replay is None:
+                return out
+            want = self.replay[len(self.topi) - 1].to(topi.device,
+                                                      torch.int64)
+            k = cfg.top_k
+            differ = (torch.sort(topi, -1).values
+                      != torch.sort(want, -1).values).any(-1)
+            top = torch.topk(logits.detach(), k + 1, dim=-1).values
+            margin = top[..., k - 1] - top[..., k]
+            self.flips.append(differ.sum())
+            self.margins.append(torch.where(differ, margin,
+                                            torch.zeros_like(margin)).amax())
+            topv = torch.gather(logits, -1, want)
+            return logits, topv, want, torch.softmax(topv, dim=-1)
+        moe._router_probs = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._router_probs = self.orig
+        return False
+
+    def digest(self) -> str:
+        import hashlib
+        h = hashlib.sha256()
+        for t in self.topi:
+            h.update(t.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def flipped(self) -> dict:
+        """Under ``replay``: the tokens whose own top-k set differed from
+        the replayed one, over all calls, and the largest margin between
+        their k-th and (k+1)-th router logits."""
+        return dict(calls=len(self.flips),
+                    tokens=int(sum(int(f) for f in self.flips)),
+                    of_tokens=sum(t.shape[0] for t in self.topi),
+                    largest_margin=max((float(m) for m in self.margins),
+                                       default=0.0))
+
+
+def seeded_biases(torch, params):
+    """(g): every bias (the attention's, the LayerNorms'), zeros at init as
+    in the reference, drawn 0.1 N(0, 1) on the card, seeded by the leaf's
+    path (the same on every process), as the CPU tests draw them: a bias added to the
+    wrong heads then moves the loss, and each leaf's parameter error is
+    measured against a parameter, not against its first updates."""
+    import zlib
+    from repro_torch.models.sail_linear import _walk
+
+    def one(path, x):
+        if not path.endswith(("['bq']", "['bk']", "['bv']", "['bo']",
+                              "['bias']")):
+            return x
+        gen = torch.Generator(device=x.device).manual_seed(
+            zlib.crc32(path.encode()))
+        return 0.1 * torch.randn(x.shape, generator=gen, device=x.device)
+    return _walk(params, one)
+
+
+def tp_run(part):
+    """(config, mesh (data, model), depth, B, T, steps) of a
+    tensor-parallel run of phase 14."""
+    if part in TP_TRAIN:
+        shape, layers = TP_TRAIN[part]
+        return TRAIN_ARCH, shape, layers, TRAIN_B, TRAIN_T, DIST_STEPS
+    arch, layers, b, t, steps = TP_OTHERS[part]
+    return arch, (1, 2), layers, b, t, steps
 
 
 def compressed_rounds(torch, rank, world, dev, group):
@@ -4947,14 +5130,16 @@ def compressed_rounds(torch, rank, world, dev, group):
     return rec
 
 
-def mesh_rank_train(torch, rank, shape, layers, ckpt):
-    """Phase 14's rank set-up: tinymistral at full width (cut to
-    ``layers``; None: full depth) made on this rank's card from seed 0,
+def mesh_rank_train(torch, rank, shape, layers, ckpt, arch=TRAIN_ARCH,
+                    b=TRAIN_B, t=TRAIN_T, steps=DIST_STEPS, biases=False):
+    """Phase 14's rank set-up: ``arch`` (tinymistral) at full width (cut
+    to ``layers``; None: full depth) made on this rank's card from seed 0,
     its ``build_train_step`` over a ``(data, model)`` mesh of ``shape``
     (FSDP as ``make_plan`` decides), this rank's slices, and a
-    ``TrainLoop`` of DIST_STEPS timed steps on phase 13's global batches
-    whose final checkpoint goes to ``ckpt``.  Run the loop inside ``with
-    ars:`` and each step's all-reduces land in ``spans``.  Returns a dict
+    ``TrainLoop`` of ``steps`` timed steps on global batches of B x T
+    (phase 13's) whose final checkpoint goes to ``ckpt`` (None: none);
+    ``biases``: ``seeded_biases``.  Run the loop inside ``with ars:`` and each step's all-reduces land in
+    ``spans``.  Returns a dict
     of those objects and the parameter counts."""
     from repro_torch.launch.mesh import make_mesh, rank_device
     from repro_torch.launch.steps import build_train_step
@@ -4965,7 +5150,9 @@ def mesh_rank_train(torch, rank, shape, layers, ckpt):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh(shape, ("data", "model"))
-    cfg, params = family_model(torch, TRAIN_ARCH, layers=layers)
+    cfg, params = family_model(torch, arch, layers=layers)
+    if biases:
+        params = seeded_biases(torch, params)
     built = build_train_step(cfg, mesh=mesh, device=dev)
     dp = built.meta["dp"]
     n_params = sum(p.numel() for p in tree_leaves(params))
@@ -4984,8 +5171,8 @@ def mesh_rank_train(torch, rank, shape, layers, ckpt):
         spans.append((first, len(ars.calls)))
         return out
     loop = TrainLoop(marked, params, built.meta["optimizer"].init(params),
-                     train_data(cfg, TRAIN_B, TRAIN_T),
-                     TrainLoopConfig(total_steps=DIST_STEPS, log_every=1,
+                     train_data(cfg, b, t),
+                     TrainLoopConfig(total_steps=steps, log_every=1,
                                      checkpoint_every=10 ** 9,
                                      checkpoint_dir=ckpt), dp=dp)
     return dict(dev=dev, mesh=mesh, cfg=cfg, built=built, dp=dp,
@@ -5092,6 +5279,29 @@ def one_device_run(torch, layers=None):
     return ref, step.metrics
 
 
+def tp_reference(torch, part):
+    """(g): ``part``'s one-device run from the ranks' init on the same
+    global batches, routed by the ranks' top-k experts where they wrote
+    them (``DispatchLog``'s replay): (the init, the parameters and AdamW's
+    moments after the steps, on the card; the steps' metrics; the
+    replay's count of differing routings, None without one)."""
+    from repro_torch.tree import tree_leaves
+    arch, _, layers, b, t, steps = tp_run(part)
+    cfg, params = family_model(torch, arch, layers=layers)
+    params = seeded_biases(torch, params)
+    loop, step = train_loop(torch, cfg, params, b, t, steps)
+    step = MetricsStep(step)
+    loop.step_fn = step
+    routing = os.path.join(OUT_DIR, f"tp_{part}_routing.pt")
+    replay = torch.load(routing) if os.path.exists(routing) else None
+    with DispatchLog(replay) as routed:
+        loop.run()              # the step does not write its inputs
+    ref = dict(init=tree_leaves(params), after=tree_leaves(loop.params),
+               mu=tree_leaves(loop.opt_state.mu),
+               nu=tree_leaves(loop.opt_state.nu))
+    return ref, step.metrics, (routed.flipped() if replay else None)
+
+
 def dist_reference(torch, res):
     """(a)'s and (e)'s reference: the one-device run at full depth."""
     ref, metrics = one_device_run(torch)
@@ -5105,13 +5315,21 @@ def update_agreement(torch, params, opt, ref) -> dict:
     DIST_UPDATE_TOL of the leaf's largest update plus DIST_STEPS ulps, the
     same fraction for the parameters left at their init (what a run that
     never wrote its parameters back would read), and the worst element
-    with both runs' updates and AdamW moments."""
+    with both runs' updates and AdamW moments (a moment the run did not
+    send back, None).  Where the run sent its first moment (the
+    gradients' average), each leaf's largest difference from one
+    device's, of the tree's largest first moment (``mu_err_of_tree``)."""
     from repro_torch.tree import tree_flatten_with_path, tree_leaves
     inf = torch.tensor(float("inf"), device="cuda")
     leaves = []
-    for i, ((path, p), mu, nu) in enumerate(zip(
-            tree_flatten_with_path(params), tree_leaves(opt.mu),
-            tree_leaves(opt.nu))):
+    flat = tree_flatten_with_path(params)
+    none = [None] * len(flat)
+    mus = tree_leaves(opt.mu) if getattr(opt, "mu", None) is not None \
+        else none
+    nus = tree_leaves(opt.nu) if getattr(opt, "nu", None) is not None \
+        else none
+    mu_top = max(float(m.abs().max()) for m in ref["mu"])
+    for i, ((path, p), mu, nu) in enumerate(zip(flat, mus, nus)):
         p0, w = ref["init"][i].cuda(), ref["after"][i].cuda()
         top = (w - p0).abs().amax()
         tol = (DIST_UPDATE_TOL * top
@@ -5127,9 +5345,11 @@ def update_agreement(torch, params, opt, ref) -> dict:
             update_one=float((w - p0).flatten()[j]),
             update_dp=float((p - p0).flatten()[j]),
             mu_one=float(ref["mu"][i].flatten()[j]),
-            mu_dp=float(mu.flatten()[j]),
+            mu_dp=None if mu is None else float(mu.flatten()[j]),
             sqrt_nu_one=float(ref["nu"][i].flatten()[j].sqrt()),
-            sqrt_nu_dp=float(nu.flatten()[j].sqrt())))
+            sqrt_nu_dp=None if nu is None else float(nu.flatten()[j].sqrt()),
+            mu_err_of_tree=None if mu is None else float(
+                (mu - ref["mu"][i].cuda()).abs().max()) / mu_top))
     worst = max(leaves, key=lambda x: x["worst_over_tol"])
     return dict(
         tol=DIST_UPDATE_TOL, outliers_allowed=DIST_UPDATE_OUTLIERS,
@@ -5349,35 +5569,46 @@ def dist_resume(torch, res, ranks, ckpt):
 
 
 def tp_train_rank(rank, part, out_dir, ckpt):
-    """One rank of (e) or (f): tinymistral at full width (depth as
-    TP_TRAIN says) trained over the part's (data, model) mesh, every rank
-    on the one card, FSDP as ``make_plan`` decides, on phase 13's global
-    batches; DIST_STEPS steps, then the loop's final checkpoint (gathered
-    over both axes, written by rank 0).  Rank r writes
+    """One rank of (e), (f) or (g): the part's config at full width (depth
+    as ``tp_run`` says) trained over the part's (data, model) mesh, every
+    rank on the one card, FSDP as ``make_plan`` decides, on global batches
+    of the part's B x T; its steps, then the loop's final checkpoint
+    (gathered over both axes, written by rank 0), or without ``ckpt`` this
+    rank's slices and AdamW first moment written to
+    ``tp_<part>_rank<r>.pt`` and rank 0's routing to
+    ``tp_<part>_routing.pt``.  Rank r writes
     ``tp_<part>_rank<r>.json``: metrics, each step's wall time and device
     span, its all-reduces by kind, the digest of the leaves the model axis
-    leaves whole, max_memory_allocated."""
+    leaves whole and of a MoE model's routing (the top-k experts of every
+    router call), the kernels launched, max_memory_allocated."""
     import hashlib
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.launch.mesh import describe
     from repro_torch.tree import tree_leaves
-    shape, layers = TP_TRAIN[part]
+    arch, shape, layers, b, t, steps = tp_run(part)
     t0 = time.perf_counter()
     seconds = {}
-    run = mesh_rank_train(torch, rank, shape, layers, ckpt)
+    run = mesh_rank_train(torch, rank, shape, layers, ckpt, arch=arch, b=b,
+                          t=t, steps=steps, biases=part in TP_OTHERS)
     dp, loop, ars, cfg = run["dp"], run["loop"], run["ars"], run["cfg"]
     seconds["init"] = time.perf_counter() - t0
-    with ars:
+    _build.reset_launches()
+    with ars, DispatchLog() as routed:
         t0 = time.perf_counter()
         loop.run()            # the steps, then the gather and rank 0's write
         seconds["train"] = time.perf_counter() - t0
-    act = TRAIN_B // shape[0] * TRAIN_T * cfg.d_model * 4
+    launches = dict(_build.launches)
+    act = b // shape[0] * t * cfg.d_model * 4
+    route = b // shape[0] * t * cfg.top_k * 4
 
     def kind(i):
         nbytes, group = ars.calls[i][0], ars.groups[i]
         if group is not None and group is dp.tp_group:
             if nbytes == act:
                 return "activations"
+            if cfg.n_experts and nbytes == route:
+                return "routing weights' gradient"
             return "model gathers" if nbytes > 64 else "model scalars"
         if group is not None and group is dp.group:
             return "data axis"
@@ -5387,8 +5618,8 @@ def tp_train_rank(rank, part, out_dir, ckpt):
     digest = hashlib.sha256(b"".join(
         p.cpu().numpy().tobytes() for p in whole)).hexdigest()
     plan, mesh = run["plan"], run["mesh"]
-    rec = dict(part=part, shape=shape, layers=cfg.n_layers,
-               group=describe(mesh), device=str(run["dev"]),
+    rec = dict(part=part, arch=arch, shape=shape, layers=cfg.n_layers,
+               batch=(b, t), group=describe(mesh), device=str(run["dev"]),
                coords=(mesh.coord("data"), mesh.coord("model")),
                plan=dict(dp_axes=plan.dp_axes, tp_axis=plan.tp_axis,
                          fsdp=plan.fsdp),
@@ -5397,25 +5628,71 @@ def tp_train_rank(rank, part, out_dir, ckpt):
                per_step=step_records(run, kind), activation_bytes=act,
                whole_leaves=len(whole),
                whole_elements=sum(p.numel() for p in whole),
-               whole_digest=digest,
+               whole_digest=digest, model_dims=dp.model_dims,
+               launches=launches,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated(
                    run["dev"]) / 1e9, seconds=seconds)
+    t0 = time.perf_counter()
+    if routed.topi:
+        rec.update(dispatch_digest=routed.digest(),
+                   router_calls=len(routed.topi))
+        if ckpt is None and rank == 0:  # the one-device run routes by it
+            torch.save([x.to(torch.uint8).cpu() for x in routed.topi],
+                       os.path.join(out_dir, f"tp_{part}_routing.pt"))
+    if ckpt is None:
+        torch.save({"params": [p.cpu() for p in tree_leaves(loop.params)],
+                    "mu": [m.cpu() for m in tree_leaves(loop.opt_state.mu)]},
+                   os.path.join(out_dir, f"tp_{part}_rank{rank}.pt"))
+    seconds["save"] = time.perf_counter() - t0
     with open(os.path.join(out_dir, f"tp_{part}_rank{rank}.json"), "w") as f:
         json.dump(rec, f, indent=1)
 
 
-def tp_train_hold(torch, res, part, ref, one, ckpt):
-    """(e), (f): the ranks' metrics against the one-device run's ``one``
-    (within TRAIN_LOSS_RTOL), the whole leaves' digests equal across each
-    data coordinate's model ranks, the checkpoint's parameters and updates
-    against ``ref`` under (a)'s checks."""
+def tp_train_ranks(rank, parts, out_dir, ckpts):
+    """``tp_train_rank`` for each of ``parts`` (each with its ``ckpts``
+    entry) in turn, in one spawn of ranks: (e) and (g), which share the
+    (1, 2) mesh, pay for the ranks' start once."""
+    import torch
+    for part, ckpt in zip(parts, ckpts):
+        tp_train_rank(rank, part, out_dir, ckpt)
+        gc.collect()            # the last part's trees, before the next
+        torch.cuda.empty_cache()
+
+
+def tp_rank_params(torch, part, ranks, cfg):
+    """(g): the parameters and AdamW's first moment after a (1, M) run,
+    from the M ranks' slices (each leaf whole on every rank, or
+    concatenated along its model dim), on the card."""
+    import types
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_unflatten
+    saved = [torch.load(os.path.join(OUT_DIR, f"tp_{part}_rank{r}.pt"))
+             for r in range(len(ranks))]
+    dims = ranks[0]["model_dims"]
+    template = lm.init_params(cfg, None, device="meta")
+
+    def whole(key):
+        return tree_unflatten(template, [
+            (xs[0] if m is None else torch.cat(xs, dim=m)).cuda()
+            for m, xs in zip(dims, zip(*(d[key] for d in saved)))])
+    return whole("params"), types.SimpleNamespace(mu=whole("mu"), nu=None)
+
+
+def tp_train_hold(torch, res, part, ref, one, ckpt, replayed=None):
+    """(e), (f), (g): the ranks' metrics against the one-device run's
+    ``one`` (within TRAIN_LOSS_RTOL), the whole leaves' digests equal
+    across each data coordinate's model ranks (and a MoE model's routing
+    digests), the checkpoint's parameters (without ``ckpt``: the ranks'
+    slices) and updates against ``ref`` under (a)'s checks; ``replayed``:
+    the one-device run routed by the ranks' experts, its own routing
+    differing where ``replayed`` counts."""
     import dataclasses
     import repro_torch.configs as C
     from repro_torch.checkpoint import restore
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWState
     from repro_torch.tree import tree_flatten_with_path
-    shape, layers = TP_TRAIN[part]
+    arch, shape, layers, _, _, steps = tp_run(part)
     world = shape[0] * shape[1]
     ranks = []
     for r in range(world):
@@ -5429,29 +5706,50 @@ def tp_train_hold(torch, res, part, ref, one, ckpt):
             for key in ("loss", "nll", "grad_norm"):
                 worst = max(worst, abs(m[key] - w[key]) / abs(w[key]))
     digests = collections.defaultdict(set)
+    routings = collections.defaultdict(set)
     for rec in ranks:
         digests[rec["coords"][0]].add(rec["whole_digest"])
+        routings[rec["coords"][0]].add(rec.get("dispatch_digest"))
     whole_equal = all(len(d) == 1 for d in digests.values())
-    cfg = C.get_config(TRAIN_ARCH)
+    dispatch_equal = all(len(d) == 1 for d in routings.values())
+    cfg = C.get_config(arch)
     if layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    raw = lm.init_params(cfg, None, device="meta")
-    step0 = torch.zeros((), dtype=torch.int32, device="meta")
-    (params, opt), extras = restore(ckpt, (raw, AdamWState(step0, raw, raw)),
-                                    step=DIST_STEPS, device="cuda")
+    if ckpt is None:
+        (params, opt), extras = tp_rank_params(torch, part, ranks, cfg), \
+            {"step": steps}
+    else:
+        raw = lm.init_params(cfg, None, device="meta")
+        step0 = torch.zeros((), dtype=torch.int32, device="meta")
+        (params, opt), extras = restore(
+            ckpt, (raw, AdamWState(step0, raw, raw)), step=steps,
+            device="cuda")
     param_err, param_leaf = max(
-        (float((a.cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30),
-         path) for (path, a), b in zip(tree_flatten_with_path(params),
-                                       ref["after"]))
+        (float((a - b.to(a.device)).abs().max())
+         / max(float(b.abs().max()), 1e-30), path)
+        for (path, a), b in zip(tree_flatten_with_path(params),
+                                ref["after"]))
     upd = update_agreement(torch, params, opt, ref)
     del params, opt
     r0 = ranks[0]
+    # the leaves held to the update check (a key bias whose first moment is
+    # one device's may miss it: KEY_BIAS)
+    key_bias = [x for x in upd["leaves_outside"] if x["leaf"].endswith(
+        KEY_BIAS) and x["mu_err_of_tree"] is not None
+        and x["mu_err_of_tree"] <= TRAIN_GRAD_TOL]
+    held = max((x["outside_fraction"] for x in upd["leaves_outside"]
+                if x not in key_bias), default=0.0)
     hold = dict(metrics_rel_err=worst, whole_leaves_equal=whole_equal,
+                dispatch_equal=dispatch_equal, replayed=replayed,
                 param_err_of_leaf_max=param_err, param_err_leaf=param_leaf,
-                updates=upd, checkpoint_step=extras["step"])
-    res[f"tp_{part}"] = dict(ranks=ranks, hold=hold)
+                updates=upd, held_outside_fraction=held,
+                key_bias_by_first_moment=key_bias,
+                checkpoint_step=extras["step"])
+    res[f"tp_{part}"] = dict(ranks=ranks, hold=hold,
+                             one_device=dict(metrics=one))
     wf = upd["worst_fraction"]
-    log(f"[dist] ({part}) {r0['group']}, {r0['layers']} layers, every rank "
+    log(f"[dist] ({part}) {r0['arch']} {r0['group']}, {r0['layers']} "
+        f"layers, B {r0['batch'][0]} x T {r0['batch'][1]}, every rank "
         f"on {r0['device']} ({card_line()}), plan {r0['plan']}: each rank "
         f"holds {r0['local_params'] / 1e6:.1f}M of "
         f"{r0['params'] / 1e6:.1f}M parameters; per step (rank 0) "
@@ -5468,20 +5766,47 @@ def tp_train_hold(torch, res, part, ref, one, ckpt):
                     for k, v in r0["per_step"][-1]["kinds"].items())
         + f"; max memory allocated per rank "
         f"{[round(r['max_memory_allocated_gb'], 2) for r in ranks]} GB")
-    log(f"[dist] ({part}) against one device, {DIST_STEPS} steps: loss / "
+    if "dispatch_digest" in r0:
+        log(f"[dist] ({part}) routing: the top-k experts of "
+            f"{r0['router_calls']} router calls equal on every model rank "
+            f"{dispatch_equal}")
+    if replayed is not None:
+        log(f"[dist] ({part}) the one-device run routed by the ranks' "
+            f"top-k experts (weighted by its own router logits): its own "
+            f"top-k set differed in {replayed['tokens']} of "
+            f"{replayed['of_tokens']} token routings over "
+            f"{replayed['calls']} calls, the largest margin between the "
+            f"k-th and (k+1)-th logit among them "
+            f"{replayed['largest_margin']:.3e}")
+    mu_errs = [x["mu_err_of_tree"] for x in upd["leaves_outside"]
+               if x["mu_err_of_tree"] is not None]
+    if mu_errs:
+        log(f"[dist] ({part}) AdamW's first moment against one device's, "
+            f"of the tree's largest, in the leaves with updates outside: "
+            + ", ".join(f"{x['leaf']} {x['mu_err_of_tree']:.2e} "
+                        f"({x['outside']} of {x['elements']} outside)"
+                        for x in upd["leaves_outside"])
+            + f"; key biases held by their first moment (tolerance "
+            f"{TRAIN_GRAD_TOL}): {[x['leaf'] for x in key_bias]}")
+    log(f"[dist] ({part}) kernels launched by the steps (rank 0) "
+        f"{r0['launches']}; one device's metrics {one}")
+    log(f"[dist] ({part}) against one device, {steps} steps: loss / "
         f"nll / grad norm worst {worst:.2e} relative (tolerance "
         f"{TRAIN_LOSS_RTOL}); the {r0['whole_leaves']} leaves the model axis "
         f"leaves whole ({r0['whole_elements']} elements) bit-equal across "
-        f"model ranks {whole_equal}; parameters (rank 0's checkpoint) worst "
+        f"model ranks {whole_equal}; parameters ("
+        f"{'the ranks' if ckpt is None else 'rank 0'}'s "
+        f"{'slices' if ckpt is None else 'checkpoint'}) worst "
         f"{param_err:.2e} of a leaf's max in {param_leaf}; updates "
         f"{upd['outside']} of {upd['elements']} elements outside, worst leaf "
         f"{wf['leaf']} {wf['outside_fraction']:.2e} (allowed "
         f"{DIST_UPDATE_OUTLIERS})")
-    if worst > TRAIN_LOSS_RTOL or not whole_equal \
+    if worst > TRAIN_LOSS_RTOL or not whole_equal or not dispatch_equal \
             or param_err > DIST_PARAM_TOL \
-            or wf["outside_fraction"] > DIST_UPDATE_OUTLIERS \
-            or extras["step"] != DIST_STEPS \
-            or len(ranks[0]["metrics"]) != DIST_STEPS:
+            or held > DIST_UPDATE_OUTLIERS \
+            or extras["step"] != steps \
+            or any(len(rec["metrics"]) != steps for rec in ranks) \
+            or len(one) < steps:
         fail(f"dist ({part}): the tensor-parallel run differs from one "
              f"device")
 
@@ -5566,8 +5891,10 @@ def phase_dist(rt):
                                  rt.get("train"))
         seconds["hold"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        run_ranks(tp_train_rank, 2, args=("e", OUT_DIR, tp_dirs["e"]))
-        seconds["tp (1, 2) ranks"] = time.perf_counter() - t0
+        run_ranks(tp_train_ranks, 2, args=(
+            ["e"] + list(TP_OTHERS), OUT_DIR,
+            [tp_dirs["e"]] + [None] * len(TP_OTHERS)))
+        seconds["tp (1, 2) ranks, (e) and (g)"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         tp_train_hold(torch, res, "e", ref, res["one_device"]["metrics"],
                       tp_dirs["e"])
@@ -5591,9 +5918,30 @@ def phase_dist(rt):
         tp_train_hold(torch, res, "f", ref, one, tp_dirs["f"])
         tp_train_resume(torch, res, tp_dirs["f"], one)
         seconds["tp (2, 2)"] = time.perf_counter() - t0
+        del ref
+        for part in TP_OTHERS:             # (g): its ranks ran with (e)'s
+            gc.collect()        # cycles that hold earlier steps' tensors
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            ref, one, replayed = tp_reference(torch, part)
+            seconds[f"{part} one device"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            tp_train_hold(torch, res, part, ref, one, None, replayed)
+            del ref
+            seconds[f"{part} hold"] = time.perf_counter() - t0
+            log(f"[dist] ({part}) seconds: rank 0 "
+                f"{res[f'tp_{part}']['ranks'][0]['seconds']}, one device "
+                f"{seconds[f'{part} one device']:.1f}, hold "
+                f"{seconds[f'{part} hold']:.1f}")
     finally:
         for d in dirs:
             shutil.rmtree(d, ignore_errors=True)
+        for part in TP_OTHERS:
+            for name in (f"tp_{part}_rank0.pt", f"tp_{part}_rank1.pt",
+                         f"tp_{part}_routing.pt"):
+                path = os.path.join(OUT_DIR, name)
+                if os.path.exists(path):
+                    os.remove(path)
     log(f"[dist] seconds {seconds}")
 
 
@@ -5604,6 +5952,10 @@ def dist_fields(dist: dict, name: str) -> dict:
     out = {"launches_dist": {"restored uniform:4": serve["launches"][name],
                              "restored a8 cut": cut["launches"].get(name,
                                                                     0)}}
+    # the tensor-parallel training runs' steps, rank 0 (expected 0)
+    out["launches_dist"].update({
+        f"tp train {k[3:]}": v["ranks"][0]["launches"][name]
+        for k, v in dist.items() if k.startswith("tp_")})
     if name == "lut_matmul":
         out["max_abs_err_dist"] = max(serve["max_abs_err_lut"],
                                       cut["max_abs_err_lut"])

@@ -36,16 +36,22 @@ of the summed gradient.  gloo on CUDA tensors offers ``all_reduce`` and
 exact, since each element has one nonzero term.
 
 *Model axis* (M > 1, tensor parallelism, Megatron style; the configs
-``serving.distributed.tp_supported`` accepts: dense, no biases, heads,
-KV heads and ``d_ff`` divisible by M).  The seven block matrices stay
-sharded: the model runs ``local_config(cfg, M)`` over this rank's heads
-and FFN slice inside ``tp_context`` (wire 32), whose differentiable
-collectives make the gradient of every replicated activation whole.
+``tp_train_supported`` accepts: the dense and MoE decoders, attention
+biases included, with heads, KV heads, ``d_ff`` and the experts' FFN
+divisible by M).  The block matrices stay sharded, and so do the
+attention's ``bq`` / ``bk`` / ``bv``, which add to this rank's heads:
+the model runs ``train_local_config(cfg, M)`` over this rank's heads and
+FFN slice inside ``tp_context`` (wire 32), whose differentiable
+collectives make the gradient of every replicated activation whole.  A
+MoE layer's experts split their FFN dim F on the model axis, as the
+reference's ``param_spec`` places them; the reference's placement does
+not read ``cfg.moe_shard``, so granite's ``"expert"`` splits F too.
 Every other leaf the model axis shards (the embedding's and
-``lm_head``'s vocabulary, the stacked norms' width) is gathered over the
-model axis too, so the embedding, the norms, the logits and the loss run
-replicated, as in tensor-parallel serving; their gradients come out whole
-and the same on every model rank, which keeps its slice.  The global
+``lm_head``'s vocabulary, the stacked norms' width, ``bo``, the MoE
+router's experts) is gathered over the model axis, so the embedding, the
+norms, the router, the logits and the loss run replicated, as in
+tensor-parallel serving; their gradients come out whole and the same on
+every model rank, which keeps its slice.  The global
 gradient norm sums the model-sharded leaves' squares over the model axis
 and adds the others' once.  The M ranks of a data coordinate see the
 same rows, and the metrics are the same on every rank.
@@ -64,7 +70,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-from repro_torch.dist.sharding import (dp_context, make_plan,
+from repro_torch.dist.sharding import (_NAME_RE, dp_context, make_plan,
                                        param_shardings, tp_context)
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import ModelConfig
@@ -72,10 +78,56 @@ from repro_torch.models.moe import MOE_GROUP_TOKENS
 from repro_torch.optim.adamw import (AdamW, AdamWState, cosine_schedule,
                                      global_norm)
 from repro_torch.serving.distributed import (local_config,
-                                             serving_param_spec,
-                                             tp_supported)
+                                             serving_param_spec)
 from repro_torch.tree import (tree_flatten_with_path, tree_leaves, tree_map,
                               tree_unflatten)
+
+
+# the attention biases that add to this rank's heads under tensor
+# parallelism (``bo`` adds after the sum and stays whole)
+_HEAD_BIASES = ("bq", "bk", "bv")
+
+
+def tp_train_supported(cfg: ModelConfig, tp: int) -> Optional[str]:
+    """Why this config cannot train over a model axis of ``tp``, ``None``
+    when it can: the dense and MoE decoders, attention biases included,
+    with heads, KV heads, ``d_ff`` and the experts' FFN divisible by
+    ``tp``.  Tensor-parallel serving keeps its own, narrower predicate
+    (``serving.distributed.tp_supported``, the reference's)."""
+    if tp <= 1:
+        return None
+    if cfg.family not in ("dense", "moe"):
+        return (f"family={cfg.family!r} does not train tensor-parallel yet "
+                "(ROADMAP, Queue 1 item 5d (ii))")
+    if cfg.mlp_bias:
+        return ("MLP biases do not train tensor-parallel yet (ROADMAP, "
+                "Queue 1 item 5d (ii))")
+    for name, n in (("n_heads", cfg.n_heads), ("n_kv", cfg.n_kv),
+                    ("d_ff", cfg.d_ff)) + (
+            (("expert_ffn", cfg.expert_ffn),) if cfg.family == "moe"
+            else ()):
+        if n % tp:
+            return f"{name}={n} not divisible by tp={tp}"
+    return None
+
+
+def train_local_config(cfg: ModelConfig, tp: int) -> ModelConfig:
+    """One training rank's view of ``cfg``: serving's ``local_config``
+    (its heads and FFN slice) and its slice of the experts' FFN."""
+    local = local_config(cfg, tp)
+    if tp <= 1 or cfg.moe_ffn is None:
+        return local
+    return dataclasses.replace(local, moe_ffn=cfg.moe_ffn // tp)
+
+
+def train_model_dim(path: str, shape) -> Optional[int]:
+    """The dim of one parameter the model computes on as this rank's
+    shard (None: the model needs it whole): serving's block matrices,
+    the MoE experts among them, and the attention's head biases."""
+    names = _NAME_RE.findall(path)
+    if names and names[-1] in _HEAD_BIASES:
+        return len(shape) - 1
+    return _first(serving_param_spec(path, tuple(shape)), "model")
 
 
 @dataclasses.dataclass
@@ -143,7 +195,8 @@ class MeshRank:
         self.device = device
         # the full tree's shapes; per leaf, the dim its data-axis slice
         # (FSDP) and its model-axis shard lie on, and whether the model
-        # computes on the shard (a block matrix) or on the whole leaf
+        # computes on the shard (a block matrix, a head bias) or on the
+        # whole leaf
         self.template = init(cfg, None, device="meta")
         flat = tree_flatten_with_path(self.template)
         specs = tree_leaves(param_shardings(mesh, self.template, cfg, plan))
@@ -153,8 +206,8 @@ class MeshRank:
             _first(s, tp) if self.tp_size > 1 else None for s in specs]
         self.sharded: List[bool] = []
         for (path, leaf), dim in zip(flat, self.model_dims):
-            local = _first(serving_param_spec(path, tuple(leaf.shape)),
-                           "model") if self.tp_size > 1 else None
+            local = train_model_dim(path, leaf.shape) \
+                if self.tp_size > 1 else None
             if local is not None and local != dim:
                 raise ValueError(f"{path}: the model axis shards dim {dim}, "
                                  f"the tensor-parallel model dim {local}")
@@ -245,8 +298,8 @@ class MeshRank:
 
     def forward_view(self, tree):
         """What the forward pass runs on: every leaf whole along the data
-        axis, and along the model axis too but for the block matrices,
-        which stay this rank's shards."""
+        axis, and along the model axis too but for the block matrices and
+        head biases, which stay this rank's shards."""
         return self._gather_model(self._gather_data(tree), [
             None if s else m for m, s in zip(self.model_dims, self.sharded)])
 
@@ -316,27 +369,30 @@ class MeshRank:
         return t.tolist()
 
 
-def build_train_step(cfg: ModelConfig, mesh=None, fsdp: Optional[bool] = None,
-                     microbatches: int = 1, bf16_compute: bool = False,
-                     peak_lr: float = 3e-4, device="cuda",
-                     local_batch: bool = False) -> BuiltStep:
+def build_train_step(cfg: ModelConfig, mesh=None, *,
+                     fsdp: Optional[bool] = None, microbatches: int = 1,
+                     bf16_compute: bool = False, peak_lr: float = 3e-4,
+                     device="cuda", local_batch: bool = False) -> BuiltStep:
     """The train step on ``device``; over ``mesh`` (None: one device) it is
     one rank's part of the mesh step, which takes the global batch and
     keeps its data coordinate's rows, or, with ``local_batch``, takes
     this rank's rows as given (each host's own stream, as
     ``--distributed`` reads it).  A model axis larger than 1 takes the
-    configs ``tp_supported`` accepts and raises ``NotImplementedError``
-    for the others.  ``meta``: ``optimizer``, ``init``, and over a mesh
-    ``plan`` and ``dp`` (the ``MeshRank`` that shards the trees and the
-    loop's checkpoints)."""
+    configs ``tp_train_supported`` accepts and raises
+    ``NotImplementedError`` for the others.  Every argument after
+    ``mesh`` is a keyword: the reference's third positional argument is
+    its shape name, which this signature does not take yet (ROADMAP,
+    Queue 3).  ``meta``: ``optimizer``, ``init``, and over a mesh ``plan``
+    and ``dp`` (the ``MeshRank`` that shards the trees and the loop's
+    checkpoints)."""
     dev = resolve_device(device)
     tp = mesh.axis_size("model") if mesh is not None else 1
-    reason = tp_supported(cfg, tp)
+    reason = tp_train_supported(cfg, tp)
     if reason is not None:
         raise NotImplementedError(
             f"tensor-parallel training of {cfg.name} over a model axis of "
             f"{tp}: {reason} (ROADMAP, Queue 1)")
-    run_cfg = local_config(cfg, tp)       # this rank's heads and FFN slice
+    run_cfg = train_local_config(cfg, tp)   # this rank's heads, FFN slice
     opt = AdamW(learning_rate=cosine_schedule(peak_lr, 100, 10000))
     if cfg.family == "encdec":
         base_loss = lambda p, b: encdec.loss_fn(p, b, run_cfg, device=dev)

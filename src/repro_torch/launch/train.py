@@ -7,8 +7,9 @@
 Runs on the card unless ``--device cpu``.  Without ``--mesh`` it trains
 on one device.  ``--mesh DxM`` trains over D x M ranks: data-parallel
 over D (FSDP, as ``make_plan`` decides) and tensor-parallel over M (the
-configs ``serving.distributed.tp_supported`` accepts; any other raises
-``NotImplementedError`` before a rank starts).  Without
+configs ``launch.steps.tp_train_supported`` accepts: the dense and MoE
+decoders; any other raises ``NotImplementedError`` before a rank
+starts).  Without
 ``--distributed`` the launcher spawns the ranks itself
 (``launch.mesh.run_ranks``, gloo), sharing the named device's cards
 round robin (``rank_device``); each rank draws the single-process global
@@ -69,9 +70,9 @@ def _mesh_shape(text):
 def _check_model_axis(args, shape) -> None:
     """Refuse a model axis the config cannot shard, before any rank
     starts."""
-    from repro_torch.serving.distributed import tp_supported
+    from repro_torch.launch.steps import tp_train_supported
     m = shape[1] if shape else 1
-    reason = tp_supported(_config(args), m)
+    reason = tp_train_supported(_config(args), m)
     if reason is not None:
         raise NotImplementedError(
             f"--mesh {args.mesh}: tensor-parallel training of {args.arch}: "

@@ -13,13 +13,25 @@ The expert einsums go through ``sail_linear.einsum_q``, which dequantizes a
 quantized expert stack on every call, as the reference does: no LUT-GEMV
 launch serves an expert.  The router is a plain ``mm`` (a LUT-GEMV launch
 where the policy quantizes it).
+
+Under tensor-parallel training each model rank holds an F slice of every
+expert (``w_gate`` / ``w_up`` column-parallel, ``w_down`` row-parallel)
+and computes the router, the top-k and the dispatch whole and alike.
+Megatron's operators go where the MLP's go, in two places each:
+``tp_copy`` on the experts' input (not above the router, whose part of
+``x``'s gradient is already whole on every rank) and on the routing
+weights that build the combine tensor (each rank's F slice gives a
+partial gradient of them); one ``tp_all_reduce`` of the combined
+``[T, D]`` output, taken after the load-balancing term so that a
+recomputing backward pass (``models.remat``) stops before it.  Outside a
+``tp_context`` and in serving all three are the identity.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.dist.sharding import dp_sum
+from repro_torch.dist.sharding import dp_sum, tp_all_reduce, tp_copy
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.layers import dense_init, gelu
 from repro_torch.models.sail_linear import einsum_q, mm
@@ -76,10 +88,11 @@ def apply_moe_dense(p, x: torch.Tensor, cfg: ModelConfig):
     xt = x.reshape(-1, d)
     logits, _, topi, probs = _router_probs(p, xt, cfg)
     comb = (_one_hot(topi, cfg.n_experts, probs.dtype)
-            * probs[..., None]).sum(-2)                      # [T, E]
-    y = _expert_ffn(p, xt, cfg, "td,edf->tef", "tef,efd->ted")
+            * tp_copy(probs)[..., None]).sum(-2)             # [T, E]
+    y = _expert_ffn(p, tp_copy(xt), cfg, "td,edf->tef", "tef,efd->ted")
     out = torch.einsum("ted,te->td", y, comb)
-    return out.reshape(*lead, d), _aux_loss(logits, comb, cfg)
+    aux = _aux_loss(logits, comb, cfg)
+    return tp_all_reduce(out).reshape(*lead, d), aux
 
 
 MOE_GROUP_TOKENS = 512   # GShard dispatch group (the reference's)
@@ -102,8 +115,8 @@ def apply_moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig):
 
     logits, _, topi, probs = _router_probs(p, xt, cfg)       # topi [T, K]
     topi_g = topi.reshape(ng, tg, k)
-    probs_g = probs.reshape(ng, tg, k)
-    xg = xt.reshape(ng, tg, d)
+    probs_g = tp_copy(probs).reshape(ng, tg, k)
+    xg = tp_copy(xt).reshape(ng, tg, d)
 
     # buffer row of each (group, token, k): how many earlier (token, k)
     # pairs of the group went to the same expert
@@ -128,7 +141,8 @@ def apply_moe_dispatch(p, x: torch.Tensor, cfg: ModelConfig):
     ye = _expert_ffn(p, xe, cfg, "gecd,edf->gecf", "gecf,efd->gecd")
     out = torch.einsum("gecd,gtec->gtd", ye, comb.to(ye.dtype)).reshape(t, d)
     comb_e = comb.sum(-1).reshape(t, e)                       # [T, E]
-    return out.reshape(*lead, d).to(x.dtype), _aux_loss(logits, comb_e, cfg)
+    aux = _aux_loss(logits, comb_e, cfg)
+    return tp_all_reduce(out.reshape(*lead, d).to(x.dtype)), aux
 
 
 def _aux_loss(logits: torch.Tensor, comb: torch.Tensor,

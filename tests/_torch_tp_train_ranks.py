@@ -1,7 +1,9 @@
 """The rank side of ``tests/test_torch_tp_train.py``: gloo ranks on the
 CPU (``repro_torch.launch.mesh.run_ranks``), one group each of two, four
-and eight, run every multi-process case of that file once, and each rank
-writes its results to ``<out>/w<world>_rank<r>.pkl``.
+and eight, run every multi-process case of that file once (the train
+steps, and the collectives of tinymistral's loss, of a MoE layer and of
+a starcoder2 attention), and each rank writes its results to
+``<out>/w<world>_rank<r>.pkl``.
 
     python tests/_torch_tp_train_ranks.py <out dir> <inputs.pkl>
 
@@ -21,11 +23,22 @@ import sys
 CASES = [("tinymistral_248m", (1, 2), None), ("tinymistral_248m", (1, 2), True),
          ("tinymistral_248m", (2, 2), True),
          ("tinymistral_248m", (2, 2), False),
-         ("llama3_2_1b", (4, 2), None), ("qwen3_0_6b", (1, 2), None)]
+         ("llama3_2_1b", (4, 2), None), ("qwen3_0_6b", (1, 2), None),
+         ("starcoder2_7b", (1, 2), None),
+         ("granite_moe_1b_a400m", (1, 2), None),
+         ("granite_moe_1b_a400m", (2, 2), True),
+         ("mixtral_8x7b", (1, 2), None)]
 # global batch (rows, tokens per row) of each config (qwen3: qk-norm
-# scales applied to each rank's heads)
+# scales applied to each rank's heads; starcoder2: attention biases
+# sharded with their heads; granite: two data ranks of one 512-token MoE
+# dispatch group each; mixtral: T past its 64-token window)
 SHAPES = {"tinymistral_248m": (8, 16), "llama3_2_1b": (8, 64),
-          "qwen3_0_6b": (8, 16)}
+          "qwen3_0_6b": (8, 16), "starcoder2_7b": (8, 16),
+          "granite_moe_1b_a400m": (8, 128), "mixtral_8x7b": (4, 96)}
+# (config, layer, rows, tokens) of the one-layer collectives checks: a
+# MoE layer in both modes and a starcoder2 attention with its biases
+LAYERS = [("granite_moe_1b_a400m", "moe", 4, 32),
+          ("starcoder2_7b", "attn", 4, 16)]
 STEPS = 3
 CKPT_STEPS = 2             # the (2, 2) loop's steps to its checkpoint
 
@@ -151,6 +164,78 @@ def collectives(torch, rank, inputs):
     return out
 
 
+def layer_inputs(torch, arch, b, t):
+    """A layer's input [b, t, D] and the weights of the scalar loss taken
+    of its output, from a numpy seed."""
+    import numpy as np
+    import repro_torch.configs as C
+    rng = np.random.default_rng(7)
+    d = C.get_smoke(arch).d_model
+    return (torch.from_numpy(rng.standard_normal((b, t, d), np.float32)),
+            torch.from_numpy(rng.standard_normal((b, t, d), np.float32)))
+
+
+def layer_loss(torch, layer, p, x, w, cfg, remat, mode="dispatch"):
+    """One layer (layer 0's weights ``p``, under ``models.remat`` when
+    ``remat``) on ``x``: sum(out * w), plus the MoE load-balancing term."""
+    from repro_torch.models import layers, moe
+    from repro_torch.models.remat import remat as run
+
+    def body(p, x):
+        if layer == "moe":
+            out, aux = moe.apply_moe(p, x, cfg, mode=mode)
+            return torch.sum(out * w) + aux
+        positions = torch.arange(x.shape[1]).expand(x.shape[0], -1)
+        return torch.sum(layers.apply_attention(
+            p, x, cfg, positions=positions, window=cfg.window) * w)
+    return run(body, p, x, on=remat)
+
+
+def layer_params(tree, layer):
+    """Layer 0's weights of ``layer`` (``"moe"`` or ``"attn"``)."""
+    return {k: v[0] for k, v in tree["blocks"][layer].items()}
+
+
+def layer_collectives(torch, rank, inputs):
+    """At (1, 2), each LAYERS entry with this rank's shard of layer 0's
+    weights (the experts' F slice, the attention's heads and their
+    ``bq`` / ``bk`` / ``bv``; the router and ``bo`` whole), as the
+    training step holds them: one forward and backward under
+    ``tp_context``, remat off and on (a MoE layer also in dense mode);
+    the loss, every gradient and the all-reduces."""
+    import dataclasses
+    import repro_torch.configs as C
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.dist.sharding import tp_context
+    from repro_torch.launch.steps import train_local_config, train_model_dim
+    out = {}
+    for arch, layer, b, t in LAYERS:
+        full = layer_params(params_from_numpy(inputs[arch][0], device="cpu"),
+                            layer)
+        local = {}
+        for k, v in full.items():
+            dim = train_model_dim(f"['{k}']", v.shape)
+            local[k] = v if dim is None else v.chunk(2, dim)[rank].clone()
+        x0, w = layer_inputs(torch, arch, b, t)
+        modes = ("dispatch", "dense") if layer == "moe" else ("dispatch",)
+        for mode in modes:
+            for remat in (False, True):
+                cfg = dataclasses.replace(
+                    train_local_config(C.get_smoke(arch), 2), remat=remat)
+                p = {k: v.detach().requires_grad_() for k, v in
+                     local.items()}
+                x = x0.clone().requires_grad_()
+                with tp_context(None, 32), Counted() as c:
+                    loss = layer_loss(torch, layer, p, x, w, cfg, remat,
+                                      mode)
+                    gs = torch.autograd.grad(loss, list(p.values()) + [x])
+                out[(arch, mode, remat)] = dict(
+                    loss=float(loss), calls=c.calls,
+                    grads={k: g.numpy() for k, g in zip(list(p) + ["x"],
+                                                        gs)})
+    return out
+
+
 def rank_main(rank, world, out_dir, inputs_path):
     import torch
     from repro_torch.launch.mesh import make_mesh
@@ -162,6 +247,7 @@ def rank_main(rank, world, out_dir, inputs_path):
            "train": train_cases(torch, mesh, inputs)}
     if world == 2:
         res["collectives"] = collectives(torch, rank, inputs)
+        res["layers"] = layer_collectives(torch, rank, inputs)
     if world == 4:
         res["ckpt_step"] = checkpointed(torch, mesh, inputs,
                                         os.path.join(out_dir, "ckpt22"))

@@ -275,9 +275,10 @@ def test_mesh_groups(runs):
 
 def test_one_process_mesh_and_refusals():
     """Without a process group a mesh is one process; a mesh larger than
-    the group, a model axis in training over a config tensor parallelism
-    cannot shard (starcoder2's biases), and a split that would cut MoE
-    dispatch groups across ranks are refused."""
+    the group, a model axis in training over a config that does not train
+    tensor-parallel yet (xlstm's recurrent state, ROADMAP Queue 1 item 5d
+    (ii)), and a split that would cut MoE dispatch groups across ranks
+    are refused."""
     from repro_torch.launch.mesh import describe, make_mesh
     from repro_torch.launch.steps import build_train_step
     mesh = make_mesh((1, 1), ("data", "model"))
@@ -286,7 +287,7 @@ def test_one_process_mesh_and_refusals():
         "(none; this rank 0)"
     with pytest.raises(ValueError, match="process group of 2"):
         make_mesh((2, 1), ("data", "model"))
-    cfg = TC.get_smoke("starcoder2_7b")
+    cfg = TC.get_smoke("xlstm_350m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_train_step(cfg, mesh=layout((1, 2)), device="cpu")
     # one rank of two: granite at 2 x 128 tokens per rank would cut the

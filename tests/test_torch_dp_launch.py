@@ -125,11 +125,11 @@ def test_resumes_at_dp1_and_dp4(runs):
 
 
 def test_model_axis_is_refused():
-    """A model axis over a config tensor parallelism cannot shard
-    (starcoder2's attention and MLP biases) is refused before any rank
-    starts."""
+    """A model axis over a config that does not train tensor-parallel yet
+    (xlstm's recurrent state, ROADMAP Queue 1 item 5d (ii)) is refused
+    before any rank starts."""
     args = ARGS[:]
-    args[args.index("tinymistral_248m")] = "starcoder2_7b"
+    args[args.index("tinymistral_248m")] = "xlstm_350m"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(args + ["--mesh", "1x2", "--steps", "1"])
 

@@ -2,11 +2,15 @@
 ``(data, model)`` mesh against the JAX reference's ``build_train_step``
 on a mesh of as many devices — tinymistral at (1, 2) and (2, 2) with FSDP
 on and off, llama3_2_1b (tied embeddings) at (4, 2), the reference test's
-mesh (``tests/test_dist.py``), qwen3_0_6b (qk-norm) at (1, 2), three
-steps each; Megatron's collectives
-(``tp_all_reduce`` and ``tp_copy``) in one forward and backward at (1, 2)
-and in serving's forward; a (2, 2) checkpoint resumed on one device and
-restored by the reference; the launcher's ``--mesh 1x2``.
+mesh (``tests/test_dist.py``), qwen3_0_6b (qk-norm) at (1, 2),
+starcoder2 (attention biases) at (1, 2), granite (MoE) at (1, 2) and at
+(2, 2) with FSDP, mixtral (MoE, sliding window) at (1, 2), three steps
+each; Megatron's collectives (``tp_all_reduce`` and ``tp_copy``) in one
+forward and backward at (1, 2), of the loss and of one MoE layer and one
+starcoder2 attention, and in serving's forward; a (2, 2) checkpoint
+resumed on one device and restored by the reference; the launcher's
+``--mesh 1x2`` for tinymistral and granite; ``build_train_step``'s
+keyword-only arguments.
 
 The port's ranks run once, in gloo groups of two, four and eight on the
 CPU (``tests/_torch_tp_train_ranks.py``), beside one reference process
@@ -34,8 +38,9 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.dist.sharding import tp_all_reduce, tp_context, tp_copy
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.mesh import make_mesh
-from repro_torch.launch.steps import build_train_step
+from repro_torch.launch.mesh import Mesh, make_mesh
+from repro_torch.launch.steps import build_train_step, tp_train_supported
+from repro_torch.serving.distributed import tp_supported
 from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.training.loop import TrainLoop, TrainLoopConfig
@@ -60,6 +65,7 @@ UPDATE_OUTLIERS = 1e-2
 UNCHANGED_MISS = 0.9
 LAUNCH_ARGS = ["--arch", "tinymistral_248m", "--smoke", "--device", "cpu",
                "--global-batch", "8", "--seq", "32", "--steps", "2"]
+LAUNCH_ARCHS = ("tinymistral_248m", "granite_moe_1b_a400m")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -152,24 +158,32 @@ def runs(tmp_path_factory):
             env=env(XLA_FLAGS=(os.environ.get("XLA_FLAGS", "")
                                + " --xla_force_host_platform_device_count=8"))
         )))
-    mesh_dir, one_dir = str(tmp / "launch12"), str(tmp / "launch1")
-    launcher = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.train"] + LAUNCH_ARGS
-        + ["--mesh", "1x2", "--ckpt", mesh_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env())
+    launchers = {}
+    for arch in LAUNCH_ARCHS:
+        mesh_dir = str(tmp / f"launch12_{arch}")
+        launchers[arch] = (mesh_dir, str(tmp / f"launch1_{arch}"),
+                           subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train"]
+            + launch_args(arch) + ["--mesh", "1x2", "--ckpt", mesh_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env()))
     try:
         port = subprocess.run(
             [sys.executable, ranks.__file__, str(tmp), inputs_path],
             capture_output=True, text=True, env=env(), timeout=TIMEOUT_S)
-        ttrain.main(LAUNCH_ARGS + ["--ckpt", one_dir])
-        launched = launcher.communicate(timeout=TIMEOUT_S)
+        launched = {}
+        for arch, (_, one_dir, proc) in launchers.items():
+            ttrain.main(launch_args(arch) + ["--ckpt", one_dir])
+            launched[arch] = proc.communicate(timeout=TIMEOUT_S)
         errs = [p.communicate(timeout=TIMEOUT_S)[1] for _, p in procs]
     finally:
-        launcher.kill()
+        for _, _, proc in launchers.values():
+            proc.kill()
         for _, p in procs:
             p.kill()
     assert port.returncode == 0, port.stderr[-3000:]
-    assert launcher.returncode == 0, launched[1][-3000:]
+    for arch, (_, _, proc) in launchers.items():
+        assert proc.returncode == 0, launched[arch][1][-3000:]
     want = {}
     for (out, p), err in zip(procs, errs):
         assert p.returncode == 0, err[-3000:]
@@ -180,8 +194,16 @@ def runs(tmp_path_factory):
         for r in range(world):
             with open(tmp / f"w{world}_rank{r}.pkl", "rb") as f:
                 got[(world, r)] = pickle.load(f)
-    return dict(inputs=inputs, want=want, got=got, launch=(
-        mesh_dir, one_dir, launched[0]), ckpt=str(tmp / "ckpt22"))
+    return dict(inputs=inputs, want=want, got=got, launch={
+        arch: (mesh_dir, one_dir, launched[arch][0])
+        for arch, (mesh_dir, one_dir, _) in launchers.items()},
+        ckpt=str(tmp / "ckpt22"))
+
+
+def launch_args(arch):
+    args = LAUNCH_ARGS[:]
+    args[args.index("tinymistral_248m")] = arch
+    return args
 
 
 def world_of(shape):
@@ -262,6 +284,68 @@ def one_device_grads(inputs, remat):
                          zip(tree_flatten_with_path(params), gs)}
 
 
+def one_device_layer_grads(inputs, arch, layer, mode, remat):
+    """The port's one-device loss and gradients of ``ranks.layer_loss``
+    on layer 0's whole weights, by name (``"x"``: the input's)."""
+    _, _, b, t = next(e for e in ranks.LAYERS if e[0] == arch)
+    cfg = dataclasses.replace(TC.get_smoke(arch), remat=remat)
+    full = ranks.layer_params(params_from_numpy(inputs[arch][0],
+                                                device="cpu"), layer)
+    p = {k: v.requires_grad_() for k, v in full.items()}
+    x0, w = ranks.layer_inputs(torch, arch, b, t)
+    x = x0.requires_grad_()
+    loss = ranks.layer_loss(torch, layer, p, x, w, cfg, remat, mode)
+    gs = torch.autograd.grad(loss, list(p.values()) + [x])
+    return float(loss.detach()), {k: g.numpy() for k, g in
+                                  zip(list(p) + ["x"], gs)}
+
+
+def assert_layer_collectives(runs, remat):
+    """Each ``ranks.LAYERS`` entry at (1, 2): the loss and every gradient
+    within 1e-5 of one device's (each leaf's max; a sharded leaf's
+    rank slice), the whole leaves' and the input's bit-equal on both
+    ranks; remat off, a MoE layer issues 1 all-reduce forward (the
+    combined [T, D] output) and 2 backward (``tp_copy`` of the experts'
+    [T, D] input and of the [T, k] routing weights), an attention 1 and
+    1 of [T, D]; remat on, at least those, in the same order on both
+    ranks."""
+    for arch, layer, b, t in ranks.LAYERS:
+        cfg = TC.get_smoke(arch)
+        act = (b * t * cfg.d_model, "torch.float32")
+        modes = ("dispatch", "dense") if layer == "moe" else ("dispatch",)
+        for mode in modes:
+            key = (arch, mode, remat)
+            loss, want = one_device_layer_grads(runs["inputs"], arch, layer,
+                                                mode, remat)
+            recs = [runs["got"][(2, r)]["layers"][key] for r in range(2)]
+            for r, rec in enumerate(recs):
+                assert abs(rec["loss"] - loss) <= RTOL * abs(loss), key
+                assert rec["grads"].keys() == want.keys()
+                for name, g in rec["grads"].items():
+                    w = want[name]
+                    if g.shape != w.shape:      # rank r's shard
+                        axis = next(i for i, (a, c) in enumerate(
+                            zip(g.shape, w.shape)) if a != c)
+                        w = np.split(w, 2, axis=axis)[r]
+                    scale = max(float(np.abs(w).max()), 1e-30)
+                    assert float(np.abs(g - w).max()) <= GRAD_TOL * scale, \
+                        (key, name)
+            whole = [n for n, g in recs[0]["grads"].items()
+                     if g.shape == want[n].shape]
+            assert "x" in whole and ("router" in whole if layer == "moe"
+                                     else "bo" in whole), whole
+            for name in whole:
+                assert np.array_equal(recs[0]["grads"][name],
+                                      recs[1]["grads"][name]), (key, name)
+            want_calls = {act} | ({(b * t * cfg.top_k, "torch.float32")}
+                                  if layer == "moe" else set())
+            assert set(recs[0]["calls"]) == want_calls, key
+            n = 3 if layer == "moe" else 2
+            assert (len(recs[0]["calls"]) >= n if remat
+                    else len(recs[0]["calls"]) == n), key
+            assert recs[0]["calls"] == recs[1]["calls"], key
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_collectives_give_whole_gradients(runs, remat):
     """One forward and backward at (1, 2) under ``tp_context``: every
@@ -271,7 +355,12 @@ def test_collectives_give_whole_gradients(runs, remat):
     issue 2 all-reduces per layer forward (``wo``, ``w_down``) and 2
     backward (``tp_copy`` before ``wq/wk/wv`` and ``w_gate/w_up``), each
     of one [B, T, D] f32 activation; remat on, at least those, the
-    recomputed forward's in the same order on both ranks."""
+    recomputed forward's in the same order on both ranks.  The same for
+    one MoE layer (dispatch and dense modes: the router's gradient whole,
+    the experts' sliced) and one starcoder2 attention (``bq`` / ``bk`` /
+    ``bv`` sliced with their heads, ``bo`` whole):
+    ``assert_layer_collectives``."""
+    assert_layer_collectives(runs, remat)
     cfg = TC.get_smoke("tinymistral_248m")
     loss, want = one_device_grads(runs["inputs"], remat)
     recs = [runs["got"][(2, r)]["collectives"][f"grad_remat{int(remat)}"]
@@ -396,10 +485,59 @@ def test_launcher_mesh_1x2_equals_one_device(runs):
     """``launch/train.py --mesh 1x2 --smoke --device cpu`` spawns two
     ranks, prints the mesh, and its checkpoint after 2 steps equals the
     one-device launcher's within 1e-5 of each leaf's max."""
-    mesh_dir, one_dir, out = runs["launch"]
+    assert_launch_equals_one_device(runs, "tinymistral_248m")
+
+
+def test_launcher_mesh_1x2_trains_moe_as_one_device(runs):
+    """The same for granite, a MoE decoder: ``--arch granite_moe_1b_a400m
+    --smoke --mesh 1x2`` equals one device."""
+    assert_launch_equals_one_device(runs, "granite_moe_1b_a400m")
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "xlstm_350m",
+                                  "whisper_large_v3"])
+def test_model_axis_refuses_the_families_still_to_port(arch):
+    """A model axis of 2 over hymba, xlstm or whisper raises
+    ``NotImplementedError`` naming ROADMAP's item, in ``build_train_step``
+    and in the launcher before any rank starts; so does a config with
+    MLP biases.  The three configs this file trains tensor-parallel pass
+    the training predicate, while tensor-parallel serving refuses them,
+    as the reference's ``tp_supported`` does."""
+    mesh = Mesh(axis_names=("data", "model"), shape=(1, 2),
+                ranks=np.arange(2).reshape(1, 2), groups={}, rank=0)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.*5d \(ii\)"):
+        build_train_step(TC.get_smoke(arch), mesh=mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.main(launch_args(arch) + ["--mesh", "1x2"])
+    biased = dataclasses.replace(TC.get_smoke("starcoder2_7b"),
+                                 mlp_bias=True)
+    assert "5d (ii)" in tp_train_supported(biased, 2)
+    for name in ("starcoder2_7b", "granite_moe_1b_a400m", "mixtral_8x7b"):
+        for cfg in (TC.get_smoke(name), TC.get_config(name)):
+            assert tp_train_supported(cfg, 2) is None, name
+            assert tp_supported(cfg, 2) is not None, name
+    assert "expert_ffn=64 not divisible by tp=3" in tp_train_supported(
+        dataclasses.replace(TC.get_smoke("granite_moe_1b_a400m"),
+                            n_heads=6, n_kv=3, d_ff=66), 3)
+
+
+def test_build_train_step_takes_keywords_after_the_mesh():
+    """A call written for the reference's signature, whose third
+    positional argument is the shape name, raises ``TypeError`` instead
+    of landing that name on ``fsdp``."""
+    cfg = TC.get_smoke("tinymistral_248m")
+    with pytest.raises(TypeError):
+        build_train_step(cfg, None, "train_4k", device="cpu")
+    built = build_train_step(cfg, None, fsdp=None, microbatches=1,
+                             device="cpu")
+    assert set(built.meta) == {"optimizer", "init"}
+
+
+def assert_launch_equals_one_device(runs, arch):
+    mesh_dir, one_dir, out = runs["launch"][arch]
     assert "mesh {'data': 1, 'model': 2} on 2 ranks (gloo" in out
     assert latest_step(mesh_dir) == latest_step(one_dir) == 2
-    cfg = TC.get_smoke("tinymistral_248m")
+    cfg = TC.get_smoke(arch)
     raw = lm.init_params(cfg, None, device="meta")
     template = (raw, AdamWState(torch.zeros((), dtype=torch.int32,
                                             device="meta"), raw, raw))
