@@ -212,7 +212,18 @@ Phases (each passes or the script exits nonzero):
      (d) the tree trained in (a) served by the engine under uniform:4 (ring,
      int8 KV, 8 requests of 16 new tokens), every launch held and counted
      exactly per decode step and prefill pass; its 2-layer cut card against
-     CPU as in phase 11.
+     CPU as in phase 11.  (e) the reference's defaults at train_4k: the
+     training losses' chunked attention against the one-pass form at T
+     4096, B 2 (values and gradients within 2e-5 of max(1, |max|), each
+     form's time and peak memory): tinymistral's heads over its window of
+     4096 (the full sweep) and hymba's over its window of 1024 (the band);
+     then build_train_step(cfg, None) for tinymistral at full width and
+     depth with every argument at the reference's defaults (bf16 compute,
+     auto_microbatches' 16 microbatches), one step on 16 rows x 4097
+     tokens (a cut of train_4k's 256 rows: one row a microbatch), and the
+     same step at bf16_compute=False: the loss calls and their rows, both
+     losses finite, the masters f32, the losses within 2e-2; each step's
+     time, peak memory, f32 operations and kernel launches (none).
  14. dist — (a) the model of phase 13 trained data-parallel by two gloo
      ranks spawned on the one card (FSDP, B 8 x T 512 global, phase 13's
      batches and schedule), 3 steps to a checkpoint written by rank 0 and
@@ -4665,7 +4676,8 @@ def train_loop(torch, cfg, params, b, t, steps, ckpt=None, every=10 ** 9,
     from repro_torch.launch.steps import build_train_step
     from repro_torch.training.loop import TrainLoop, TrainLoopConfig
     dev = params["embed"].device
-    built = build_train_step(cfg, device=dev)
+    built = build_train_step(cfg, microbatches=1, bf16_compute=False,
+                             device=dev)
     step = TimedStep(torch, built.fn) if timed else built.fn
     loop = TrainLoop(step, params, built.meta["optimizer"].init(params),
                      train_data(cfg, b, t),
@@ -4861,6 +4873,173 @@ def train_serve(torch, cfg, trained, res):
     res["serve"] = rec
 
 
+# (e): the chunked attention against the one-pass form at T 4096, on a
+# batch the one-pass form fits: tinymistral's heads over its window of
+# 4096 (the full sweep) and hymba's window of 1024 (the band)
+LONG_T, LONG_ATTN_B = 4096, 2
+LONG_ATTN = {"tinymistral full sweep": dict(kv=8, g=4, d=32, window=4096),
+             "hymba band": dict(kv=5, g=5, d=64, window=1024)}
+LONG_ATTN_TOL = 2e-5         # of max(1, the one-pass form's largest value)
+DEFAULT_SHAPE = "train_4k"
+DEFAULT_ROWS = 16            # a cut of train_4k's 256 rows: one a microbatch
+DEFAULT_BF16_RTOL = 2e-2     # the bf16 step's loss against the f32 step's
+
+
+def long_attention(torch, res):
+    """(e) (i): ``layers.chunked_attention`` (the training losses') against
+    ``layers.flash_attention`` (one pass) at T 4096, values and the
+    gradients of a seeded weighted sum, each form timed (second of two
+    runs, forward and backward, CUDA events) with its peak memory."""
+    from repro_torch.models import layers
+    out = {}
+    for name, c in LONG_ATTN.items():
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        h = c["kv"] * c["g"]
+        q, w = (torch.randn((LONG_ATTN_B, LONG_T, h, c["d"]), generator=gen,
+                            device="cuda") for _ in range(2))
+        k, v = (torch.randn((LONG_ATTN_B, LONG_T, c["kv"], c["d"]),
+                            generator=gen, device="cuda") for _ in range(2))
+        forms = {
+            "one_pass": lambda q_, k_, v_: layers.flash_attention(
+                q_, k_, v_, window=c["window"], causal=True),
+            "chunked": lambda q_, k_, v_: layers.chunked_attention(
+                q_, k_, v_, causal=True, window=c["window"], chunk=512)}
+        got = {}
+        for form, fn in forms.items():
+            for _ in range(2):
+                leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                y = fn(*leaves)
+                grads = torch.autograd.grad(torch.sum(y * w), leaves)
+                end.record()
+                end.synchronize()
+            got[form] = dict(
+                out=y.detach(), grads=grads, ms=start.elapsed_time(end),
+                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9)
+        ref, new = got["one_pass"], got["chunked"]
+        scale = lambda x: max(1.0, float(x.abs().max()))
+        err = float((new["out"] - ref["out"]).abs().max()) / scale(
+            ref["out"])
+        grad_err = max(float((a - b).abs().max()) / scale(b)
+                       for a, b in zip(new["grads"], ref["grads"]))
+        band = LONG_T > 2 * (c["window"] + 512)
+        rec = dict(b=LONG_ATTN_B, t=LONG_T, heads=h, **c, band=band,
+                   max_err=err, max_grad_err=grad_err,
+                   **{f"{f}_ms": g["ms"] for f, g in got.items()},
+                   **{f"{f}_peak_gb": g["peak_gb"] for f, g in got.items()})
+        out[name] = rec
+        log(f"[train] (e) attention, {name} (B {LONG_ATTN_B}, T {LONG_T}, "
+            f"H {h}, KV {c['kv']}, D {c['d']}, window {c['window']}, "
+            f"{'band' if band else 'full sweep'}): chunked against one "
+            f"pass {err:.3e} in values, {grad_err:.3e} in gradients (of "
+            f"max(1, |max|), tolerance {LONG_ATTN_TOL}); forward and "
+            f"backward {new['ms']:.1f} ms chunked, {ref['ms']:.1f} ms one "
+            f"pass; peak {new['peak_gb']:.3f} / {ref['peak_gb']:.3f} GB "
+            f"above the inputs; {card_line()}")
+        if err > LONG_ATTN_TOL or grad_err > LONG_ATTN_TOL:
+            fail(f"train: chunked attention ({name}) differs from the "
+                 f"one-pass form")
+        del got, q, k, v, w
+    res["long_attention"] = out
+
+
+def default_step(torch, res):
+    """(e) (ii): ``build_train_step(cfg, None)`` for tinymistral at full
+    width and depth with every argument at the reference's defaults
+    (train_4k, bf16 compute, ``auto_microbatches``' count), one step on
+    ``DEFAULT_ROWS`` rows of 4097 tokens, then the same step built at
+    ``bf16_compute=False``: the microbatches run (loss calls and their
+    rows) equal to ``auto_microbatches``', both losses finite, the masters
+    f32, the two losses within 2e-2; each step's time, peak memory and
+    kernel launches (none)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch.specs import SHAPES
+    from repro_torch.launch.steps import auto_microbatches, build_train_step
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves
+    cfg, params = family_model(torch, TRAIN_ARCH)
+    seq = SHAPES[DEFAULT_SHAPE]["seq"]
+    batch = {k: torch.from_numpy(v) for k, v in
+             train_data(cfg, DEFAULT_ROWS, seq).next_batch().items()}
+    want_m = auto_microbatches(cfg, None, DEFAULT_SHAPE)
+    flops = train_flops(cfg, DEFAULT_ROWS, seq)
+    rows = []
+    loss_fn = lm.loss_fn
+
+    def counted(p, b, *a, **kw):
+        rows.append(int(b["tokens"].shape[0]))
+        return loss_fn(p, b, *a, **kw)
+
+    out = {}
+    for bf16 in (True, False):
+        built = (build_train_step(cfg, None) if bf16 else
+                 build_train_step(cfg, None, bf16_compute=False))
+        opt_state = built.meta["optimizer"].init(params)
+        rows.clear()
+        lm.loss_fn = counted
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            _build.reset_launches()
+            step = TimedStep(torch, built.fn)
+            new, _, m = step(params, opt_state, batch)
+            launches = dict(_build.launches)
+        finally:
+            lm.loss_fn = loss_fn
+        loss = float(m["loss"])
+        masters = all(p.dtype == torch.float32
+                      and bool(torch.isfinite(p).all())
+                      for p in tree_leaves(new))
+        rec = dict(bf16_compute=bf16,
+                   microbatches=built.meta["microbatches"],
+                   loss_rows=list(rows), loss=loss,
+                   grad_norm=float(m["grad_norm"]), masters_f32=masters,
+                   wall_ms=step.wall_ms[0], device_ms=step.ms[0],
+                   base_gb=base / 1e9,
+                   max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+                   / 1e9, launches=launches,
+                   f32_bound_ms=flops["total"] / F32_OPS_PER_S * 1e3)
+        out["bf16" if bf16 else "f32"] = rec
+        log(f"[train] (e) default step, {TRAIN_ARCH} full width and depth "
+            f"({cfg.n_layers} layers), {DEFAULT_SHAPE}, bf16_compute={bf16}"
+            f": {rec['microbatches']} microbatches (auto_microbatches "
+            f"{want_m}; loss calls of {rows} rows), {DEFAULT_ROWS} x "
+            f"{seq + 1} tokens (a cut of {SHAPES[DEFAULT_SHAPE]['batch']} "
+            f"rows); loss {loss:.6f}, grad norm {rec['grad_norm']:.4f}; "
+            f"step {rec['wall_ms']:.1f} ms wall, {rec['device_ms']:.1f} ms "
+            f"device span; max memory allocated "
+            f"{rec['max_memory_allocated_gb']:.2f} GB ({rec['base_gb']:.2f} "
+            f"GB before the step); {flops['total'] / 1e12:.3f} TFLOP f32 "
+            f"(matmul {flops['matmul'] / 1e12:.3f}, remat "
+            f"{flops['remat'] / 1e12:.3f}, attention "
+            f"{flops['attention'] / 1e12:.3f}): bound "
+            f"{rec['f32_bound_ms']:.1f} ms at 67 TFLOP/s; kernel launches "
+            f"{launches}; {card_line()}")
+        if (rec["microbatches"] != want_m or rows != [DEFAULT_ROWS // want_m]
+                * want_m or not math.isfinite(loss) or not masters
+                or any(launches.values())):
+            fail(f"train: the default step ({bf16=}) ran {rows} rows a "
+                 f"microbatch for {want_m} microbatches, loss {loss}, "
+                 f"masters f32 and finite {masters}, launches {launches}")
+        del new, opt_state, built
+        gc.collect()
+        torch.cuda.empty_cache()
+    err = abs(out["bf16"]["loss"] - out["f32"]["loss"]) / abs(
+        out["f32"]["loss"])
+    out["loss_rel_err"] = err
+    log(f"[train] (e) bf16 loss against f32: {err:.3e} relative "
+        f"(tolerance {DEFAULT_BF16_RTOL})")
+    if err > DEFAULT_BF16_RTOL:
+        fail("train: the bf16 default step's loss parts from the f32 step's")
+    res["default_step"] = out
+
+
 def phase_train(rt):
     import torch
     res = rt["train"] = {}
@@ -4875,6 +5054,13 @@ def phase_train(rt):
         t0 = time.perf_counter()
         fn()
         seconds[name] = time.perf_counter() - t0
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    long_attention(torch, res)
+    default_step(torch, res)
+    seconds["defaults"] = time.perf_counter() - t0
     log(f"[train] seconds {seconds}")
 
 
@@ -5153,7 +5339,8 @@ def mesh_rank_train(torch, rank, shape, layers, ckpt, arch=TRAIN_ARCH,
     cfg, params = family_model(torch, arch, layers=layers)
     if biases:
         params = seeded_biases(torch, params)
-    built = build_train_step(cfg, mesh=mesh, device=dev)
+    built = build_train_step(cfg, mesh=mesh, microbatches=1,
+                             bf16_compute=False, device=dev)
     dp = built.meta["dp"]
     n_params = sum(p.numel() for p in tree_leaves(params))
     params = dp.shard(params)
@@ -5969,12 +6156,16 @@ def dist_fields(dist: dict, name: str) -> dict:
 
 def train_fields(train: dict, name: str) -> dict:
     """Kernel ``name``'s launches in phase 13's serving of the trained tree
-    and its held sets' worst errors (training itself launches none)."""
+    and in (e)'s default steps, and its held sets' worst errors (training
+    itself launches none)."""
     serve = train["serve"]
     out = {"launches_train": {
         "serve": serve["launches"][name],
         **{f"cut {kv}": rec["launches"].get(name, 0)
-           for kv, rec in serve["cut"].items()}}}
+           for kv, rec in serve["cut"].items()},
+        **{f"{DEFAULT_SHAPE} step {k}": rec["launches"].get(name, 0)
+           for k, rec in train["default_step"].items()
+           if isinstance(rec, dict)}}}
     if name == "lut_matmul":
         out["max_abs_err_train"] = max(
             [serve["max_abs_err_lut"]] + [r["max_abs_err_lut"]

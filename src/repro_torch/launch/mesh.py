@@ -19,8 +19,11 @@ device; gloo reduces CUDA tensors through the host.  NCCL with one rank
 per GPU is ROADMAP work.  Every group has a timeout, so a rank that
 issues a different sequence of collectives fails instead of hanging.
 
-The reference's ``make_production_mesh`` (the 512-device pod) waits for
-the port's dry-run tools (ROADMAP, Queue 1 item 6c).
+``make_production_mesh`` describes the reference's production pod, (16,
+16) over ``("data", "model")`` or (2, 16, 16) with a ``"pod"`` axis, as a
+``MeshSpec``: the axis names and sizes that ``auto_microbatches``,
+``make_plan`` and ``describe`` read, with no process or group behind
+them.
 """
 from __future__ import annotations
 
@@ -40,28 +43,41 @@ TIMEOUT_S = 120.0
 
 
 @dataclasses.dataclass(frozen=True)
-class Mesh:
+class MeshSpec:
+    """A mesh's layout alone: axis names and sizes, no ranks."""
+    axis_names: Tuple[str, ...]
+    shape: Tuple[int, ...]
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def axis_size(self, axis: str) -> int:
+        return dict(zip(self.axis_names, self.shape)).get(axis, 1)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh(MeshSpec):
     """A grid of ranks: ``ranks[i, j, ...]`` is the rank at those axis
     coordinates, ``groups[axis]`` the process group of this rank's line
     along ``axis`` (None when the axis has size 1: no collective), and
     ``rank`` this process's rank."""
-    axis_names: Tuple[str, ...]
-    shape: Tuple[int, ...]
     ranks: np.ndarray
     groups: Dict[str, Any]
     rank: int
-
-    @property
-    def size(self) -> int:
-        return int(self.ranks.size)
 
     def coord(self, axis: str) -> int:
         """This rank's coordinate along ``axis``."""
         where = np.argwhere(self.ranks == self.rank)[0]
         return int(where[self.axis_names.index(axis)])
 
-    def axis_size(self, axis: str) -> int:
-        return dict(zip(self.axis_names, self.shape)).get(axis, 1)
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshSpec:
+    """The reference's production mesh: 16 x 16 = 256 devices (one pod),
+    or 2 x 16 x 16 = 512 (two pods), as a description."""
+    if multi_pod:
+        return MeshSpec(("pod", "data", "model"), (2, 16, 16))
+    return MeshSpec(("data", "model"), (16, 16))
 
 
 def make_mesh(shape, axes) -> Mesh:
@@ -100,12 +116,16 @@ def make_mesh(shape, axes) -> Mesh:
 
 
 def describe(mesh=None) -> str:
-    """A mesh's axes and transport; given a process group (None: the
-    default one) instead, that group's."""
+    """A mesh's axes and transport (a ``MeshSpec``: its axes and device
+    count); given a process group (None: the default one) instead, that
+    group's."""
     if isinstance(mesh, Mesh):
         backend = dist.get_backend() if dist.is_initialized() else "none"
         return (f"mesh {dict(zip(mesh.axis_names, mesh.shape))} on "
                 f"{mesh.size} ranks ({backend}; this rank {mesh.rank})")
+    if isinstance(mesh, MeshSpec):
+        return (f"mesh {dict(zip(mesh.axis_names, mesh.shape))} on "
+                f"{mesh.size} devices (a description: no ranks)")
     return (f"tp group of {dist.get_world_size(mesh)} ranks over "
             f"{dist.get_backend(mesh)} (this rank {dist.get_rank(mesh)})")
 

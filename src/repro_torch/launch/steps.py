@@ -56,9 +56,14 @@ gradient norm sums the model-sharded leaves' squares over the model axis
 and adds the others' once.  The M ranks of a data coordinate see the
 same rows, and the metrics are the same on every rank.
 
-The serving steps (``build_prefill_step``, ``build_serve_step``) and
-``auto_microbatches`` are built on the reference's mesh and shape specs;
-they wait for the port's dry-run tools (ROADMAP, Queue 1 item 6c).
+``build_train_step`` takes the reference's signature and defaults:
+the ``train_4k`` shape, bf16 compute over f32 masters, and a microbatch
+count from ``auto_microbatches`` (the reference's formula: the layers'
+bf16 residual carries of a data rank's rows within 3e9 bytes); its
+``args`` are the step's (params, opt_state, batch) as trees on the meta
+device, the reference's ``BuiltStep.args``.  The serving step builders
+(``build_prefill_step``, ``build_serve_step``, ``build_step``) are still
+to port (ROADMAP, Queue 1 item 6c (ii)).
 """
 from __future__ import annotations
 
@@ -72,6 +77,8 @@ import torch.distributed as dist
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import (_NAME_RE, dp_context, make_plan,
                                        param_shardings, tp_context)
+from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.specs import SHAPES, input_specs
 from repro_torch.models import encdec, lm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import MOE_GROUP_TOKENS
@@ -133,6 +140,7 @@ def train_model_dim(path: str, shape) -> Optional[int]:
 @dataclasses.dataclass
 class BuiltStep:
     fn: Any
+    args: tuple                # (params, opt_state, batch) on the meta device
     meta: Dict[str, Any]
 
 
@@ -369,23 +377,53 @@ class MeshRank:
         return t.tolist()
 
 
-def build_train_step(cfg: ModelConfig, mesh=None, *,
-                     fsdp: Optional[bool] = None, microbatches: int = 1,
-                     bf16_compute: bool = False, peak_lr: float = 3e-4,
-                     device="cuda", local_batch: bool = False) -> BuiltStep:
-    """The train step on ``device``; over ``mesh`` (None: one device) it is
+def auto_microbatches(cfg: ModelConfig, mesh, shape: str,
+                      budget_bytes: float = 3e9) -> int:
+    """Gradient-accumulation factor sized so that the per-layer residual
+    carries (n_layers x [B_local, T, D] bf16) fit the activation budget:
+    the smallest power of two, at most the rows per data rank, that
+    brings them within ``budget_bytes``.  ``mesh``: a ``Mesh``, a
+    ``MeshSpec`` (``make_production_mesh``), or None for one device; its
+    ``pod`` and ``data`` axes divide the batch."""
+    s = SHAPES[shape]
+    dp = 1 if mesh is None else mesh.axis_size("pod") * mesh.axis_size(
+        "data")
+    b_local = max(1, s["batch"] // dp)
+    n_layers = cfg.n_layers + cfg.n_enc_layers
+    carries = n_layers * b_local * s["seq"] * cfg.d_model * 2
+    m = 1
+    while carries / m > budget_bytes and m < b_local:
+        m *= 2
+    return m
+
+
+def build_train_step(cfg: ModelConfig, mesh: Optional[Mesh] = None,
+                     shape: str = "train_4k", fsdp: Optional[bool] = None,
+                     microbatches: Optional[int] = None,
+                     bf16_compute: bool = True, peak_lr: float = 3e-4,
+                     remat_policy: str = "full", *, device="cuda",
+                     local_batch: bool = False) -> BuiltStep:
+    """The train step of ``shape`` on ``device``, with the reference's
+    defaults: bf16 compute, and ``microbatches=None`` taking
+    ``auto_microbatches(cfg, mesh, shape)``.  ``remat_policy`` is
+    accepted and not read, as in the reference (each layer runs under
+    remat when ``cfg.remat``).  Over ``mesh`` (None: one device) it is
     one rank's part of the mesh step, which takes the global batch and
     keeps its data coordinate's rows, or, with ``local_batch``, takes
     this rank's rows as given (each host's own stream, as
     ``--distributed`` reads it).  A model axis larger than 1 takes the
     configs ``tp_train_supported`` accepts and raises
-    ``NotImplementedError`` for the others.  Every argument after
-    ``mesh`` is a keyword: the reference's third positional argument is
-    its shape name, which this signature does not take yet (ROADMAP,
-    Queue 3).  ``meta``: ``optimizer``, ``init``, and over a mesh ``plan``
-    and ``dp`` (the ``MeshRank`` that shards the trees and the loop's
-    checkpoints)."""
+    ``NotImplementedError`` for the others.  ``args``: (params, opt_state,
+    batch) of the cell on the meta device, whole trees as the reference's
+    are.  ``meta``: ``optimizer``, ``init``, ``kind`` ("train"),
+    ``microbatches``, and over a mesh ``plan`` and ``dp`` (the
+    ``MeshRank`` that shards the trees and the loop's checkpoints)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise ValueError(f"{type(mesh).__name__} has no ranks: a train step "
+                         "runs over a mesh from make_mesh")
     dev = resolve_device(device)
+    if microbatches is None:
+        microbatches = auto_microbatches(cfg, mesh, shape)
     tp = mesh.axis_size("model") if mesh is not None else 1
     reason = tp_train_supported(cfg, tp)
     if reason is not None:
@@ -427,6 +465,10 @@ def build_train_step(cfg: ModelConfig, mesh=None, *,
         fp = tree_map(lambda p: p.detach().requires_grad_(), fp)
         if microbatches == 1:
             return grads_of(fp, batch)
+        rows = next(iter(batch.values())).shape[0]
+        if rows % microbatches:
+            raise ValueError(f"a batch of {rows} rows does not split into "
+                             f"{microbatches} microbatches")
         acc, ls, nlls = None, [], []
         for i in range(microbatches):
             mb = {k: v.reshape((microbatches, v.shape[0] // microbatches)
@@ -457,9 +499,12 @@ def build_train_step(cfg: ModelConfig, mesh=None, *,
         return finish(params, opt_state, tree_unflatten(params, gs), loss,
                       nll)
 
-    meta: Dict[str, Any] = {"optimizer": opt, "init": init}
+    p_shapes = init(cfg, None, device="meta")
+    args = (p_shapes, opt.init(p_shapes), input_specs(cfg, shape))
+    meta: Dict[str, Any] = {"optimizer": opt, "init": init, "kind": "train",
+                            "microbatches": microbatches}
     if mesh is None:
-        return BuiltStep(fn=train_step, meta=meta)
+        return BuiltStep(fn=train_step, args=args, meta=meta)
 
     plan = make_plan(mesh, cfg, fsdp)
     dp = MeshRank(mesh, cfg, plan, init, dev)
@@ -481,4 +526,4 @@ def build_train_step(cfg: ModelConfig, mesh=None, *,
                       gnorm=gnorm)
 
     meta.update(plan=plan, dp=dp)
-    return BuiltStep(fn=mesh_train_step, meta=meta)
+    return BuiltStep(fn=mesh_train_step, args=args, meta=meta)

@@ -145,10 +145,12 @@ def _ffn(p, h: torch.Tensor, cfg: ModelConfig, moe_mode: str = "dense",
 
 def block_apply_seq(p, x: torch.Tensor, cfg: ModelConfig,
                     positions: torch.Tensor, moe_mode: str = "dispatch",
-                    collect_cache: bool = False):
+                    collect_cache: bool = False,
+                    chunked_attn: bool = False):
     """Full-sequence block.  Returns (x, aux loss, cache_entries): the
     K/V under ``"kv"``, hymba's SSM state under ``"ssm"``, xlstm's states
-    by sub-layer."""
+    by sub-layer.  ``chunked_attn``: attention in the reference's chunked
+    form (the training loss's)."""
     if cfg.family == "ssm":
         x, cache = _recurrent_subs(p, x, cfg, collect=collect_cache)
         return x, 0.0, cache
@@ -156,7 +158,7 @@ def block_apply_seq(p, x: torch.Tensor, cfg: ModelConfig,
     cache = {}
     h = apply_norm(p["attn_norm"], x, cfg)
     attn_out = apply_attention(p["attn"], h, cfg, positions=positions,
-                               window=cfg.window)
+                               window=cfg.window, chunked=chunked_attn)
     if collect_cache:
         cache["kv"] = _kv_from_seq(p["attn"], h, cfg, positions)
     if cfg.family == "hybrid":

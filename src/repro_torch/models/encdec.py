@@ -20,8 +20,9 @@ mode over the f32 cross K/V with every one of the ``enc_seq`` slots valid
 position's sinusoidal row is computed alone, equal to the table's row.
 
 Training: ``loss_fn``, whisper's teacher-forced loss through
-``lm.chunked_nll`` with the tied head; each encoder and decoder layer runs
-under ``remat`` when ``cfg.remat``.  Entry points take
+``lm.chunked_nll`` with the tied head and the reference's chunked
+attention (``layers.chunked_attention``); each encoder and decoder layer
+runs under ``remat`` when ``cfg.remat``.  Entry points take
 ``device=`` (default ``"cuda"``) and raise when CUDA is missing.
 """
 from __future__ import annotations
@@ -85,8 +86,11 @@ def _frames(frames, dev) -> torch.Tensor:
     return torch.from_numpy(np.asarray(frames, np.float32)).to(dev)
 
 
-def encode(params, frames, cfg: ModelConfig, device="cuda") -> torch.Tensor:
-    """frames [B, S_enc, D] (the stubbed frontend's output) -> memory."""
+def encode(params, frames, cfg: ModelConfig, device="cuda",
+           chunked_attn: bool = False) -> torch.Tensor:
+    """frames [B, S_enc, D] (the stubbed frontend's output) -> memory.
+    ``chunked_attn``: attention in the reference's chunked form (the
+    training loss's)."""
     dev = resolve_device(device)
     x = _frames(frames, dev)
     b, s, _ = x.shape
@@ -96,7 +100,7 @@ def encode(params, frames, cfg: ModelConfig, device="cuda") -> torch.Tensor:
     def body(p_l, x):
         h = apply_norm(p_l["attn_norm"], x, cfg)
         x = x + apply_attention(p_l["attn"], h, cfg, positions=positions,
-                                causal=False)
+                                causal=False, chunked=chunked_attn)
         h = apply_norm(p_l["mlp_norm"], x, cfg)
         return x + apply_mlp(p_l["mlp"], h, cfg)
 
@@ -120,9 +124,11 @@ def _cross_kv(p_l, memory: torch.Tensor, cfg: ModelConfig):
 
 
 def decode_forward(params, tokens, memory: torch.Tensor, cfg: ModelConfig,
-                   device="cuda", return_hidden: bool = False) -> torch.Tensor:
+                   device="cuda", return_hidden: bool = False,
+                   chunked_attn: bool = False) -> torch.Tensor:
     """Teacher-forced decoder pass: tokens [B, T] -> logits [B, T, V], or
-    the final hidden states [B, T, D] with ``return_hidden``."""
+    the final hidden states [B, T, D] with ``return_hidden``;
+    ``chunked_attn`` as in ``encode``."""
     dev = resolve_device(device)
     tokens = _tokens(tokens, dev)
     b, t = tokens.shape
@@ -133,10 +139,12 @@ def decode_forward(params, tokens, memory: torch.Tensor, cfg: ModelConfig,
     def body(p_l, x, memory):
         h = apply_norm(p_l["self_norm"], x, cfg)
         x = x + apply_attention(p_l["self_attn"], h, cfg,
-                                positions=positions, causal=True)
+                                positions=positions, causal=True,
+                                chunked=chunked_attn)
         h = apply_norm(p_l["cross_norm"], x, cfg)
         x = x + apply_attention(p_l["cross_attn"], h, cfg,
-                                positions=positions, kv_x=memory)
+                                positions=positions, kv_x=memory,
+                                chunked=chunked_attn)
         h = apply_norm(p_l["mlp_norm"], x, cfg)
         return x + apply_mlp(p_l["mlp"], h, cfg)
 
@@ -151,13 +159,14 @@ def decode_forward(params, tokens, memory: torch.Tensor, cfg: ModelConfig,
 
 def loss_fn(params, batch, cfg: ModelConfig, device="cuda"):
     """Teacher-forced cross entropy.  batch: ``frames`` [B, S, D] and
-    ``tokens`` [B, T + 1]; the head is tied to the embedding.  Returns
-    (nll, {"nll"})."""
+    ``tokens`` [B, T + 1]; the head is tied to the embedding; attention in
+    the reference's chunked form.  Returns (nll, {"nll"})."""
     dev = resolve_device(device)
     tokens = _tokens(batch["tokens"], dev)
-    x = decode_forward(params, tokens[:, :-1],
-                       encode(params, batch["frames"], cfg, device=dev), cfg,
-                       device=dev, return_hidden=True)
+    memory = encode(params, batch["frames"], cfg, device=dev,
+                    chunked_attn=True)
+    x = decode_forward(params, tokens[:, :-1], memory, cfg, device=dev,
+                       return_hidden=True, chunked_attn=True)
     targets = tokens[:, 1:]
     mask = torch.ones(targets.shape, device=dev)
     nll = chunked_nll(x, params["embed"], targets, mask, transpose_head=True)

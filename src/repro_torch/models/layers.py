@@ -3,9 +3,14 @@ LayerNorm, RoPE and sinusoidal positions, GQA full-sequence attention
 (causal or bidirectional, self or cross, with optional qk-norm and
 biases), SwiGLU, GeGLU and GELU MLPs.  Parameters are plain dicts of
 tensors mirroring the reference trees; weight matmuls go through
-``sail_linear.mm``.  Full-sequence attention is plain PyTorch (einsum and
-a masked softmax), as the reference's is plain jnp.  GELU is the tanh
-approximation, ``jax.nn.gelu``'s default."""
+``sail_linear.mm``.  GELU is the tanh approximation, ``jax.nn.gelu``'s
+default.
+
+Full-sequence attention is plain PyTorch, as the reference's is plain
+jnp, in two forms that compute the same function: one pass over all keys
+(``flash_attention``), which the serving prefills run, and the
+reference's chunked online softmax (``chunked_attention``), which the
+training losses run, so that T 4096 fits the card."""
 from __future__ import annotations
 
 import math
@@ -13,9 +18,11 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.dist.sharding import tp_all_reduce, tp_copy
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.remat import grad_needed
 from repro_torch.models.sail_linear import mm
 
 
@@ -172,14 +179,166 @@ def flash_attention(q, k, v, *, window: Optional[int],
     return out.reshape(b, t, h, dh).to(q.dtype)
 
 
+def chunked_attention(q, k, v, *, causal: bool, window: Optional[int],
+                      chunk: int, q_chunk: int = 512) -> torch.Tensor:
+    """The reference's chunked online-softmax attention
+    (``repro.models.layers.flash_attention``), for the training losses:
+    memory O(q_chunk x chunk) per head where ``flash_attention`` holds all
+    T x S scores.
+
+    q [B, T, H, Dh]; k, v [B, S, KV, Dh]; GQA by head grouping.  Queries
+    go in blocks of ``q_chunk`` rows (the largest divisor of T up to
+    ``q_chunk`` where it does not divide T), each block under
+    ``torch.utils.checkpoint``; where the window is narrow
+    (``S > 2 * (window + q_chunk)``) a block reads only the band of keys
+    it may see.  Within a block, keys go in chunks of ``chunk``, each
+    under checkpoint, with a running (max, sum, accumulator).  A chunk
+    that no query of the block may see is skipped: it would add exactly
+    zero to the sum and the accumulator.  Self-attention from position 0
+    or cross-attention (``causal=False``): q[0] and k[0] are aligned."""
+    b, t = q.shape[:2]
+    if t > q_chunk and t % q_chunk:
+        # the largest divisor of t up to q_chunk (vision prefixes give
+        # T = 4672 and the like)
+        q_chunk = next(d for d in range(q_chunk, 0, -1) if t % d == 0)
+    if t <= q_chunk:
+        return _attend_block(q, k, v, causal, window, chunk, 0)
+    s_full = k.shape[1]
+    band = None
+    if window is not None and causal and s_full > 2 * (window + q_chunk):
+        band = -(-(window + q_chunk) // chunk) * chunk
+    outs = []
+    for i in range(t // q_chunk):
+        qi = q[:, i * q_chunk:(i + 1) * q_chunk]
+        off = i * q_chunk
+        if band is None:
+            ki, vi = k, v
+        else:
+            lo = min(max(off + q_chunk - band, 0), s_full - band)
+            ki, vi, off = k[:, lo:lo + band], v[:, lo:lo + band], off - lo
+        args = (qi, ki, vi, causal, window, chunk, off)
+        outs.append(checkpoint(_attend_block, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+                    if grad_needed(qi, ki, vi) else _attend_block(*args))
+    return torch.cat(outs, dim=1)
+
+
+def _attend_block(q, k, v, causal: bool, window: Optional[int], chunk: int,
+                  q_offset: int) -> torch.Tensor:
+    """One block of queries over every key chunk; laid out [B, KV, T x G,
+    .] so that each chunk's two products are batched matmuls."""
+    b, t, h, dh = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    n_chunks = -(-s // chunk)
+    pad = n_chunks * chunk - s
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qh = q.reshape(b, t, kv, g, dh).permute(0, 2, 1, 3, 4).reshape(
+        b, kv, t * g, dh).to(torch.float32)
+    # [B, KV, S, Dh]
+    kh = k.permute(0, 2, 1, 3).to(torch.float32).contiguous()
+    vh = v.permute(0, 2, 1, 3).to(torch.float32).contiguous()
+    # the (query row, key) pairs no query may attend, for every key of
+    # the block, rows in (t, g) order
+    q_pos = torch.arange(t, device=q.device).repeat_interleave(g)[:, None] \
+        + q_offset
+    kv_pos = torch.arange(n_chunks * chunk, device=q.device)[None, :]
+    masked = kv_pos >= s
+    if causal:
+        masked = masked | (kv_pos > q_pos)
+    if window is not None:
+        masked = masked | (kv_pos <= q_pos - window)
+    m = torch.full((b, kv, t * g), float("-inf"), device=q.device)
+    l = torch.zeros((b, kv, t * g), device=q.device)
+    acc = torch.zeros((b, kv, t * g, dh), device=q.device)
+    scale = 1.0 / math.sqrt(dh)
+    tracked = grad_needed(qh, kh, vh)
+    for ci in range(n_chunks):
+        lo, hi = ci * chunk, (ci + 1) * chunk
+        if (lo >= s or (causal and lo > q_offset + t - 1)
+                or (window is not None and hi - 1 <= q_offset - window)):
+            continue
+        args = (m, l, acc, qh, kh[:, :, lo:hi], vh[:, :, lo:hi],
+                masked[:, lo:hi], scale)
+        if tracked:
+            m, l, acc = _ChunkStep.apply(*args)
+        else:
+            m, l, acc = _online_step(*args)[:3]
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, kv, t, g, dh).permute(0, 2, 1, 3, 4).reshape(
+        b, t, h, dh).to(q.dtype)
+
+
+def _online_step(m, l, acc, qh, kb, vb, masked, scale: float):
+    """One key chunk of the online softmax: (max, sum, accumulator) after
+    it, and the shift and rescale it used.  The reference's guards for
+    rows that have seen no valid key (``-inf`` max) hold without its
+    ``where``s: the shift ``m_safe`` is always finite, so ``exp(m -
+    m_safe)`` is 0 where ``m`` is ``-inf`` and ``exp(scores - m_safe)``
+    is 0 at every masked key."""
+    scores = torch.matmul(qh, kb.transpose(-1, -2)).mul_(scale)
+    scores = scores.masked_fill_(masked, float("-inf"))
+    m_new = torch.maximum(m, scores.amax(dim=-1))
+    m_safe = torch.nan_to_num(m_new, neginf=0.0)
+    alpha = torch.exp(m - m_safe)
+    p = (scores - m_safe[..., None]).exp_()
+    l_new = l * alpha + p.sum(-1)
+    acc_new = (acc * alpha[..., None]).add_(torch.matmul(p, vb))
+    return m_new, l_new, acc_new, m_safe, alpha
+
+
+class _ChunkStep(torch.autograd.Function):
+    """One key chunk's step under a checkpoint of its own: the forward
+    pass keeps its inputs and the (small) shift and rescale, and the
+    backward pass recomputes the chunk's probabilities and applies the
+    step's gradients by hand, as ``torch.utils.checkpoint`` would have
+    autograd do at several times the cost on the host, over hundreds of
+    chunks a layer.  The running max is a constant to it: the attention's
+    output does not depend on the shift, so its gradient through the max
+    is zero (exactly; autograd's is rounding noise)."""
+
+    @staticmethod
+    def forward(ctx, m, l, acc, qh, kb, vb, masked, scale):
+        m_new, l_new, acc_new, m_safe, alpha = _online_step(
+            m, l, acc, qh, kb, vb, masked, scale)
+        ctx.scale = scale
+        ctx.save_for_backward(qh, kb, vb, masked, m_safe, alpha)
+        ctx.mark_non_differentiable(m_new)
+        return m_new, l_new, acc_new
+
+    @staticmethod
+    def backward(ctx, _, g_l, g_acc):
+        qh, kb, vb, masked, m_safe, alpha = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        scores = torch.matmul(qh, kb.transpose(-1, -2)).mul_(ctx.scale)
+        p = (scores.masked_fill_(masked, float("-inf"))
+             - m_safe[..., None]).exp_()
+        # d(scores) = p * (dL/dp), dL/dp = g_acc @ v^T + g_l; then the scale
+        ds = torch.matmul(g_acc, vb.transpose(-1, -2)).add_(
+            g_l[..., None]).mul_(p).mul_(ctx.scale)
+        return (None,
+                g_l * alpha if need[1] else None,
+                g_acc * alpha[..., None] if need[2] else None,
+                torch.matmul(ds, kb) if need[3] else None,
+                torch.matmul(ds.transpose(-1, -2), qh) if need[4] else None,
+                torch.matmul(p.transpose(-1, -2), g_acc) if need[5] else None,
+                None, None)
+
+
 def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
                     positions: torch.Tensor, causal: bool = True,
                     kv_x: Optional[torch.Tensor] = None,
-                    window: Optional[int] = None) -> torch.Tensor:
-    """Full-sequence (prefill) attention: self-attention, or cross-attention
-    to ``kv_x`` [B, S, D] (never causal, no RoPE).  Only this path adds
-    the attention biases: the decode and verify steps and the prefill
-    cache's K/V leave them out, as the reference's do."""
+                    window: Optional[int] = None,
+                    chunked: bool = False) -> torch.Tensor:
+    """Full-sequence attention: self-attention, or cross-attention to
+    ``kv_x`` [B, S, D] (never causal, no RoPE).  ``chunked``: the
+    reference's chunked form (``chunked_attention``, the training
+    losses'), else one pass over all keys (``flash_attention``, the
+    serving prefills').  Only this path adds the attention biases: the
+    decode and verify steps and the prefill cache's K/V leave them out,
+    as the reference's do."""
     b, t, _ = x.shape
     x = tp_copy(x)
     src = tp_copy(kv_x) if kv_x is not None else x
@@ -194,8 +353,12 @@ def apply_attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     elif cfg.qk_norm:
         q = qk_norm(q, p["q_norm"]["scale"], cfg.norm_eps)
         k = qk_norm(k, p["k_norm"]["scale"], cfg.norm_eps)
-    out = flash_attention(q, k, v, window=window,
-                          causal=causal and kv_x is None)
+    causal = causal and kv_x is None
+    if chunked:
+        out = chunked_attention(q, k, v, causal=causal, window=window,
+                                chunk=cfg.attn_chunk)
+    else:
+        out = flash_attention(q, k, v, window=window, causal=causal)
     out = tp_all_reduce(mm(out.reshape(b, t, cfg.q_dim), p["wo"],
                            k_sharded=True))
     return out + p["bo"] if cfg.attention_bias else out

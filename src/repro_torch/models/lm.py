@@ -19,7 +19,9 @@ whose aux loss it returns).
 
 A Python loop over layers replaces the reference's ``lax.scan``; in
 training each layer runs under ``remat`` when ``cfg.remat`` (the scan
-body's ``jax.checkpoint``), and so does each chunk of ``chunked_nll``.  The
+body's ``jax.checkpoint``), and so does each chunk of ``chunked_nll``; the
+loss's attention takes the reference's chunked form, where the serving
+paths and ``forward`` take one pass over all keys.  The
 parameter tree keeps the reference's layout (``blocks`` leaves stacked
 on a leading layer axis, quantized leaves as ``StackedQTensor``).  A
 mixed-precision tree carries ``blocks`` as a list of stacked segments
@@ -155,15 +157,18 @@ def forward(params, tokens, cfg: ModelConfig, device="cuda",
     return lm_logits(params, x, cfg), aux
 
 
-def _stack_seq(params, x: torch.Tensor, cfg: ModelConfig, moe_mode: str):
+def _stack_seq(params, x: torch.Tensor, cfg: ModelConfig, moe_mode: str,
+               chunked_attn: bool = False):
     """Every block over the full sequence x [B, T, D] -> (x, summed aux
-    loss); each block under ``remat`` when ``cfg.remat``."""
+    loss); each block under ``remat`` when ``cfg.remat``.
+    ``chunked_attn``: attention in the reference's chunked form."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device).expand(b, t)
 
     def body(p_l, x):
         y, a, _ = blk.block_apply_seq(p_l, x, cfg, positions,
-                                      moe_mode=moe_mode)
+                                      moe_mode=moe_mode,
+                                      chunked_attn=chunked_attn)
         return y, a
 
     aux = 0.0
@@ -228,7 +233,8 @@ def loss_fn(params, batch, cfg: ModelConfig, moe_mode: str = "dispatch",
     """Next-token cross entropy plus ``aux_weight`` times the MoE layers'
     load-balancing loss.  batch: ``tokens`` [B, T + 1], optionally
     ``prefix_embeds`` [B, P, D] (whose rows the loss drops) and ``mask``
-    [B, T].  Returns (loss, {"nll", "aux"})."""
+    [B, T].  Attention takes the reference's chunked form
+    (``layers.chunked_attention``).  Returns (loss, {"nll", "aux"})."""
     dev = resolve_device(device)
     tokens = _tokens(batch["tokens"], dev)
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
@@ -236,7 +242,7 @@ def loss_fn(params, batch, cfg: ModelConfig, moe_mode: str = "dispatch",
     if prefix is not None:
         prefix = _batch_tensor(prefix, dev)
     x = embed_tokens(params, inputs, cfg, prefix)
-    x, aux = _stack_seq(params, x, cfg, moe_mode)
+    x, aux = _stack_seq(params, x, cfg, moe_mode, chunked_attn=True)
     x = apply_norm(params["final_norm"], x, cfg)
     npfx = x.shape[1] - targets.shape[1]
     if npfx:

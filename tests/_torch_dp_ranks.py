@@ -48,7 +48,8 @@ def train_cases(torch, mesh, world, inputs):
             continue
         tree, batches, _ = inputs[arch]
         built = build_train_step(C.get_smoke(arch), mesh=mesh, fsdp=fsdp,
-                                 microbatches=mb, device="cpu")
+                                 microbatches=mb, bf16_compute=False,
+                                 device="cpu")
         dp = built.meta["dp"]
         params = dp.shard(params_from_numpy(tree, device="cpu"))
         opt_state = built.meta["optimizer"].init(params)
@@ -77,7 +78,8 @@ def masked_losses(torch, mesh, inputs):
     out = {}
     for arch, (tree, _, masked) in inputs.items():
         cfg = C.get_smoke(arch)
-        dp = build_train_step(cfg, mesh=mesh, device="cpu").meta["dp"]
+        dp = build_train_step(cfg, mesh=mesh, microbatches=1,
+                              bf16_compute=False, device="cpu").meta["dp"]
         local = dp.rows({k: torch.from_numpy(v) for k, v in masked.items()})
         params = params_from_numpy(tree, device="cpu")
         with dp_context(dp.group):

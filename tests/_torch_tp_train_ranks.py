@@ -57,6 +57,7 @@ def train_cases(torch, mesh, inputs):
             continue
         tree, batches = inputs[arch]
         built = build_train_step(C.get_smoke(arch), mesh=mesh, fsdp=fsdp,
+                                 microbatches=1, bf16_compute=False,
                                  device="cpu")
         dp = built.meta["dp"]
         params = dp.shard(params_from_numpy(tree, device="cpu"))
@@ -88,7 +89,8 @@ def checkpointed(torch, mesh, inputs, ckpt):
     arch = "tinymistral_248m"
     cfg = C.get_smoke(arch)
     b, t = SHAPES[arch]
-    built = build_train_step(cfg, mesh=mesh, device="cpu")
+    built = build_train_step(cfg, mesh=mesh, microbatches=1,
+                             bf16_compute=False, device="cpu")
     dp = built.meta["dp"]
     params = dp.shard(params_from_numpy(inputs[arch][0], device="cpu"))
     loop = TrainLoop(built.fn, params, built.meta["optimizer"].init(params),

@@ -685,7 +685,8 @@ def test_train_step_on_the_card_matches_the_cpu(gen):
         vocab=cfg.vocab, seq_len=32, global_batch=4)).next_batch().items()}
     out = {}
     for dev in ("cuda", "cpu"):
-        built = build_train_step(cfg, device=dev)
+        built = build_train_step(cfg, microbatches=1, bf16_compute=False,
+                                 device=dev)
         params = params_from_numpy(raw, device=dev)
         state = built.meta["optimizer"].init(params)
         params, state, m = built.fn(params, state, batch)

@@ -289,11 +289,13 @@ def test_one_process_mesh_and_refusals():
         make_mesh((2, 1), ("data", "model"))
     cfg = TC.get_smoke("xlstm_350m")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_train_step(cfg, mesh=layout((1, 2)), device="cpu")
+        build_train_step(cfg, mesh=layout((1, 2)), microbatches=1,
+                         bf16_compute=False, device="cpu")
     # one rank of two: granite at 2 x 128 tokens per rank would cut the
     # global batch's 512-token dispatch group in two
     dp = build_train_step(TC.get_smoke("granite_moe_1b_a400m"),
-                          mesh=layout((2, 1)), device="cpu").meta["dp"]
+                          mesh=layout((2, 1)), microbatches=1,
+                          bf16_compute=False, device="cpu").meta["dp"]
     batch = {"tokens": torch.zeros((2, 129), dtype=torch.int32)}
     with pytest.raises(ValueError, match="straddle"):
         dp.check_dispatch(batch, 1)

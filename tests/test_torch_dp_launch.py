@@ -152,7 +152,8 @@ def test_distributed_joins_the_environments_group(tmp_path):
     hosts = [SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
                                     global_batch=8, n_hosts=2, host_id=h))
              for h in range(2)]
-    built = build_train_step(cfg, device="cpu")
+    built = build_train_step(cfg, microbatches=1, bf16_compute=False,
+                             device="cpu")
     params = built.meta["init"](cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
     opt_state = built.meta["optimizer"].init(params)

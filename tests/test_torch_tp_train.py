@@ -10,7 +10,7 @@ forward and backward at (1, 2), of the loss and of one MoE layer and one
 starcoder2 attention, and in serving's forward; a (2, 2) checkpoint
 resumed on one device and restored by the reference; the launcher's
 ``--mesh 1x2`` for tinymistral and granite; ``build_train_step``'s
-keyword-only arguments.
+reference signature (the shape third, its defaults).
 
 The port's ranks run once, in gloo groups of two, four and eight on the
 CPU (``tests/_torch_tp_train_ranks.py``), beside one reference process
@@ -441,7 +441,8 @@ def test_checkpoint_resumes_on_one_device_and_in_the_reference(runs):
     assert latest_step(ckpt) == ranks.CKPT_STEPS
 
     def loop(mesh, directory, steps):
-        built = build_train_step(cfg, mesh=mesh, device="cpu")
+        built = build_train_step(cfg, mesh=mesh, microbatches=1,
+                                 bf16_compute=False, device="cpu")
         params = params_from_numpy(runs["inputs"][arch][0], device="cpu")
         return TrainLoop(
             built.fn, params, built.meta["optimizer"].init(params),
@@ -506,7 +507,8 @@ def test_model_axis_refuses_the_families_still_to_port(arch):
     mesh = Mesh(axis_names=("data", "model"), shape=(1, 2),
                 ranks=np.arange(2).reshape(1, 2), groups={}, rank=0)
     with pytest.raises(NotImplementedError, match=r"ROADMAP.*5d \(ii\)"):
-        build_train_step(TC.get_smoke(arch), mesh=mesh, device="cpu")
+        build_train_step(TC.get_smoke(arch), mesh=mesh, microbatches=1,
+                         bf16_compute=False, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(launch_args(arch) + ["--mesh", "1x2"])
     biased = dataclasses.replace(TC.get_smoke("starcoder2_7b"),
@@ -521,16 +523,39 @@ def test_model_axis_refuses_the_families_still_to_port(arch):
                             n_heads=6, n_kv=3, d_ff=66), 3)
 
 
-def test_build_train_step_takes_keywords_after_the_mesh():
-    """A call written for the reference's signature, whose third
-    positional argument is the shape name, raises ``TypeError`` instead
-    of landing that name on ``fsdp``."""
-    cfg = TC.get_smoke("tinymistral_248m")
+def test_build_train_step_takes_the_reference_signature():
+    """A call written for the reference's signature, shape third,
+    builds that shape's step: ``build_train_step(cfg, None, "train_4k")``
+    takes ``auto_microbatches``' count (full tinymistral: 16 on one
+    device, 1 at smoke size), bf16 compute, and the cell's meta-device
+    arguments; ``device`` and ``local_batch`` stay keywords; a batch
+    whose rows do not split into the microbatches is refused."""
+    from repro_torch.launch.steps import auto_microbatches
+    full = TC.get_config("tinymistral_248m")
+    built = build_train_step(full, None, "train_4k", device="cpu")
+    assert built.meta["kind"] == "train"
+    assert built.meta["microbatches"] == 16 == auto_microbatches(
+        full, None, "train_4k")
+    params, opt_state, batch = built.args
+    assert batch["tokens"].shape == (256, 4097)
+    assert batch["tokens"].dtype == torch.int32
+    assert params["embed"].is_meta and opt_state.mu["embed"].is_meta
+    assert opt_state.step.dtype == torch.int32
     with pytest.raises(TypeError):
-        build_train_step(cfg, None, "train_4k", device="cpu")
-    built = build_train_step(cfg, None, fsdp=None, microbatches=1,
+        build_train_step(full, None, "train_4k", None, None, True, 3e-4,
+                         "full", "cpu")
+    cfg = TC.get_smoke("tinymistral_248m")
+    built = build_train_step(cfg, None, "train_4k", None, 2, False,
                              device="cpu")
-    assert set(built.meta) == {"optimizer", "init"}
+    assert set(built.meta) == {"optimizer", "init", "kind", "microbatches"}
+    assert build_train_step(cfg, None, "train_4k", device="cpu").meta[
+        "microbatches"] == 1
+    params = built.meta["init"](cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    tokens = torch.zeros((3, 17), dtype=torch.int32)
+    with pytest.raises(ValueError, match="3 rows .* 2 microbatches"):
+        built.fn(params, built.meta["optimizer"].init(params),
+                 {"tokens": tokens})
 
 
 def assert_launch_equals_one_device(runs, arch):

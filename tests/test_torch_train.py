@@ -2,8 +2,8 @@
 ``lm.loss_fn`` / ``encdec.loss_fn`` values and gradients against
 ``jax.value_and_grad`` on the same numpy weights (remat on and off, xlstm
 through ``_chunked_scan``'s chunked branch), ``chunked_nll``, the train
-step at microbatches 1 and 2 and under bf16, train -> quantize -> serve,
-and the launcher."""
+step at microbatches 1 and 2, under bf16 and at the reference's defaults,
+train -> quantize -> serve, and the launcher."""
 import dataclasses
 import os
 
@@ -16,6 +16,7 @@ import torch
 import repro.configs as JC
 import repro_torch.configs as TC
 from repro.launch.mesh import make_mesh
+from repro.launch.steps import auto_microbatches as j_auto_microbatches
 from repro.launch.steps import build_train_step as j_build_train_step
 from repro.models import encdec as jencdec
 from repro.models import lm as jlm
@@ -24,6 +25,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import encdec as tencdec
+from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
 from repro_torch.models import remat as tremat
 from repro_torch.models import xlstm as txlstm
@@ -140,8 +142,10 @@ def test_loss_and_grads_match_reference(arch, b, t, remat, monkeypatch):
     cfg = dataclasses.replace(TC.get_smoke(arch), remat=remat)
     layers = Counter(tremat.checkpoint)
     chunks = Counter(txlstm.checkpoint)
+    attns = Counter(tlayers.chunked_attention)
     monkeypatch.setattr(tremat, "checkpoint", layers)
     monkeypatch.setattr(txlstm, "checkpoint", chunks)
+    monkeypatch.setattr(tlayers, "chunked_attention", attns)
     l, m, g = port_value_and_grad(tree, cfg, make_batch(cfg, b, t))
     assert abs(float(l) - l_ref) <= LOSS_RTOL * abs(l_ref)
     assert abs(float(m["nll"]) - nll_ref) <= LOSS_RTOL * abs(nll_ref)
@@ -149,12 +153,36 @@ def test_loss_and_grads_match_reference(arch, b, t, remat, monkeypatch):
     n_blocks = (cfg.n_layers + cfg.n_enc_layers if cfg.family == "encdec"
                 else tlm.n_scan_blocks(cfg))
     assert layers.calls == (n_blocks if remat else 0)
+    # every attention of the loss in the chunked form, again when the
+    # backward pass recomputes its layer under remat
+    n_attn = {"ssm": 0, "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+        cfg.family, cfg.n_layers)
+    assert attns.calls == n_attn * (2 if remat else 1)
     if cfg.family == "ssm":
         # every mLSTM and sLSTM in two chunks, again when the backward pass
         # recomputes its block under remat
         assert chunks.calls == 2 * cfg.n_layers * (2 if remat else 1)
     else:
         assert chunks.calls == 0
+
+
+def test_loss_over_several_key_chunks_matches_reference():
+    """tinymistral smoke at T 96: three key chunks of 32 under its window
+    of 64 (chunks before the window skipped), the loss and every gradient
+    within 1e-5 of the reference's."""
+    jcfg, cfg = JC.get_smoke("tinymistral_248m"), TC.get_smoke(
+        "tinymistral_248m")
+    tree = numpy_params(jcfg)
+    batch = make_batch(cfg, 2, 96, seed=4)
+    (l_ref, m_ref), g = jax.jit(jax.value_and_grad(
+        lambda p: jlm.loss_fn(p, {k: jnp.asarray(v) for k, v in
+                                  batch.items()}, jcfg), has_aux=True))(
+            jax.tree_util.tree_map(jnp.asarray, tree))
+    l, m, got = port_value_and_grad(tree, cfg, batch)
+    assert abs(float(l) - float(l_ref)) <= LOSS_RTOL * abs(float(l_ref))
+    assert_grads_close(got, {jax.tree_util.keystr(p): np.asarray(v)
+                             for p, v in
+                             jax.tree_util.tree_flatten_with_path(g)[0]})
 
 
 def test_remat_changes_no_value():
@@ -219,10 +247,9 @@ def test_chunked_nll_matches_reference(transpose):
                        {"x": np.asarray(gx), "h": np.asarray(gh)})
 
 
-def reference_steps(jcfg, tree, batches, microbatches, bf16):
+def reference_steps(jcfg, tree, batches, **kw):
     mesh = make_mesh((1, 1), ("data", "model"))
-    built = j_build_train_step(jcfg, mesh, microbatches=microbatches,
-                               bf16_compute=bf16)
+    built = j_build_train_step(jcfg, mesh, **kw)
     params = jax.tree_util.tree_map(jnp.asarray, tree)
     opt_state = built.meta["optimizer"].init(params)
     out = []
@@ -248,12 +275,38 @@ def test_train_step_matches_reference(microbatches, bf16):
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
                                   global_batch=4))
     batches = [data.next_batch() for _ in range(3)]
-    want = reference_steps(jcfg, tree, batches, microbatches, bf16)
+    want = reference_steps(jcfg, tree, batches, microbatches=microbatches,
+                           bf16_compute=bf16)
     built = build_train_step(cfg, microbatches=microbatches,
                              bf16_compute=bf16, device="cpu")
+    check_steps(built, tree, batches, want,
+                BF16_RTOL if bf16 else LOSS_RTOL)
+
+
+def test_default_train_step_matches_reference():
+    """``build_train_step(cfg, None)`` against the reference's
+    ``build_train_step(jcfg, mesh)``, both at every default (train_4k,
+    ``auto_microbatches``' count, bf16 compute): three steps, the
+    metrics within 2e-2 relative."""
+    arch = "tinymistral_248m"
+    jcfg, cfg = JC.get_smoke(arch), TC.get_smoke(arch)
+    tree = numpy_params(jcfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=4))
+    batches = [data.next_batch() for _ in range(3)]
+    want = reference_steps(jcfg, tree, batches)
+    built = build_train_step(cfg, None, device="cpu")
+    assert built.meta["microbatches"] == j_auto_microbatches(
+        jcfg, make_mesh((1, 1), ("data", "model")), "train_4k")
+    check_steps(built, tree, batches, want, BF16_RTOL)
+
+
+def check_steps(built, tree, batches, want, tol):
+    """The port's step from ``tree`` over ``batches``, each step's metrics
+    within ``tol`` relative of ``want``'s and its counter equal; the
+    masters stay plain f32 tensors."""
     params = params_from_numpy(tree, device="cpu")
     opt_state = built.meta["optimizer"].init(params)
-    tol = BF16_RTOL if bf16 else LOSS_RTOL
     for batch, w in zip(batches, want):
         params, opt_state, m = built.fn(
             params, opt_state, {k: torch.from_numpy(v)
@@ -277,7 +330,8 @@ def test_bf16_compute_runs_every_family(arch, b, t):
     batch = make_batch(cfg, b, min(t, 16))
     loss = {}
     for bf16 in (False, True):
-        built = build_train_step(cfg, bf16_compute=bf16, device="cpu")
+        built = build_train_step(cfg, microbatches=1, bf16_compute=bf16,
+                                 device="cpu")
         params = params_from_numpy(tree, device="cpu")
         params, _, m = built.fn(params, built.meta["optimizer"].init(params),
                                 batch)
