@@ -268,6 +268,27 @@ Phases (each passes or the script exits nonzero):
      KEY_BIAS), the all-reduces also by the routing weights' gradient,
      granite's routing equal on both ranks, and the kernels the steps
      launched (none).
+ 15. examples — each ``examples_torch/*.py`` imported by path and called
+     in-process (nothing rebuilt), every kernel launch counted exactly and
+     held against its plain version.  (a) quickstart on the card: sections
+     1, 4 and 5 the CPU run's characters, section 2's three LUT-GEMV
+     launches (M 8, b 2 / 4 / 8) and section 3's int_to_f32 launch (10000
+     elements, n 25, bit-equal to ``.float()``).  (b) serve_batched at the
+     smoke config on the card and on the CPU from one tree (greedy tokens
+     equal, or a parting at a near-tie by phase 10's rule), under
+     ``--plan uniform:4a8`` (the int LUT-GEMV), and ``--full``:
+     tinymistral_248m at full width and depth, 8 requests x 16 tokens,
+     timed (tokens/s, TTFT, compression, peak memory), then served again
+     on the same engine under the holds with the same tokens; launches
+     exact per decode step and prefill pass.  (c) quantize_and_eval at its
+     defaults, card against CPU from one initial tree: every eval loss
+     within EX_QE_TOL, the compression column equal, the LUT-GEMV launched
+     14 times a quantized forward at M 512 (again under ``--nf``).  (d)
+     train_lm's tiny preset 40 steps to a checkpoint (the loss goes
+     down), resumed to 60 (its last loss within EX_RESUME_RTOL of an
+     uninterrupted run's), and the 100m preset for 3 steps (8
+     microbatches from ``auto_microbatches``; step time, peak memory);
+     no kernel launched.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line, and
 as its last line ``{"ok": true, "device": {...}}``.  Exits nonzero without a
@@ -279,11 +300,13 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import io
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -664,7 +687,7 @@ def table_row(torch, timer, x, kernel) -> dict:
 # typeconv: bit-equality cases (shape, element offset of the view) for
 # every n, and the timed cases (shape, n)
 TC_CHECKS = (((64, 4096), 0), ((777,), 0), ((64 * 4096 - 1,), 1),
-             (((1 << 23) + 5,), 3))
+             (((1 << 23) + 5,), 3), ((10000,), 0))   # the last: quickstart's
 TC_CASES = (((64, 4096), 8), ((4096, 4096), 8), ((4096, 4096), 16),
             ((4096, 4096), 25))
 
@@ -6132,6 +6155,486 @@ def phase_dist(rt):
     log(f"[dist] seconds {seconds}")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the examples (examples_torch/), called in-process
+# ---------------------------------------------------------------------------
+
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+# (a): quickstart's printed lines: section 1 (its title and NBW 1-4),
+# section 4 (the PRT hit rate) and section 5 (Table II and Fig. 12)
+QS_SECTIONS = {"1": slice(1, 6), "4": slice(15, 17), "5": slice(18, 25)}
+# (c): the printed eval losses (4 decimals, ~5.6), card against CPU after
+# 30 AdamW steps from the same initial tree
+EX_QE_TOL = 1e-3
+EX_QE_ROW = re.compile(r"(Q ?\d|f32|mix) +(-?[\d.]+) +([-+][\d.]+|-) +"
+                       r"([\d.]+x) +(.*)")
+EX_QE_SWEEP = 6              # Q8, Q6, Q5, Q4, Q3, Q2
+# (d): tiny to a checkpoint, then resumed; the last loss against an
+# uninterrupted run (the card's embedding backward accumulates by atomics)
+EX_TINY_STEPS, EX_RESUME_STEPS = 40, 60
+EX_RESUME_RTOL = 1e-5
+EX_100M_STEPS = 3
+EX_SERVED = re.compile(r"\(([\d.]+) tok/s measured on (.*), (\d+) model "
+                       r"iterations, mean TTFT")
+
+
+def example(name):
+    """``examples_torch/<name>.py`` loaded by path (a script, not a
+    package)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def quietly(fn, *args):
+    """(``fn(*args)``, the lines it printed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue().splitlines()
+
+
+@contextlib.contextmanager
+def counted(torch):
+    """The launch counters set to 0 on entry; on exit the yielded dict
+    holds what the block launched."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    counts = {}
+    yield counts
+    torch.cuda.synchronize()
+    counts.update(_build.launches)
+
+
+class HeldTypeconv:
+    """Within the block, every int_to_f32 launch is held bit for bit
+    against ``.float()`` on the launch's own input."""
+
+    def __init__(self, torch, name):
+        from repro_torch.kernels.typeconv import ops
+        self.ops, self.torch, self.name = ops, torch, name
+        self.calls, self.elements, self.ns = 0, 0, []
+
+    def __enter__(self):
+        torch = self.torch
+        self.fn = self.ops.int_to_f32_cuda
+
+        def conv(a, n):
+            out = self.fn(a, n)
+            want = a.to(torch.float32)
+            if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+                fail(f"{self.name}: int_to_f32 n {n} on {tuple(a.shape)}: "
+                     f"{int((out != want).sum())} elements differ from "
+                     ".float()")
+            self.calls += 1
+            self.elements += a.numel()
+            self.ns.append(n)
+            return out
+        self.ops.int_to_f32_cuda = conv
+        return self
+
+    def __exit__(self, *exc):
+        self.ops.int_to_f32_cuda = self.fn
+        return False
+
+
+def examples_quickstart(torch, res):
+    """(a): quickstart on the card against its CPU run."""
+    qs = example("quickstart")
+    _, want = quietly(qs.main, ["--device", "cpu"])
+    with counted(torch) as counts, \
+            Held(torch, "quickstart", cache=False) as held, \
+            HeldTypeconv(torch, "quickstart") as tc:
+        errs, got = quietly(qs.main, ["--device", "cuda"])
+    same = {k: got[s] == want[s] for k, s in QS_SECTIONS.items()}
+    need = dict(lut_matmul=3, int_to_f32=1, lut_matmul_int=0,
+                decode_attention=0)
+    if (len(got) != len(want) or not all(same.values())
+            or any(counts[k] != v for k, v in need.items())
+            or held.calls != {(b, 0): 1 for b in (2, 4, 8)}
+            or tc.ns != [25] or tc.elements != 10000
+            or "bit-exact vs astype(float32): True" not in got[13]):
+        fail(f"examples (a) quickstart: sections equal to the CPU run's "
+             f"{same}, launches {counts} (need {need}), LUT-GEMV held "
+             f"{dict(held.calls)}, int_to_f32 at n {tc.ns} on "
+             f"{tc.elements} elements; section 3: {got[12:14]}")
+    res["runs"]["quickstart"] = dict(
+        launches=counts, max_abs_err_lut=held.err["f32"],
+        kernel_vs_plain={f"Q{b}": e for b, e in errs.items()},
+        int_to_f32_elements=tc.elements, equal_to_cpu=same,
+        section2=got[7:11], section3=got[13])
+    log(f"[examples] (a) quickstart on the card: sections 1, 4 and 5 equal "
+        f"the CPU run's; {got[7]}: "
+        + "; ".join(line.strip().split(";")[0] for line in got[8:11])
+        + f" (every launch held at rtol {F32_RTOL} / atol {F32_ATOL}); "
+        f"int_to_f32 at n 25 on 10000 elements bit-equal to .float(); "
+        f"launches {counts}")
+
+
+def serve_counts(name, eng, cfg, counts, before, flavour):
+    """Exact launches of the serves since ``before`` (the engine's stats
+    then): each decode step its quantized matrices through ``flavour``
+    and each layer's attention in ring mode, each prefill pass the
+    matrices and wk / wv again; nothing else.  Returns the step and pass
+    counts."""
+    st = eng.stats()
+    steps = st["decode_iterations"] - before.get("decode_iterations", 0)
+    passes = st["prefill_iterations"] - before.get("prefill_iterations", 0)
+    dec, pre = lut_calls(eng.params)
+    other = "lut_matmul" if flavour == "lut_matmul_int" else "lut_matmul_int"
+    need = {flavour: dec * steps + pre * passes, other: 0,
+            "decode_attention": cfg.n_layers * steps,
+            "decode_attention_table": 0, "int_to_f32": 0}
+    if any(counts[k] != v for k, v in need.items()):
+        fail(f"examples {name}: launches {counts}, need {need} ({dec} "
+             f"LUT-GEMV and {cfg.n_layers} attentions per decode step, "
+             f"{pre} LUT-GEMV per prefill pass; {steps} steps, {passes} "
+             "passes)")
+    return dict(decode_steps=steps, prefill_passes=passes,
+                lut_per_decode_step=dec, lut_per_prefill=pre,
+                attention_per_decode_step=cfg.n_layers)
+
+
+def serve_held(torch, sb, params, cfg, args, name, flavour):
+    """``build_engine`` and ``serve`` on the card, every launch held and
+    counted: (engine, {uid: tokens}, record, logits rows, lines)."""
+    dev = torch.device("cuda")
+    eng, head = quietly(sb.build_engine, params, cfg, args, dev)
+    rows = Recorder(eng)
+    with counted(torch) as counts, Held(torch, name) as held, \
+            HeldAttn(torch, name) as held_attn:
+        comps, lines = quietly(sb.serve, eng, cfg, args, dev)
+    rec = serve_counts(name, eng, cfg, counts, {}, flavour)
+    rec.update(launches=counts, held_lut=sum(held.calls.values()),
+               max_abs_err_lut=held.err["int" if "int" in flavour
+                                         else "f32"],
+               held_attention=held_attn.calls,
+               max_abs_err_attention=held_attn.err)
+    return eng, {c.uid: c.tokens for c in comps}, rec, rows, head + lines
+
+
+def examples_serve(torch, res):
+    """(b): serve_batched at the smoke config on the card and the CPU, at
+    full width and depth (timed, then served again under the holds), and
+    under uniform:4a8."""
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    sb = example("serve_batched")
+    runs = res["runs"]
+    args = sb.parse_args(["--device", "cuda"])
+    cfg = sb.model_config(args)
+    raw = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.cuda(), raw)
+    eng, got, rec, rows, lines = serve_held(torch, sb, card, cfg, args,
+                                            "serve_batched smoke",
+                                            "lut_matmul")
+    del eng
+    cpu_args = sb.parse_args(["--device", "cpu"])
+    ceng, cpu_lines = quietly(sb.build_engine, raw, cfg, cpu_args,
+                              torch.device("cpu"))
+    cpu_rows = Recorder(ceng)
+    comps, served = quietly(sb.serve, ceng, cfg, cpu_args,
+                            torch.device("cpu"))
+    cpu_lines += served
+    want = {c.uid: c.tokens for c in comps}
+    ties = {}
+    for uid, step in first_parting(got, want).items():
+        tie = ties[str(uid)] = near_tie(torch, rows.rows, cpu_rows.rows,
+                                        uid, step)
+        if not tie["explained"]:
+            fail(f"examples (b) smoke: request {uid} parts from the CPU's "
+                 f"at token {step}, no near-tie explains it ({tie})")
+    name = torch.cuda.get_device_name(0)
+    if (len(got) != args.requests or lines[0] != cpu_lines[0]
+            or f"measured on {name}" not in lines[1]):
+        fail(f"examples (b) smoke: {len(got)} completions; {lines[:2]} "
+             f"against the CPU's {cpu_lines[:1]}")
+    rec.update(equal_to_cpu=sum(got[u] == want[u] for u in want),
+               near_ties=ties, first_tokens={u: t[:8] for u, t in got.items()})
+    runs["serve_batched smoke"] = rec
+    log(f"[examples] (b) serve_batched smoke ({cfg.name}): {lines[0]}; "
+        f"{rec['equal_to_cpu']} of {len(want)} requests' greedy tokens "
+        f"equal the CPU's, near-ties {ties}; launches {rec['launches']}, "
+        f"exactly {rec['lut_per_decode_step']} LUT-GEMV and "
+        f"{rec['attention_per_decode_step']} attentions per decode step, "
+        f"{rec['lut_per_prefill']} LUT-GEMV per prefill pass, every launch "
+        f"held (max abs err {rec['max_abs_err_lut']:.3e} / "
+        f"{rec['max_abs_err_attention']:.3e})")
+
+    # uniform:4a8 at the smoke config: the int LUT-GEMV
+    a8 = sb.parse_args(["--device", "cuda", "--plan", "uniform:4a8"])
+    eng, got8, rec, _, _ = serve_held(torch, sb, card, cfg, a8,
+                                      "serve_batched uniform:4a8",
+                                      "lut_matmul_int")
+    rec["equal_to_uniform4"] = sum(got8[u] == got[u] for u in got)
+    runs["serve_batched --plan uniform:4a8"] = rec
+    del eng, card
+    log(f"[examples] (b) serve_batched --plan uniform:4a8: launches "
+        f"{rec['launches']} (exact), every int LUT-GEMV launch held (max "
+        f"abs err {rec['max_abs_err_lut']:.3e}); {rec['equal_to_uniform4']} "
+        f"of {len(got)} requests equal uniform:4's tokens")
+
+    # --full: tinymistral_248m at full width and depth, timed as the
+    # example runs it, then the same requests again under the holds
+    torch.cuda.reset_peak_memory_stats()
+    with counted(torch) as counts:
+        (eng, comps), lines = quietly(sb.main, ["--full"])
+    cfg = eng.cfg
+    rec = serve_counts("serve_batched --full", eng, cfg, counts, {},
+                       "lut_matmul")
+    first = {c.uid: c.tokens for c in comps}
+    m = EX_SERVED.search(lines[1])
+    st = eng.stats()
+    rec.update(launches=counts, tok_per_s=float(m.group(1)),
+               mean_ttft_s=st["mean_ttft_s"],
+               decode_tok_per_s=st["measured_tps"],
+               compression=eng.compression, layers=cfg.n_layers,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 2 ** 30, lines=lines)
+    before = eng.stats()
+    with counted(torch) as counts, \
+            Held(torch, "serve_batched --full") as held, \
+            HeldAttn(torch, "serve_batched --full") as held_attn:
+        again, _ = quietly(sb.serve, eng, cfg, sb.parse_args(["--full"]),
+                           torch.device("cuda"))
+    held_rec = serve_counts("serve_batched --full (held)", eng, cfg, counts,
+                            before, "lut_matmul")
+    same = [c.tokens for c in again[len(first):]] == list(first.values())
+    if (len(first) != 8 or any(len(t) != 16 for t in first.values())
+            or not same or held_rec != {k: rec[k] for k in held_rec}):
+        fail(f"examples (b) --full: {len(first)} completions, the held "
+             f"rerun's tokens equal: {same}, its passes {held_rec} against "
+             f"{rec}")
+    held_rec.update(launches=counts, held_lut=sum(held.calls.values()),
+                    max_abs_err_lut=held.err["f32"],
+                    held_attention=held_attn.calls,
+                    max_abs_err_attention=held_attn.err)
+    runs["serve_batched --full"] = rec
+    runs["serve_batched --full (held rerun)"] = held_rec
+    del eng
+    log(f"[examples] (b) serve_batched --full ({cfg.name}, "
+        f"{cfg.n_layers} layers, {card_line()}): {lines[0]}; {lines[1]}; "
+        f"decode {rec['decode_tok_per_s']:.1f} tok/s, mean TTFT "
+        f"{rec['mean_ttft_s'] * 1e3:.1f} ms, max memory allocated "
+        f"{rec['max_memory_allocated_gb']:.2f} GB; launches "
+        f"{rec['launches']}, exactly {rec['lut_per_decode_step']} LUT-GEMV "
+        f"and {rec['attention_per_decode_step']} attentions per decode step "
+        f"({rec['decode_steps']} steps), {rec['lut_per_prefill']} LUT-GEMV "
+        f"per prefill pass ({rec['prefill_passes']}); the held rerun: same "
+        f"tokens, every launch held (max abs err "
+        f"{held_rec['max_abs_err_lut']:.3e} / "
+        f"{held_rec['max_abs_err_attention']:.3e})")
+
+
+def qe_rows(lines):
+    return {m.group(1): m.groups()[1:]
+            for m in map(EX_QE_ROW.fullmatch, lines) if m}
+
+
+def examples_quantize(torch, res):
+    """(c): quantize_and_eval at its defaults, card against CPU from one
+    initial tree, every LUT-GEMV launch held and counted by M; again
+    under --nf on the card."""
+    import repro_torch.configs as C
+    from repro_torch.models import lm
+    from repro_torch.models.sail_linear import QuantPolicy, quantize_params
+    from repro_torch.tree import tree_map
+    qe = example("quantize_and_eval")
+    args = qe.parse_args(["--device", "cuda"])
+    cfg = C.get_smoke(args.arch)
+    init = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    t0 = time.perf_counter()
+    _, want = quietly(qe.run, init, cfg, qe.parse_args(["--device", "cpu"]),
+                      torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    rows = {}
+    for flag in ([], ["--nf"]):
+        name = " ".join(["quantize_and_eval"] + flag)
+        t0 = time.perf_counter()
+        with counted(torch) as counts, \
+                Held(torch, name, cache=False) as held, CountByM() as by_m:
+            trained, got = quietly(qe.run, tree_map(lambda t: t.cuda(), init),
+                                   cfg, qe.parse_args(["--device", "cuda"]
+                                                      + flag),
+                                   torch.device("cuda"))
+        seconds = time.perf_counter() - t0
+        dec = lut_calls(quantize_params(trained, QuantPolicy(
+            bits=4, group_size=32, min_size=1024))[0])[0]
+        rows[name] = qe_rows(got)
+        need = {8 * 64: (EX_QE_SWEEP + 1) * dec}     # B x T rows a pass
+        if (dict(by_m.by_m) != need or counts["lut_matmul"] != sum(
+                need.values()) or counts["lut_matmul_int"]
+                or counts["decode_attention"] or counts["int_to_f32"]
+                or len(rows[name]) != EX_QE_SWEEP + 2):
+            fail(f"examples (c) {name}: launches {counts}, by M "
+                 f"{dict(by_m.by_m)} (need {need}: {dec} a forward), rows "
+                 f"{list(rows[name])}")
+        res["runs"][name] = dict(launches=counts, by_m=dict(by_m.by_m),
+                                 lut_per_forward=dec, seconds=seconds,
+                                 max_abs_err_lut=held.err["f32"],
+                                 lines=got)
+    mine, cpu = rows["quantize_and_eval"], qe_rows(want)
+    diff = {k: abs(float(mine[k][0]) - float(cpu[k][0])) for k in cpu}
+    comp = {k: mine[k][2] == cpu[k][2] for k in cpu}
+    if list(mine) != list(cpu) or max(diff.values()) > EX_QE_TOL \
+            or not all(comp.values()):
+        fail(f"examples (c): eval losses card against CPU {diff} (tolerance "
+             f"{EX_QE_TOL}), compression equal {comp}")
+    rec = res["runs"]["quantize_and_eval"]
+    rec.update(loss_diff_vs_cpu=diff, cpu_seconds=cpu_s, cpu_lines=want)
+    log(f"[examples] (c) quantize_and_eval ({cfg.name}): card "
+        f"{rec['seconds']:.1f} s, CPU {cpu_s:.1f} s; eval losses card "
+        f"against CPU within "
+        f"{max(diff.values()):.1e} (tolerance {EX_QE_TOL}): "
+        + ", ".join(f"{k} {mine[k][0]}/{cpu[k][0]}" for k in mine)
+        + f"; compression column equal; launches {rec['launches']} all at "
+        f"M {list(rec['by_m'])} ({rec['lut_per_forward']} a forward, every "
+        f"launch held, max abs err {rec['max_abs_err_lut']:.3e}); --nf: "
+        + ", ".join(f"{k} {v[0]}" for k, v in rows["quantize_and_eval --nf"]
+                    .items())
+        + f", launches {res['runs']['quantize_and_eval --nf']['launches']}")
+
+
+class LoggedStep:
+    """A train step timed (``TimedStep``) that also keeps its losses."""
+
+    def __init__(self, torch, fn):
+        self.timed, self.losses = TimedStep(torch, fn), []
+
+    def __call__(self, params, opt_state, batch):
+        out = self.timed(params, opt_state, batch)
+        self.losses.append(float(out[2]["loss"]))
+        return out
+
+
+def examples_train(torch, res):
+    """(d): train_lm's tiny preset to a checkpoint, resumed, against an
+    uninterrupted run; the 100m preset timed for three steps."""
+    import dataclasses
+    from repro_torch.models import lm
+    tl = example("train_lm")
+    runs, ckpt = res["runs"], os.path.join(OUT_DIR, "examples_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    # the example installs the loop's SIGTERM / SIGINT handlers: this
+    # process keeps its own
+    saved = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        out = {}
+        for name, argv in (
+                ("tiny", ["--steps", str(EX_TINY_STEPS), "--ckpt", ckpt]),
+                ("tiny resumed", ["--steps", str(EX_RESUME_STEPS), "--ckpt",
+                                  ckpt]),
+                ("tiny uninterrupted", ["--steps", str(EX_RESUME_STEPS)])):
+            t0 = time.perf_counter()
+            with counted(torch) as counts:
+                result, lines = quietly(tl.main, argv)
+            out[name] = result
+            runs[f"train_lm {name}"] = dict(
+                launches=counts, seconds=time.perf_counter() - t0,
+                losses={r["step"]: r["loss"] for r in result["log"]},
+                lines=lines)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+        for s, handler in saved.items():
+            signal.signal(s, handler)
+    first = out["tiny"]["log"]
+    resumed = runs["train_lm tiny resumed"]["lines"]
+    last, whole = (out["tiny resumed"]["log"][-1]["loss"],
+                   out["tiny uninterrupted"]["log"][-1]["loss"])
+    if (not first[-1]["loss"] < first[0]["loss"]
+            or f"resumed from step {EX_TINY_STEPS}" not in resumed
+            or out["tiny resumed"]["final_step"] != EX_RESUME_STEPS
+            or abs(last - whole) > EX_RESUME_RTOL * abs(whole)
+            or any(sum(r["launches"].values()) for k, r in runs.items()
+                   if k.startswith("train_lm"))):
+        fail(f"examples (d) train_lm tiny: losses {first[0]['loss']} -> "
+             f"{first[-1]['loss']}; resumed {resumed[-3:]}: last loss "
+             f"{last} against {whole} uninterrupted (rtol "
+             f"{EX_RESUME_RTOL})")
+    log(f"[examples] (d) train_lm tiny: loss {first[0]['loss']:.4f} -> "
+        f"{first[-1]['loss']:.4f} in {EX_TINY_STEPS} steps; resumed from "
+        f"step {EX_TINY_STEPS} to {EX_RESUME_STEPS}: last loss {last!r} "
+        f"against {whole!r} uninterrupted (|d| {abs(last - whole):.2e}); "
+        f"no kernel launched")
+
+    # 100m: the reference's real driver config at full width
+    args = tl.parse_args(["--preset", "100m", "--steps", str(EX_100M_STEPS)])
+    dev = torch.device("cuda")
+    cfg = tl.preset_cfg(args.preset, args.arch)
+    torch.cuda.reset_peak_memory_stats()
+    with counted(torch) as counts:
+        built, head = quietly(tl.build, cfg, dev)
+        step = LoggedStep(torch, built.fn)
+        params = lm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                                dev)
+        try:
+            result, lines = quietly(tl.train,
+                                    dataclasses.replace(built, fn=step),
+                                    params, cfg, args)
+        finally:
+            for s, handler in saved.items():
+                signal.signal(s, handler)
+    del params
+    mem = torch.cuda.max_memory_allocated() / 2 ** 30
+    micro = built.meta["microbatches"]
+    if (micro != 8 or result["final_step"] != EX_100M_STEPS
+            or len(step.losses) != EX_100M_STEPS
+            or not all(math.isfinite(x) for x in step.losses)
+            or sum(counts.values())):
+        fail(f"examples (d) train_lm 100m: {micro} microbatches (need 8), "
+             f"losses {step.losses}, launches {counts}")
+    runs["train_lm 100m"] = dict(
+        launches=counts, microbatches=micro, losses=step.losses,
+        step_ms=step.timed.ms, step_wall_ms=step.timed.wall_ms,
+        max_memory_allocated_gb=mem, batch=args.batch, seq=args.seq,
+        lines=head + lines)
+    log(f"[examples] (d) train_lm --preset 100m ({lines[0]}): "
+        f"{EX_100M_STEPS} steps of B {args.batch} x T {args.seq} in "
+        f"{micro} microbatches (auto_microbatches at train_4k), losses "
+        f"{[round(x, 4) for x in step.losses]}, step device span "
+        f"{[round(x, 1) for x in step.timed.ms]} ms, wall "
+        f"{[round(x, 1) for x in step.timed.wall_ms]} ms, max memory "
+        f"allocated {mem:.2f} GB ({card_line()})")
+
+
+def phase_examples(rt):
+    import torch
+    res = rt["examples"] = {"runs": {}, "seconds": {}}
+    for part, fn in (("quickstart", examples_quickstart),
+                     ("serve_batched", examples_serve),
+                     ("quantize_and_eval", examples_quantize),
+                     ("train_lm", examples_train)):
+        t0 = time.perf_counter()
+        fn(torch, res)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["seconds"][part] = time.perf_counter() - t0
+    log(f"[examples] seconds {res['seconds']}")
+
+
+def examples_fields(examples: dict, name: str) -> dict:
+    """Kernel ``name``'s launches in phase 15's runs of the examples and
+    its held sets' worst errors."""
+    runs = examples["runs"]
+    out = {"launches_examples": {run: rec["launches"].get(name, 0)
+                                 for run, rec in runs.items()}}
+    if name.startswith("lut_matmul"):
+        out["max_abs_err_examples"] = {
+            run: rec["max_abs_err_lut"] for run, rec in runs.items()
+            if "max_abs_err_lut" in rec and rec["launches"].get(name)}
+    if name == "decode_attention":
+        out["max_abs_err_examples"] = {
+            run: rec["max_abs_err_attention"] for run, rec in runs.items()
+            if "max_abs_err_attention" in rec}
+    if name == "int_to_f32":
+        out["max_abs_err_examples"] = {"quickstart": 0.0}
+    return out
+
+
 def dist_fields(dist: dict, name: str) -> dict:
     """Kernel ``name``'s launches in phase 14's serving of the restored
     trees and its held sets' worst errors (training launches none)."""
@@ -6245,7 +6748,8 @@ def kernels_line(rt) -> dict:
     """``launches`` is each kernel's count from the engine run of the plan
     that routes through it (the standalone int_to_f32 is on neither path:
     its device function is inlined into the int LUT-GEMV, so its count is
-    read from the uniform:4a8 run and is expected to be 0)."""
+    read from the uniform:4a8 run and is expected to be 0; quickstart's
+    section 3 launches it, ``launches_examples``)."""
     meta = {
         "lut_matmul": ("src/repro_torch/csrc/lut_gemv.cu",
                        "src/repro/kernels/lut_gemv/kernel.py:138",
@@ -6328,6 +6832,7 @@ def kernels_line(rt) -> dict:
         entry.update(others_fields(rt["others"], name))
         entry.update(train_fields(rt["train"], name))
         entry.update(dist_fields(rt["dist"], name))
+        entry.update(examples_fields(rt["examples"], name))
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "call_ms", "bytes_bound_ms",
                     "int_ops_bound_ms", "int_ops_per_elem",
@@ -6361,7 +6866,8 @@ def main() -> int:
               ("planner", phase_planner), ("sampling", phase_sampling),
               ("speculation", phase_speculation), ("tp", phase_tp),
               ("families", phase_families), ("others", phase_others),
-              ("train", phase_train), ("dist", phase_dist))
+              ("train", phase_train), ("dist", phase_dist),
+              ("examples", phase_examples))
     only = sys.argv[2].split(",") if sys.argv[1:2] == ["--phases"] else None
     for name, fn in phases:
         if only is not None and name not in only:
@@ -6374,7 +6880,8 @@ def main() -> int:
         os.makedirs(OUT_DIR, exist_ok=True)
         with open(os.path.join(OUT_DIR, "phases.json"), "w") as f:
             json.dump({k: rt[k] for k in ("families", "others", "planner",
-                                          "train", "dist", "build_s")
+                                          "train", "dist", "examples",
+                                          "build_s")
                        if k in rt}, f, indent=1, default=str)
         log(f"phases {only} passed in {time.perf_counter() - t_all:.1f} s")
         return 0
@@ -6388,7 +6895,7 @@ def main() -> int:
                    "speculation": rt["speculation"], "tp": rt["tp"],
                    "families": rt["families"], "others": rt["others"],
                    "train": rt["train"], "dist": rt["dist"],
-                   "build_s": rt["build_s"],
+                   "examples": rt["examples"], "build_s": rt["build_s"],
                    "model_err": rt["model_err"]}, f, indent=1)
     log(f"all phases passed in {time.perf_counter() - t_all:.1f} s")
     print(json.dumps(line))

@@ -148,8 +148,10 @@ def _port_files():
     files += [os.path.join(ROOT, "tools", n) for n in ("lut_gemv_times.py",
                                                        "decode_attn_times.py",
                                                        "typeconv_times.py")]
-    for base, _, names in os.walk(os.path.join(ROOT, "src", "repro_torch")):
-        files += [os.path.join(base, n) for n in names if n.endswith(".py")]
+    for top in (("src", "repro_torch"), ("examples_torch",)):
+        for base, _, names in os.walk(os.path.join(ROOT, *top)):
+            files += [os.path.join(base, n) for n in names
+                      if n.endswith(".py")]
     return files
 
 
@@ -161,10 +163,14 @@ def test_port_imports_neither_jax_nor_reference():
                  "dist/compress.py", "launch/mesh.py"):
         assert os.path.join(ROOT, "src", "repro_torch",
                             *name.split("/")) in files
+    for name in ("quickstart", "serve_batched", "quantize_and_eval",
+                 "train_lm"):
+        assert os.path.join(ROOT, "examples_torch", f"{name}.py") in files
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, mod)
+            assert top not in ("jax", "jaxlib", "repro", "examples"), \
+                (path, mod)
 
 
 def test_entry_points_refuse_a_missing_cuda_device(smoke, monkeypatch):
